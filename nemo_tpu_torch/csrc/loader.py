@@ -1,0 +1,106 @@
+"""Build the `.cu` sources of this directory with nvcc and load them with ctypes.
+
+Each source `<name>.cu` exposes a plain C interface and is compiled on first
+use into `build/lib<name>-<hash>.so` (hash of the source and the flags), for
+`sm_90a`:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so <name>.cu
+
+`build_all()` starts one nvcc per source, all at once, and waits for them.
+ptxas's register and shared-memory report goes to `build/<name>.log`.
+Nothing is built when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Sequence
+
+CSRC = Path(__file__).resolve().parent
+BUILD = CSRC / "build"
+SOURCES = ("relpos_flash", "fused_subsampling")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return nvcc
+
+
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha1(src.read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source unless its library is already built;
+    returns (process, name, temporary output, final output, log file)."""
+    out = _target(name)
+    if out.exists():
+        return None
+    nvcc = _nvcc()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    log = open(BUILD / f"{name}.log", "w")
+    try:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+    except OSError:
+        log.close()
+        raise
+    return proc, name, tmp, out, log
+
+
+def _finish(job) -> None:
+    proc, name, tmp, out, log = job
+    try:
+        rc = proc.wait()
+    finally:
+        log.close()
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu (rc {rc}):\n"
+                           + (BUILD / f"{name}.log").read_text()[-4000:])
+    os.replace(tmp, out)
+
+
+def build_all(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
+    """Compile every named source in parallel; returns name → library path."""
+    jobs = [j for j in (_start(n) for n in names) if j is not None]
+    errors = []
+    for j in jobs:
+        try:
+            _finish(j)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return {n: _target(n) for n in names}
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library `name`, built first if needed."""
+    job = _start(name)
+    if job is not None:
+        _finish(job)
+    return ctypes.CDLL(str(_target(name)))
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

@@ -1,0 +1,198 @@
+"""CTC ASR model: Conformer-CTC transcription (counterpart of
+nemo_tpu/models/asr/ctc_models.py:EncDecCTCModel).
+
+PCM → mel (ops/audio.py) → ConformerEncoder → ConvASRDecoder log-softmax →
+argmax on the device → CTC collapse on the host → text. Transcription is
+pipelined: batch i is launched before batch i−1's ids are collapsed on the
+host, and only the [B, T'] int32 ids and the lengths leave the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Iterable, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from nemo_tpu_torch.core.config import ConfigDict
+from nemo_tpu_torch.data.audio_io import read_wav
+from nemo_tpu_torch.models.asr.modules.conformer import ConformerEncoder
+from nemo_tpu_torch.models.asr.modules.conv_asr import ConvASRDecoder
+from nemo_tpu_torch.models.asr.parts.ctc_decoding import CTCDecoding
+from nemo_tpu_torch.ops.audio import (MelSpectrogramConfig, build_mel_constants,
+                                      mel_spectrogram, pcm_to_float)
+from nemo_tpu_torch.ops.ctc import ctc_collapse, ctc_greedy_predictions
+
+
+def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
+    """None means CUDA. A CUDA device on a machine without one raises: the
+    port never drops quietly to the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+    return device
+
+
+def _mel_cfg_from(cfg) -> MelSpectrogramConfig:
+    names = {f.name for f in dataclasses.fields(MelSpectrogramConfig)}
+    return MelSpectrogramConfig(**{k: v for k, v in dict(cfg or {}).items() if k in names})
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded init: lecun-normal weights, zero biases, unit norms, BatchNorm
+    running stats at mean 0 / var 1. Parameters keep their dtype."""
+    for mod in module.modules():
+        for name, p in mod.named_parameters(recurse=False):
+            if isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d)):
+                val = torch.ones if name == "weight" else torch.zeros
+                p.data.copy_(val(p.shape))
+            elif name == "bias" or name.startswith("pos_bias"):
+                p.data.zero_()
+            else:
+                w = torch.empty(p.shape, dtype=torch.float32)
+                fan_in = p[0].numel() if isinstance(mod, (nn.Conv1d, nn.Conv2d)) else (
+                    p.shape[-1] if isinstance(mod, nn.Linear) else p.shape[0])
+                w.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+                p.data.copy_(w)
+        if isinstance(mod, nn.BatchNorm1d):
+            mod.running_mean.zero_()
+            mod.running_var.fill_(1.0)
+
+
+class EncDecCTCModel(nn.Module):
+    """Conformer-CTC model from a config of `models/asr/configs.py:conformer_ctc`.
+
+    `device=None` means CUDA (and raises without it); `device="cpu"` runs the
+    plain versions of the kernels. Weights are initialised from `seed` with a
+    `torch.Generator` on the host, so the same seed gives the same weights on
+    every device; `interop/jax_params.py:load_jax_variables` replaces them."""
+
+    def __init__(self, cfg: ConfigDict, device: Union[str, torch.device, None] = None,
+                 seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        cfg = ConfigDict(cfg)
+        self.cfg = cfg
+        self.sample_rate = int(cfg.get("sample_rate", 16000))
+        self.mel_cfg = _mel_cfg_from(cfg.get("preprocessor", {}))
+        labels = cfg.get("labels") or cfg.get("decoder", {}).get("vocabulary")
+        if labels is None:
+            raise ValueError("config must provide labels / decoder.vocabulary")
+        self.labels = list(labels)
+        enc_cfg = dict(cfg.encoder)
+        enc_cfg.setdefault("feat_in", self.mel_cfg.features)
+        d_enc = int(cfg.get("decoder", {}).get("feat_in") or enc_cfg["d_model"])
+        with torch.random.fork_rng(devices=[]):  # default inits must not move the global RNG
+            self.encoder = ConformerEncoder(**enc_cfg)
+            self.decoder = ConvASRDecoder(d_enc, len(self.labels))
+        init_weights(self, torch.Generator().manual_seed(seed))
+        for i, c in enumerate(build_mel_constants(self.mel_cfg)):
+            self.register_buffer(f"mel_const{i}", torch.from_numpy(c), persistent=False)
+        self.decoding = CTCDecoding(self.labels)
+        self.eval()
+        self.to(device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.mel_const0.device
+
+    @torch.inference_mode()
+    def forward(self, signal: torch.Tensor, length: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[B, T] int16 PCM or float audio, [B] sample counts →
+        (log_probs [B, T', V+1] fp32, frame lengths [B])."""
+        consts = (self.mel_const0, self.mel_const1, self.mel_const2)
+        feats, feat_len = mel_spectrogram(pcm_to_float(signal), length, self.mel_cfg, consts)
+        enc, enc_len = self.encoder(feats, feat_len)
+        return self.decoder(enc), enc_len
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """Host array → the model's device; to CUDA through pinned memory, so
+        the copy does not wait for the batch in flight."""
+        t = torch.from_numpy(arr)
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _launch(self, signal: torch.Tensor, length: torch.Tensor, n: int):
+        """Enqueue forward + argmax; start copying the ids to the host.
+        Returns what `_collect` needs to finish the batch."""
+        log_probs, enc_len = self.forward(signal, length)
+        ids = ctc_greedy_predictions(log_probs)
+        if ids.device.type != "cuda":
+            return ids, enc_len, None, n
+        host_ids = torch.empty(ids.shape, dtype=ids.dtype, pin_memory=True)
+        host_len = torch.empty(enc_len.shape, dtype=enc_len.dtype, pin_memory=True)
+        host_ids.copy_(ids, non_blocking=True)
+        host_len.copy_(enc_len, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host_ids, host_len, done, n
+
+    def _collect(self, pending) -> List[str]:
+        """Wait for one launched batch's ids only, then collapse on the host."""
+        ids, lens, done, n = pending
+        if done is not None:
+            done.synchronize()
+        id_lists = ctc_collapse(ids[:n].numpy(), lens[:n].numpy(), blank=self.decoding.blank_id)
+        return [self.decoding.ids_to_text(x) for x in id_lists]
+
+    def transcribe_staged(self, staged: Iterable[Tuple[torch.Tensor, torch.Tensor, int]]
+                          ) -> List[str]:
+        """Transcription over device-resident PCM batches.
+
+        staged: (signal [B, T] int16/f32 on the model's device, lengths [B]
+        on the device, n_valid) per batch. Runs the pipeline of `transcribe`
+        without the host→device upload."""
+        results: List[str] = []
+        pending = None
+        for sig, lens, n in staged:
+            launched = self._launch(sig, lens, n)
+            if pending is not None:
+                results.extend(self._collect(pending))
+            pending = launched
+        if pending is not None:
+            results.extend(self._collect(pending))
+        return results
+
+    def transcribe(self, audio: Sequence[Union[str, np.ndarray]],
+                   batch_size: int = 4) -> List[str]:
+        """Wav paths or float arrays → texts. Wav inputs ship as int16 PCM;
+        each batch is padded to a power-of-two sample count (`_bucket`)."""
+        results: List[str] = []
+        pending = None
+        for start in range(0, len(audio), batch_size):
+            batch = audio[start: start + batch_size]
+            sigs, all_i16 = [], True
+            for a in batch:
+                if isinstance(a, str):
+                    x, _ = read_wav(a, target_sr=self.sample_rate)
+                else:
+                    x = np.asarray(a, np.float32)
+                    all_i16 = False
+                sigs.append(x)
+            lens = np.array([len(s) for s in sigs], np.int32)
+            pad_len = _bucket(int(lens.max()))
+            dtype = np.int16 if all_i16 else np.float32
+            padded = np.zeros((batch_size, pad_len), dtype)
+            for i, s in enumerate(sigs):
+                if dtype == np.int16:
+                    s = np.clip(np.rint(s * 32768.0), -32768, 32767).astype(np.int16)
+                padded[i, : len(s)] = s
+            full_lens = np.ones(batch_size, np.int32)
+            full_lens[: len(sigs)] = lens
+            launched = self._launch(self._upload(padded), self._upload(full_lens), len(sigs))
+            if pending is not None:
+                results.extend(self._collect(pending))
+            pending = launched
+        if pending is not None:
+            results.extend(self._collect(pending))
+        return results
+
+
+def _bucket(n: int, minimum: int = 16000) -> int:
+    """Pad target: next power of two ≥ n."""
+    return max(minimum, 2 ** math.ceil(math.log2(max(n, 1))))

@@ -1,0 +1,121 @@
+"""The PyTorch port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs an NVIDIA card (marker `cuda`) and skips without one.
+The file imports no JAX, so that it runs where JAX is not installed:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py -q
+
+(`--noconftest` keeps the JAX setup of tests/conftest.py out). TF32 is off,
+so the fp32 plain versions are full fp32.
+"""
+
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from nemo_tpu_torch.models.asr.configs import conformer_ctc  # noqa: E402
+from nemo_tpu_torch.models.asr.ctc_models import EncDecCTCModel  # noqa: E402
+from nemo_tpu_torch.models.asr.modules.conformer import RelPositionalEncoding  # noqa: E402
+from nemo_tpu_torch.ops.flash_attention import (  # noqa: E402
+    relpos_flash_attention, relpos_flash_attention_plain)
+from nemo_tpu_torch.ops.subsampling_kernel import (  # noqa: E402
+    fused_subsampling_x4, fused_subsampling_x4_plain)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _attention_inputs(B, H, T, lengths, seed):
+    dh = 64
+    g = torch.Generator().manual_seed(seed)
+    qu, qv, k, v = (torch.randn(B, T, H, dh, generator=g).transpose(1, 2) for _ in range(4))
+    _, pos_emb = RelPositionalEncoding(H * dh)(torch.zeros(1, T, H * dh))
+    p = pos_emb @ (torch.randn(H * dh, H * dh, generator=g) / math.sqrt(H * dh))
+    return [qu, qv, k, v, p.view(2 * T - 1, H, dh).transpose(0, 1),
+            torch.tensor(lengths, dtype=torch.int32), 1.0 / math.sqrt(dh)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("T,lengths", [(64, [64, 64]), (151, [151, 77]), (200, [1, 133]),
+                                       (751, [751, 700])])
+def test_relpos_flash_kernel_matches_plain(cuda, dtype, tol, T, lengths):
+    B, H = len(lengths), 3
+    args = [a.to(cuda, dtype) if torch.is_tensor(a) and a.is_floating_point() else
+            (a.to(cuda) if torch.is_tensor(a) else a)
+            for a in _attention_inputs(B, H, T, lengths, seed=T)]
+    launches = relpos_flash_attention.launches
+    o, lse = relpos_flash_attention(*args)
+    torch.cuda.synchronize()
+    assert relpos_flash_attention.launches == launches + 1
+    o_ref, lse_ref = relpos_flash_attention_plain(*args)
+    assert o.dtype == dtype and o.shape == (B, H, T, 64) and lse.shape == (B, H, T)
+    for b, n in enumerate(lengths):  # padded query rows are garbage by design
+        torch.testing.assert_close(o[b, :, :n].float(), o_ref[b, :, :n].float(),
+                                   atol=tol, rtol=tol)
+        torch.testing.assert_close(lse[b, :, :n], lse_ref[b, :, :n], atol=1e-4, rtol=1e-5)
+
+
+def _subsampling_inputs(B, T, F, C, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(B, T, F, generator=g), torch.randn(3, 3, 1, C, generator=g) / 3,
+            0.1 * torch.randn(C, generator=g),
+            torch.randn(3, 3, C, C, generator=g) / math.sqrt(9 * C),
+            0.1 * torch.randn(C, generator=g)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,T,F,C", [(2, 99, 80, 128), (1, 130, 81, 256), (3, 64, 40, 128),
+                                     (1, 3001, 80, 512)])
+def test_fused_subsampling_kernel_matches_plain(cuda, dtype, tol, B, T, F, C):
+    args = [a.to(cuda, dtype) for a in _subsampling_inputs(B, T, F, C, seed=T)]
+    launches = fused_subsampling_x4.launches
+    out = fused_subsampling_x4(*args)
+    torch.cuda.synchronize()
+    assert fused_subsampling_x4.launches == launches + 1
+    ref = fused_subsampling_x4_plain(*args)
+    assert out.shape == ref.shape and out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    args = [a.to(cuda) if torch.is_tensor(a) else a
+            for a in _attention_inputs(1, 2, 16, [16], seed=0)]
+    with pytest.raises(ValueError, match="dtype"):
+        relpos_flash_attention(*[a.half() if torch.is_tensor(a) and a.is_floating_point()
+                                 else a for a in args])
+    sub = [a.to(cuda) for a in _subsampling_inputs(1, 20, 16, 64, seed=0)]
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fused_subsampling_x4(*sub)
+
+
+def test_small_model_on_cuda_matches_cpu(cuda):
+    """A 2-layer model (d_model 128, 2 heads of 64) with both kernel flags, fp32:
+    the card (kernels) against the CPU (plain versions), same seeded weights."""
+    cfg = conformer_ctc("large", att_impl="decomposed_flash", fused_subsampling=True)
+    cfg.encoder.update(n_layers=2, d_model=128, n_heads=2)
+    cfg.decoder.feat_in = 128
+    x = (0.1 * np.random.RandomState(0).randn(2, 32000)).astype(np.float32)
+    lens = torch.tensor([32000, 20000], dtype=torch.int32)
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = EncDecCTCModel(cfg, device=device, seed=3)
+        k1, k2 = relpos_flash_attention.launches, fused_subsampling_x4.launches
+        lp, n = model(torch.from_numpy(x).to(device), lens.to(device))
+        out[device] = (lp.cpu(), n.cpu(), relpos_flash_attention.launches - k1,
+                       fused_subsampling_x4.launches - k2)
+    (lp, n, l1, l2), (ref, ref_n, r1, r2) = out["cuda"], out["cpu"]
+    assert (l1, l2, r1, r2) == (2, 1, 0, 0)
+    assert torch.equal(n, ref_n)
+    for b, t in enumerate(n.tolist()):
+        torch.testing.assert_close(lp[b, :t], ref[b, :t], atol=1e-4, rtol=1e-4)

@@ -1,0 +1,52 @@
+"""Guards of the PyTorch port: it imports no JAX and nothing of `nemo_tpu`,
+its entry points do not drop quietly to the CPU, and chip_smoke.py fails
+where it cannot run."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from nemo_tpu_torch.models.asr.configs import conformer_ctc  # noqa: E402
+from nemo_tpu_torch.models.asr.ctc_models import EncDecCTCModel  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import nemo_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(nemo_tpu_torch.__path__, "nemo_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nemo_tpu"))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert int(out.stdout.split()[-1]) >= 20  # every module of the package was imported
+
+
+def test_chip_smoke_alone_fails_without_a_result(tmp_path):
+    (tmp_path / "chip_smoke.py").write_text((REPO / "chip_smoke.py").read_text())
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_model_without_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        EncDecCTCModel(conformer_ctc("small"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        EncDecCTCModel(conformer_ctc("small"), device="cuda")
