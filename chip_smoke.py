@@ -1,30 +1,41 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch port (`nemo_tpu_torch`): Conformer-Large CTC
-transcription on one NVIDIA card, through the two hand-written kernels.
+tone calibration (training) and then transcription on one NVIDIA card,
+through the four hand-written kernels, as bench.py's primary line runs them.
 
     python3 chip_smoke.py            # from the repository root; needs one CUDA card
-    python3 chip_smoke.py --profile  # and a torch.profiler breakdown of one batch
+    python3 chip_smoke.py --profile  # and torch.profiler breakdowns of one batch
+                                     # and of calibration steps
 
 Phases, each printing a line; any failure raises and exits non-zero:
 
 1. the card's name and power limit (nvidia-smi), then the build of every
    kernel source (`nemo_tpu_torch/csrc/*.cu`, one nvcc each, in parallel);
-2. K1, the rel-pos flash attention, against its plain version at the main
-   path's shape (B=32, H=8, T=751, dh=64), in bf16 and fp32, with its time,
-   the plain version's and SDPA's (given the precomputed additive bias);
+2. K1, the rel-pos flash attention, against its plain version at the
+   transcription shape (B=32, H=8, T=751, dh=64), in bf16 and fp32, with its
+   time, the plain version's and SDPA's (given the precomputed additive bias);
 3. K2, the fused subsampling, against its plain version (the cuDNN conv
-   pair in fp32) at the main path's shape (x [32, 3001, 80], C=512), bf16 and fp32;
-4. the whole slice in fp32: one seeded Conformer-Large CTC model with both
+   pair in fp32) at the transcription shape (x [32, 3001, 80], C=512);
+4. K3 and K4, the rel-pos flash backward (dq side; dk/dv and dp side),
+   against the plain backward at the calibration shape (B=4, H=8, T=751,
+   dh=64), ragged and full lengths, bf16 and fp32, with their times, the
+   plain backward's and SDPA's backward (given the bias);
+5. the whole model in fp32: one seeded Conformer-Large CTC model with both
    kernel flags, on the card (kernels) and on the CPU (plain versions), at
    B=2 x 5 s; log-probs on valid frames and greedy ids must agree;
-5. the main path: `transcribe_staged` in bf16 at B=32 x 30 s of speech-like
-   int16 audio, one warm batch and then timed ones; the kernels' launch
-   counts must be 18 and 1 per batch. The weights are random (calibration is
-   not ported), so the RTFx is not comparable to bench.py's.
+6. gradients in fp32: the calibration loss of a 2-layer model at d_model
+   512, on the card (K1, K3, K4) and on the CPU, for every variable;
+7. calibration (bench.py:_calibrated_tone_batches): Conformer-Large bf16,
+   both flags, the training forward through the conv pair; rounds of 250
+   AdamW steps at B=4 x 30 s until a held-out probe decodes >= 50 chars/utt
+   (at most 3 rounds); K1, K3 and K4 launch 18 times a step;
+8. the main path: `transcribe_staged` of the calibrated model over held-out
+   tone batches, B=32 x 30 s int16, one warm batch and 5 timed ones; more
+   than 50 chars/utt (bench.py:132), K1 18 and K2 1 launch a batch.
 
-With --profile, one more batch of the main path runs under torch.profiler
-and its device time by kernel and the card's busy share of the wall time are
-printed. It ends with a JSON line of the kernels and then
+With --profile, one more batch of the main path and then 6 more calibration
+steps run under torch.profiler, and their device time by kernel and the
+card's busy share of the wall time are printed. It ends with a JSON line of the kernels and then
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 TF32 is off for the comparisons. Nothing of JAX or `nemo_tpu` is imported.
 """
@@ -48,7 +59,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 
 B, SECS, SR = 32, 30.0, 16000
-TIMED_BATCHES = 3
+TIMED_BATCHES = 5
+# calibration at bench.py's values: fit batch, steps per round, tokens per utterance
+FIT_BATCH, FIT_STEPS, UTT_TOKENS, DENSITY_FLOOR = 4, 250, 60, 50.0
 
 
 def log(msg: str) -> None:
@@ -220,6 +233,157 @@ def phase_k2(gen: torch.Generator) -> dict:
     return row
 
 
+def phase_k3_k4(gen: torch.Generator):
+    from nemo_tpu_torch.models.asr.modules.conformer import RelPositionalEncoding
+    from nemo_tpu_torch.ops.flash_attention import (relpos_flash_attention,
+                                                    relpos_flash_attention_backward_plain,
+                                                    relpos_flash_dkv, relpos_flash_dq, row_delta)
+
+    Bc, H, T, dh = FIT_BATCH, 8, 751, 64
+    D, scale = H * dh, 1.0 / math.sqrt(dh)
+    _, pos_emb = RelPositionalEncoding(D)(torch.zeros(1, T, D))
+    p32 = (pos_emb @ (torch.randn(D, D, generator=gen) / math.sqrt(D))).view(2 * T - 1, H, dh)
+    base = [torch.randn(Bc, T, H, dh, generator=gen) for _ in range(5)]  # qu, qv, k, v, dO
+    ragged = torch.tensor([751, 700, 613, 500], dtype=torch.int32)
+    full = torch.full((Bc,), T, dtype=torch.int32)
+    rows = [{"name": "relpos_flash_dq", "route": "cuda",
+             "source": "nemo_tpu_torch/csrc/relpos_flash_bwd.cu",
+             "replaces": "nemo_tpu/ops/flash_attention.py:213"},
+            {"name": "relpos_flash_dkv", "route": "cuda",
+             "source": "nemo_tpu_torch/csrc/relpos_flash_bwd.cu",
+             "replaces": "nemo_tpu/ops/flash_attention.py:257"}]
+    names = ("dqu", "dqv", "dk", "dv", "dp")
+    # tolerance relative to each gradient's max-abs value: fp32 differs by the
+    # order of sums (dp's atomics change it from run to run), bf16 also by the
+    # kernels' rounding of P and dS to bf16 before each product
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+        qu, qv, k, v, do = (t.to("cuda", dtype).transpose(1, 2) for t in base)
+        p = p32.to("cuda", dtype).transpose(0, 1)
+        for lengths in (ragged, full):
+            lens = lengths.cuda()
+            args = (qu, qv, k, v, p, lens, scale)
+            o, lse = relpos_flash_attention(*args)
+            delta = row_delta(o, do)
+            out = (*relpos_flash_dq(*args, lse, delta, do), *relpos_flash_dkv(*args, lse, delta, do))
+            ref = relpos_flash_attention_backward_plain(*args, o, lse, do)
+            torch.cuda.synchronize()
+            errs = []
+            for name, x, r in zip(names, out, ref):
+                what = (f"K{3 if name.startswith('dq') else 4} {str(dtype)[6:]} "
+                        f"lengths={'ragged' if lengths is ragged else 'full'} {name}")
+                errs.append(compare(what, x, r, tol * float(r.float().abs().max()), 0.0))
+            del ref
+        args = (qu, qv, k, v, p, lens, scale)  # the calibration's lengths: full 30 s clips
+        ms3 = cuda_ms(lambda: relpos_flash_dq(*args, lse, delta, do), iters=10)
+        ms4 = cuda_ms(lambda: relpos_flash_dkv(*args, lse, delta, do), iters=10)
+        plain_ms = cuda_ms(lambda: relpos_flash_attention_backward_plain(*args, o, lse, do),
+                           iters=3)
+        # SDPA's backward (dq, dk, dv) as a yardstick, given the rel-pos term
+        # and the key mask as one precomputed additive bias [B, H, T, T]
+        bd = torch.einsum("bhid,hrd->bhir", qv.float(), p.float())
+        bd = F.pad(bd, (1, 0)).reshape(Bc, H, 2 * T, T)[:, :, 1:].reshape(
+            Bc, H, T, 2 * T - 1)[..., :T] * scale
+        keys = torch.arange(T, device="cuda")[None, :] < lens[:, None]
+        bias = bd.masked_fill(~keys[:, None, None, :], float("-inf")).to(dtype)
+        del bd
+        ql, kl, vl = (t.detach().requires_grad_() for t in (qu, k, v))
+        o_lib = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=bias, scale=scale)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do,
+                                                         retain_graph=True), iters=5)
+        del o_lib, bias
+        elt = qu.element_size()
+        btd = Bc * T * H * dh
+        pairs = T * float(lens.sum())  # (query row, valid key) pairs
+        common = elt * (5 * btd + (2 * T - 1) * H * dh) + 4 * Bc + 2 * 4 * Bc * H * T
+        b3 = bound(common + elt * 2 * btd, 10 * H * dh * pairs, dtype)  # 5 products
+        b4 = bound(common + elt * 2 * btd + 4 * (2 * T - 1) * H * dh, 12 * H * dh * pairs,
+                   dtype)  # 6 products
+        for row, ms, (bound_ms, bound_by), err in ((rows[0], ms3, b3, max(errs[:2])),
+                                                   (rows[1], ms4, b4, max(errs[2:]))):
+            log(f"{'K3' if row is rows[0] else 'K4'} {str(dtype)[6:]} B={Bc}: kernel_ms={ms:.4f} "
+                f"plain_ms(whole backward)={plain_ms:.4f} "
+                f"library_ms(SDPA backward+bias)={library_ms:.4f} "
+                f"bound_ms={bound_ms:.4f} ({bound_by})")
+            row.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=library_ms)  # bf16 last
+    return rows
+
+
+def phase_grad_exactness() -> None:
+    """The calibration loss of a 2-layer model at d_model 512 (8 heads of
+    64, both flags, fp32): every variable's gradient on the card (K1, K3, K4,
+    the conv pair) against the CPU's (plain versions), within 1e-4 of the
+    leaf's max-abs value plus 1e-6 (for leaves whose exact gradient is 0,
+    such as linear_k's bias). Both encoders take the CPU's mel features:
+    the frontends differ by ~4e-6, which flips ReLU gates of the first conv
+    and moves its weight gradient by ~2e-3 of its max (measured on one H100)."""
+    from nemo_tpu_torch.models.asr.configs import conformer_ctc
+    from nemo_tpu_torch.models.asr.ctc_models import EncDecCTCModel
+    from nemo_tpu_torch.interop.jax_params import model_variables
+
+    cfg = conformer_ctc("large", att_impl="decomposed_flash", fused_subsampling=True)
+    cfg.encoder.n_layers = 2
+    rng = np.random.RandomState(2)
+    pcm = torch.from_numpy(speechlike(2, int(5 * SR), rng))
+    lens = torch.tensor([5 * SR, 61000], dtype=torch.int32)
+    labels = torch.from_numpy(rng.randint(0, 29, (2, 100)))
+    grads, feats = {}, None
+    for device in ("cpu", "cuda"):
+        model = EncDecCTCModel(cfg, device=device, seed=1)
+        if feats is None:
+            with torch.no_grad():
+                feats = model.mel_features(pcm, lens)
+        leaves = model_variables(model)
+        for t in leaves.values():
+            t.requires_grad_(True)
+        enc, _ = model.encoder(*(x.to(device) for x in feats), conv_pair_subsampling=True)
+        lp = model.decoder(enc)[:, :labels.shape[1]]
+        loss = -lp.gather(-1, labels.to(device)[..., None])[..., 0].mean()
+        grads[device] = [g.cpu() for g in torch.autograd.grad(loss, list(leaves.values()))]
+        del model
+    worst, bad = 0.0, []
+    for name, g, ref in zip(leaves, grads["cuda"], grads["cpu"]):
+        tol = 1e-4 * float(ref.abs().max()) + 1e-6
+        err = float((g - ref).abs().max())
+        worst = max(worst, err / tol)
+        if not torch.isfinite(g).all() or err > tol:
+            bad.append(name)
+    log(f"gradients fp32, 2 layers d_model 512, B=2 x 5 s, cuda (K1, K3, K4) vs cpu (plain): "
+        f"{len(leaves)} variables, worst max_abs_err = {worst:.3f} of its tolerance "
+        f"(1e-4 of the leaf's max-abs + 1e-6)")
+    if bad:
+        raise AssertionError(f"gradients disagree on {bad}")
+
+
+def phase_calibration(counters: dict):
+    """bench.py's calibration on the port; returns (model, staged eval
+    batches, launch counts of the calibration run)."""
+    from nemo_tpu_torch.models.asr.synthetic import calibrated_tone_batches
+
+    model = _model("bfloat16", None)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    staged, density, rounds = calibrated_tone_batches(
+        model, B, SECS, UTT_TOKENS, TIMED_BATCHES, fit_steps=FIT_STEPS,
+        density_floor=DENSITY_FLOOR, fit_batch=FIT_BATCH, log=log)
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for i, r in enumerate(rounds):
+        log(f"calibration round {i}: final loss {r['loss']:.4f}, "
+            f"{1e3 * r['seconds'] / r['steps']:.2f} ms/step (B={FIT_BATCH} x {SECS:g} s), "
+            f"peak_mem={r['peak_mem_gib']:.2f} GiB, probe density {r['density']:.1f} chars/utt")
+    steps = FIT_STEPS * len(rounds)
+    want = {"k1": 18 * (steps + len(rounds)), "k2": len(rounds), "k3": 18 * steps,
+            "k4": 18 * steps}  # each round's probe is one transcription batch
+    log(f"calibration: {len(rounds)} round(s), {steps} steps, {wall:.1f} s in all "
+        f"(with the probes and the eval batches' build), probe density {density:.1f} "
+        f"chars/utt, launches {launches}")
+    if launches != want:
+        raise AssertionError(f"calibration launch counts {launches}, expected {want}")
+    return model, staged, launches
+
+
 def _model(dtype: str, device: str):
     from nemo_tpu_torch.models.asr.configs import conformer_ctc
     from nemo_tpu_torch.models.asr.ctc_models import EncDecCTCModel
@@ -280,13 +444,44 @@ def profile_batch(model, staged) -> None:
         f"card idle {100 - 100 * busy_us / wall_us:.1f} % of the wall time")
 
 
-def phase_main_path(k1, k2, profile: bool) -> dict:
-    model = _model("bfloat16", None)
+def profile_training(model) -> None:
+    """Where a calibration step's time goes (after the main path, since the
+    steps move the weights): the host's time to make one tone batch, then 6
+    steps under torch.profiler (device activity only, to keep its host
+    overhead low): the step's wall time, its kernel time, and the card's idle
+    share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nemo_tpu_torch.models.asr.synthetic import (frame_labels, framewise_calibrate,
+                                                     tone_audio)
+
+    rng = np.random.RandomState(7)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        targets = rng.randint(1, 12, (FIT_BATCH, UTT_TOKENS))
+        tone_audio(targets, SECS, SR, rng)
+        frame_labels(targets, SECS, 751, 28, SR)
+    data_ms = 1e3 * (time.perf_counter() - t0) / 5
+    steps = 6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        framewise_calibrate(model, steps=steps, batch=FIT_BATCH, secs=SECS,
+                            utt_tokens=UTT_TOKENS, seed=7, log=lambda msg: None)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    log(f"profile, calibration step (B={FIT_BATCH} x {SECS:g} s): wall {wall_ms:.2f} ms, "
+        f"kernels {busy_ms:.2f} ms in {len(kernels) / steps:.0f} device operations, card idle "
+        f"{100 - 100 * busy_ms / wall_ms:.1f} % of the wall time; the host makes one tone "
+        f"batch in {data_ms:.2f} ms")
+
+
+def phase_main_path(model, staged, k1, k2, profile: bool) -> dict:
+    lens = staged[0][1]
     n = int(SECS * SR)
-    rng = np.random.RandomState(0)
-    lens = torch.full((B,), n, dtype=torch.int32, device="cuda")
-    staged = [(torch.from_numpy(speechlike(B, n, rng)).cuda(), lens, B)
-              for _ in range(1 + TIMED_BATCHES)]
     lp, enc_len = model(staged[0][0], lens)
     frames = (n // 160) // 4 + 1  # hop 10 ms, then subsampling x4
     if lp.shape != (B, frames, 29) or not torch.isfinite(lp).all() or int(enc_len.min()) != frames:
@@ -304,29 +499,34 @@ def phase_main_path(k1, k2, profile: bool) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     rtfx = B * SECS * TIMED_BATCHES / wall
     density = sum(map(len, texts)) / len(texts)
-    log(f"main path, transcribe_staged bf16 B={B} x {SECS:g} s, {TIMED_BATCHES} timed batches: "
-        f"RTFx={rtfx:.1f} (uncalibrated weights, not comparable to bench.py), "
+    log(f"main path, transcribe_staged bf16 B={B} x {SECS:g} s, calibrated weights, held-out "
+        f"tone audio, {TIMED_BATCHES} timed batches: RTFx={rtfx:.1f}, "
         f"{1e3 * wall / TIMED_BATCHES:.1f} ms/batch, peak_mem={peak:.2f} GiB, "
         f"{density:.1f} chars/utt, launches K1={launches['k1']} K2={launches['k2']}")
     if len(texts) != B * TIMED_BATCHES or not all(isinstance(s, str) for s in texts):
         raise AssertionError("transcribe_staged returned the wrong number of texts")
+    if density <= DENSITY_FLOOR:
+        raise AssertionError(f"decode density {density:.1f} <= {DENSITY_FLOOR} chars/utt")
     want = {"k1": 18 * TIMED_BATCHES, "k2": TIMED_BATCHES}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     if profile:
         profile_batch(model, staged[1:2])
+        profile_training(model)
     return launches
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile one batch of the main path")
+                        help="also profile one batch of the main path and calibration steps")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this check runs on the GPU only", file=sys.stderr)
         return 1
     from nemo_tpu_torch.ops.flash_attention import relpos_flash_attention as k1
+    from nemo_tpu_torch.ops.flash_attention import relpos_flash_dkv as k4
+    from nemo_tpu_torch.ops.flash_attention import relpos_flash_dq as k3
     from nemo_tpu_torch.ops.subsampling_kernel import fused_subsampling_x4 as k2
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -334,10 +534,13 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     gen = torch.Generator().manual_seed(0)
-    rows = [phase_k1(gen), phase_k2(gen)]
+    rows = [phase_k1(gen), phase_k2(gen), *phase_k3_k4(gen)]
     phase_exactness(k1, k2)
-    launches = phase_main_path(k1, k2, args.profile)
+    phase_grad_exactness()
+    model, staged, fit_launches = phase_calibration({"k1": k1, "k2": k2, "k3": k3, "k4": k4})
+    launches = phase_main_path(model, staged, k1, k2, args.profile)
     rows[0]["launches"], rows[1]["launches"] = launches["k1"], launches["k2"]
+    rows[2]["launches"], rows[3]["launches"] = fit_launches["k3"], fit_launches["k4"]
     log(f"total: {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

@@ -14,11 +14,16 @@ change:
 
 It is strict: a key the port needs and the tree lacks, or a key of the tree
 that the port does not take, raises.
+
+`export_jax_variables(model, values)` is the inverse: the port's variables
+(or any tensors keyed by their state names, such as gradients) as the JAX
+tree of fp32 numpy arrays, strict in the same way. `model_variables(model)`
+lists those variables by state name.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,28 +55,9 @@ def _conv_layout(kernel: np.ndarray, mod: nn.Module) -> np.ndarray:
 _NORM_NAMES = {"weight": "scale", "bias": "bias"}
 
 
-def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
-    """Fill `model` in place from the JAX variables; returns `model`."""
-    unknown = set(variables) - {"params", "batch_stats"}
-    if unknown:
-        raise ValueError(f"load_jax_variables: unknown collections {sorted(unknown)}")
-    params = _flatten(variables.get("params", {}))
-    stats = _flatten(variables.get("batch_stats", {}))
-    missing = []
-
-    def take(tree: Dict[Path_, np.ndarray], path: Path_):
-        if path not in tree:
-            missing.append("/".join(path))
-            return None
-        return tree.pop(path)
-
-    def assign(target: torch.Tensor, value: np.ndarray, path: Path_) -> None:
-        if tuple(value.shape) != tuple(target.shape):
-            raise ValueError(f"load_jax_variables: {'/'.join(path)} has shape "
-                             f"{value.shape}, the port expects {tuple(target.shape)}")
-        with torch.no_grad():
-            target.copy_(torch.from_numpy(np.array(value)))  # a writable copy
-
+def _entries(model: nn.Module) -> Iterator[Tuple[str, torch.Tensor, nn.Module, str, Path_]]:
+    """(state name, tensor, owning module, JAX collection, JAX path) of every
+    variable of the JAX tree: the parameters and the BatchNorm running stats."""
     for name, mod in model.named_modules():
         prefix = tuple(name.split(".")) if name else ()
         norm = isinstance(mod, (nn.LayerNorm, nn.BatchNorm1d))
@@ -82,20 +68,87 @@ def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Mod
                 jname = "kernel"
             else:
                 jname = pname
-            path = prefix + (jname,)
-            value = take(params, path)
-            if value is not None:
-                if jname == "kernel":
-                    value = _conv_layout(value, mod)
-                assign(p, value, path)
+            yield ".".join(prefix + (pname,)), p, mod, "params", prefix + (jname,)
         if isinstance(mod, nn.BatchNorm1d):
             for buf, jname in (("running_mean", "mean"), ("running_var", "var")):
-                value = take(stats, prefix + (jname,))
-                if value is not None:
-                    assign(getattr(mod, buf), value, prefix + (jname,))
+                yield (".".join(prefix + (buf,)), getattr(mod, buf), mod, "batch_stats",
+                       prefix + (jname,))
+
+
+def model_variables(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The port's tensors of the JAX variables, by state name: every
+    parameter and BatchNorm running stat (what the JAX package differentiates
+    in calibration)."""
+    return {key: t for key, t, *_ in _entries(model)}
+
+
+def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
+    """Fill `model` in place from the JAX variables; returns `model`."""
+    unknown = set(variables) - {"params", "batch_stats"}
+    if unknown:
+        raise ValueError(f"load_jax_variables: unknown collections {sorted(unknown)}")
+    trees = {c: _flatten(variables.get(c, {})) for c in ("params", "batch_stats")}
+    missing = []
+    for _, target, mod, collection, path in _entries(model):
+        if path not in trees[collection]:
+            missing.append("/".join(path))
+            continue
+        value = trees[collection].pop(path)
+        if path[-1] == "kernel":
+            value = _conv_layout(value, mod)
+        if tuple(value.shape) != tuple(target.shape):
+            raise ValueError(f"load_jax_variables: {'/'.join(path)} has shape "
+                             f"{value.shape}, the port expects {tuple(target.shape)}")
+        with torch.no_grad():
+            target.copy_(torch.from_numpy(np.array(value)))  # a writable copy
     if missing:
         raise KeyError(f"load_jax_variables: missing from the JAX tree: {missing}")
-    left = ["params/" + "/".join(k) for k in params] + ["batch_stats/" + "/".join(k) for k in stats]
+    left = [f"{c}/" + "/".join(k) for c, tree in trees.items() for k in tree]
     if left:
         raise ValueError(f"load_jax_variables: keys the port does not take: {left}")
     return model
+
+
+def _jax_layout(value: np.ndarray, mod: nn.Module) -> np.ndarray:
+    """The inverse of `_conv_layout`."""
+    if isinstance(mod, nn.Linear):
+        return value.T[None] if getattr(mod, "jax_conv1x1", False) else value.T
+    if isinstance(mod, nn.Conv2d):
+        return value.transpose(2, 3, 1, 0)
+    if isinstance(mod, nn.Conv1d):
+        return value.transpose(2, 1, 0)
+    return value
+
+
+def export_jax_variables(model: nn.Module, values: Optional[Mapping[str, torch.Tensor]] = None
+                         ) -> Dict[str, Any]:
+    """The inverse of `load_jax_variables`: {"params": …, "batch_stats": …} as
+    nested dicts of fp32 numpy arrays in the JAX layout. `values` maps the
+    state names of `model_variables` (e.g.
+    `encoder.layer0.conv.norm.running_mean`) to tensors of their shapes, such
+    as gradients; by default the model's own. Strict: a name of `values`
+    that is no such variable, or a variable missing from `values`, raises."""
+    entries = {key: rest for key, *rest in _entries(model)}
+    values = model_variables(model) if values is None else values
+    missing = sorted(set(entries) - set(values))
+    if missing:
+        raise KeyError(f"export_jax_variables: missing from the values: {missing}")
+    unknown = sorted(set(values) - set(entries))
+    if unknown:
+        raise ValueError(f"export_jax_variables: not variables of the model: {unknown}")
+    tree: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    for key, value in values.items():
+        target, mod, collection, path = entries[key]
+        if tuple(value.shape) != tuple(target.shape):
+            raise ValueError(f"export_jax_variables: {key} has shape {tuple(value.shape)}, "
+                             f"the model's is {tuple(target.shape)}")
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if path[-1] == "kernel":
+            arr = _jax_layout(arr, mod)
+        node = tree[collection]
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    if not tree["batch_stats"]:
+        del tree["batch_stats"]
+    return tree

@@ -19,11 +19,11 @@ import torch.nn as nn
 
 from nemo_tpu_torch.core.config import ConfigDict
 from nemo_tpu_torch.data.audio_io import read_wav
-from nemo_tpu_torch.models.asr.modules.conformer import ConformerEncoder
+from nemo_tpu_torch.models.asr.modules.conformer import ConformerEncoder, subsampled_length
 from nemo_tpu_torch.models.asr.modules.conv_asr import ConvASRDecoder
 from nemo_tpu_torch.models.asr.parts.ctc_decoding import CTCDecoding
 from nemo_tpu_torch.ops.audio import (MelSpectrogramConfig, build_mel_constants,
-                                      mel_spectrogram, pcm_to_float)
+                                      mel_seq_len, mel_spectrogram, pcm_to_float)
 from nemo_tpu_torch.ops.ctc import ctc_collapse, ctc_greedy_predictions
 
 
@@ -104,12 +104,32 @@ class EncDecCTCModel(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """[B, T] int16 PCM or float audio, [B] sample counts →
         (log_probs [B, T', V+1] fp32, frame lengths [B])."""
-        consts = (self.mel_const0, self.mel_const1, self.mel_const2)
-        feats, feat_len = mel_spectrogram(pcm_to_float(signal), length, self.mel_cfg, consts)
-        enc, enc_len = self.encoder(feats, feat_len)
+        return self.log_probs(signal, length, conv_pair_subsampling=False)
+
+    def log_probs(self, signal: torch.Tensor, length: torch.Tensor, *,
+                  conv_pair_subsampling: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`forward` with autograd (the counterpart of JAX's
+        `model.net.apply(variables, feats, feat_len)` after the mel frontend
+        with `training=False`). `conv_pair_subsampling=True` runs the
+        subsampling through the conv pair even with `fused_subsampling` set,
+        as a training forward must: the fused kernel has no backward."""
+        feats, feat_len = self.mel_features(signal, length)
+        enc, enc_len = self.encoder(feats, feat_len, conv_pair_subsampling=conv_pair_subsampling)
         return self.decoder(enc), enc_len
 
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+    def mel_features(self, signal: torch.Tensor, length: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The mel frontend: (feats [B, n_mels, F] fp32, frame lengths [B])."""
+        consts = (self.mel_const0, self.mel_const1, self.mel_const2)
+        return mel_spectrogram(pcm_to_float(signal), length, self.mel_cfg, consts)
+
+    def encoded_length(self, samples: torch.Tensor) -> torch.Tensor:
+        """Encoder frames for `samples` audio samples (mel hop, then the
+        subsampling), without running the model."""
+        return subsampled_length(mel_seq_len(self.mel_cfg, samples),
+                                 self.encoder.pre_encode.n_layers)
+
+    def upload(self, arr: np.ndarray) -> torch.Tensor:
         """Host array → the model's device; to CUDA through pinned memory, so
         the copy does not wait for the batch in flight."""
         t = torch.from_numpy(arr)
@@ -184,7 +204,7 @@ class EncDecCTCModel(nn.Module):
                 padded[i, : len(s)] = s
             full_lens = np.ones(batch_size, np.int32)
             full_lens[: len(sigs)] = lens
-            launched = self._launch(self._upload(padded), self._upload(full_lens), len(sigs))
+            launched = self._launch(self.upload(padded), self.upload(full_lens), len(sigs))
             if pending is not None:
                 results.extend(self._collect(pending))
             pending = launched

@@ -8,7 +8,14 @@ depthwise(k) → BatchNorm → swish → pointwise(d).
 Layout is [B, T, D] inside. Parameter names mirror the JAX tree
 (`layer3.attn.linear_q`, `pre_encode.conv0`, ...). Linear and conv weights
 are held in the compute dtype; LayerNorm (eps 1e-6, the flax default) and
-BatchNorm (eps 1e-5, running stats) hold fp32 and compute in fp32.
+BatchNorm (eps 1e-5, running stats) hold fp32 and compute in fp32. Training
+keeps fp32 master weights in its optimizer (core/optim.py), as the JAX
+variables are fp32 and cast to the compute dtype at each use.
+
+The forward is differentiable, BatchNorm's running stats included (they
+are read in eval mode, as flax's `use_running_average`, and receive
+gradients where they require them). The fused subsampling kernel has no
+backward, so a training forward passes `conv_pair_subsampling=True`.
 """
 
 from __future__ import annotations
@@ -45,7 +52,8 @@ class ConvSubsampling(nn.Module):
     """'striding' 2-D conv subsampling: [B, T, F] → [B, T/2^n, d_model].
 
     With `fused_kernel` (and factor 4) both convs run as the fused kernel K2
-    (ops/subsampling_kernel.py) on the same parameters."""
+    (ops/subsampling_kernel.py) on the same parameters, unless the caller
+    asks for the conv pair (`conv_pair=True`, the training forward)."""
 
     def __init__(self, d_model: int, feat_in: int, subsampling_factor: int = 4,
                  conv_channels: int = -1, fused_kernel: bool = False,
@@ -61,8 +69,9 @@ class ConvSubsampling(nn.Module):
             f = (f - 1) // 2 + 1
         self.out = nn.Linear(f * ch, d_model, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, length: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        if self.fused_kernel:
+    def forward(self, x: torch.Tensor, length: torch.Tensor,
+                conv_pair: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.fused_kernel and not conv_pair:
             hwio = lambda w: w.permute(2, 3, 1, 0)  # OIHW → HWIO, the kernel's layout
             h = fused_subsampling_x4(x, hwio(self.conv0.weight), self.conv0.bias,
                                      hwio(self.conv1.weight), self.conv1.bias)
@@ -225,10 +234,13 @@ class ConformerEncoder(nn.Module):
             self.add_module(f"layer{i}", ConformerLayer(
                 d_model, n_heads, ff_expansion_factor, conv_kernel_size, att_impl, self.dtype))
 
-    def forward(self, audio_signal: torch.Tensor,
-                length: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, audio_signal: torch.Tensor, length: torch.Tensor, *,
+                conv_pair_subsampling: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`conv_pair_subsampling` runs the subsampling through the conv pair
+        even where `fused_subsampling` is set: the choice of a training
+        forward, since the fused kernel has no backward."""
         x = audio_signal.transpose(1, 2).to(self.dtype)  # [B, T, D]
-        x, length = self.pre_encode(x, length)
+        x, length = self.pre_encode(x, length, conv_pair_subsampling)
         x, pos_emb = self.pos_enc(x)
         T = x.shape[1]
         pad_mask = torch.arange(T, device=x.device)[None, :] < length[:, None]

@@ -13,6 +13,7 @@ class ConvASRDecoder(nn.Module):
     def __init__(self, feat_in: int, num_classes: int):
         super().__init__()
         self.proj = nn.Linear(feat_in, num_classes + 1)
+        self.proj.jax_conv1x1 = True  # a 1x1 Conv in the JAX tree: kernel [1, in, out]
 
     def forward(self, encoder_output: torch.Tensor) -> torch.Tensor:
         """[B, C, T] → [B, T, V+1] log-probs."""

@@ -1,0 +1,187 @@
+"""Tone-coded calibration of a CTC model, so that a benchmark times a
+trained-regime decode (counterpart of nemo_tpu/models/asr/synthetic.py, CTC
+branch, and of bench.py:_calibrated_tone_batches).
+
+A model at random init decodes almost nothing, so timing its transcription
+times an empty host decode. Calibration trains it briefly on tone-coded
+utterances (each transcript token is a harmonic burst at a token-specific
+pitch, spread over the clip) with framewise cross-entropy on the known
+planted alignment, until greedy decoding of held-out tone audio emits a
+realistic token stream.
+
+The data functions consume the numpy RNG in the same order as the JAX ones,
+so one seed gives bit-identical audio, labels and eval batches. The training
+step differentiates every variable of the model, BatchNorm's running stats
+included, and updates them with clip + AdamW as optax does
+(core/optim.py), on fp32 masters.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from nemo_tpu_torch.core.optim import ClippedAdamW, warmup_cosine_decay_schedule
+from nemo_tpu_torch.interop.jax_params import model_variables
+
+
+def tone_audio(targets: np.ndarray, secs: float, sr: int = 16000,
+               rng: Optional[np.random.RandomState] = None) -> np.ndarray:
+    """targets [B, U] int → float32 audio [B, sr·secs]: token k renders as a
+    short harmonic burst at a k-specific (semitone-spaced) pitch; bursts are
+    spaced evenly so that emissions spread over the whole clip."""
+    rng = rng or np.random.RandomState(0)
+    B, U = targets.shape
+    T = int(sr * secs)
+    out = 0.01 * rng.randn(B, T).astype(np.float32)
+    seg = T // U
+    burst = int(min(0.2 * sr, 0.8 * seg))
+    t = np.arange(burst) / sr
+    env = np.hanning(burst).astype(np.float32)
+    for b in range(B):
+        for u in range(U):
+            k = int(targets[b, u])
+            f0 = 180.0 * (2.0 ** (k / 12.0))
+            x = sum((0.6 ** h) * np.sin(2 * np.pi * (h + 1) * f0 * t) for h in range(3))
+            s = u * seg + (seg - burst) // 2
+            out[b, s:s + burst] += (x * env).astype(np.float32)
+    peak = np.abs(out).max(axis=1, keepdims=True) + 1e-6
+    return (out / peak).astype(np.float32)
+
+
+def frame_labels(targets: np.ndarray, secs: float, Tprime: int, blank: int,
+                 sr: int = 16000) -> np.ndarray:
+    """[B, U] targets → [B, T'] per-frame labels of the `tone_audio` layout:
+    token u on the encoder frames of its burst's middle 60 %, blank elsewhere
+    (the JAX package's `_frame_labels`)."""
+    B, U = targets.shape
+    T = int(sr * secs)
+    seg = T // U
+    burst = int(min(0.2 * sr, 0.8 * seg))
+    labels = np.full((B, Tprime), blank, np.int32)
+    for u in range(U):
+        s = u * seg + (seg - burst) // 2
+        c0 = (s + 0.2 * burst) / T * Tprime
+        c1 = (s + 0.8 * burst) / T * Tprime
+        f0, f1 = int(np.ceil(c0)), max(int(c1), int(np.ceil(c0)) + 1)
+        labels[:, f0:f1] = targets[:, u][:, None]
+    return labels
+
+
+def make_eval_batch(model, batch: int, secs: float, utt_tokens: int, vocab_cap: int = 12,
+                    seed: int = 100) -> Tuple[np.ndarray, np.ndarray]:
+    """Held-out tone-coded eval audio: (targets, int16 PCM audio)."""
+    rng = np.random.RandomState(seed)
+    V = min(len(model.labels), vocab_cap)
+    targets = rng.randint(1, V, (batch, utt_tokens))
+    audio = tone_audio(targets, secs, model.sample_rate, rng)
+    pcm = (np.clip(audio, -1, 1) * 32767).astype(np.int16)
+    return targets, pcm
+
+
+def framewise_loss(model, signal: torch.Tensor, length: torch.Tensor,
+                   labels: torch.Tensor) -> torch.Tensor:
+    """−mean of the log-prob at the planted label over the first T' frames
+    (labels [B, T']), through the mel frontend, the encoder (its subsampling
+    through the conv pair: the fused kernel has no backward) and the head."""
+    lp, _ = model.log_probs(signal, length, conv_pair_subsampling=True)
+    lp = lp.float()[:, :labels.shape[1]]
+    return -lp.gather(-1, labels.long()[..., None])[..., 0].mean()
+
+
+def framewise_calibrate(model, steps: int = 150, batch: int = 8, secs: float = 2.0,
+                        utt_tokens: int = 4, vocab_cap: int = 12, lr: float = 1e-3,
+                        seed: int = 0,
+                        on_step: Optional[Callable[[int, torch.Tensor], None]] = None,
+                        log: Callable[[str], None] = print) -> float:
+    """Framewise-CE tone calibration of a CTC model, in place (the JAX
+    package's `framewise_calibrate`, CTC branch). Every variable, BatchNorm
+    running stats included, is differentiated and updated with
+    clip_by_global_norm(5) and AdamW (weight decay 1e-4) under a warmup-cosine
+    schedule. `on_step(i, loss)` sees each step's loss tensor. Returns the
+    final loss."""
+    rng = np.random.RandomState(seed)
+    V = min(len(model.labels), vocab_cap)
+    sr = model.sample_rate
+    T = int(sr * secs)
+    device = model.device
+    lens = torch.full((batch,), T, dtype=torch.int32, device=device)
+    blank = len(model.labels)  # the CTC blank is the last index
+    Tprime = int(model.encoded_length(torch.tensor([T]))[0])
+    if getattr(model.encoder.pre_encode, "fused_kernel", False):
+        log("framewise_calibrate: the training forward runs the subsampling through the "
+            "conv pair (the fused kernel has no backward)")
+
+    leaves = list(model_variables(model).values())
+    stats = [t for t in leaves if not isinstance(t, nn.Parameter)]
+    sched = warmup_cosine_decay_schedule(0.0, lr, max(steps // 10, 5), max(steps, 10), lr / 30.0)
+    opt = ClippedAdamW(leaves, sched)
+    loss = torch.tensor(float("nan"))
+    for t in stats:  # the running stats are leaves of the gradient, as in JAX
+        t.requires_grad_(True)
+    try:
+        for i in range(steps):
+            targets = rng.randint(1, V, (batch, utt_tokens))
+            audio = tone_audio(targets, secs, sr, rng)
+            labels = frame_labels(targets, secs, Tprime, blank, sr)
+            loss = framewise_loss(model, model.upload(audio), lens, model.upload(labels))
+            opt.step(torch.autograd.grad(loss, leaves))
+            if on_step is not None:
+                on_step(i, loss.detach())
+    finally:
+        for t in stats:
+            t.requires_grad_(False)
+    return float(loss.detach())
+
+
+def calibrated_tone_batches(model, B: int, secs: float, utt_tokens: int, iters: int, *,
+                            fit_steps: int, density_floor: float, lr: float = 1e-3,
+                            seed: int = 0, fit_batch: int = 4,
+                            log: Callable[[str], None] = print
+                            ) -> Tuple[List[tuple], float, List[dict]]:
+    """Tone-calibrate `model` (up to 3 rounds of `framewise_calibrate`) until
+    a held-out probe decodes ≥ density_floor chars/utt, then build `iters` + 1
+    staged held-out eval batches (make_eval_batch seeds 100 + i) for
+    `transcribe_staged` (bench.py:_calibrated_tone_batches). Returns
+    (staged, probe density, one dict per round: loss, seconds, steps,
+    density, peak_mem_gib on CUDA). Raises if the floor is not reached."""
+    T = int(model.sample_rate * secs)
+    device = model.device
+    lens = torch.full((B,), T, dtype=torch.int32, device=device)
+    density, rounds = 0.0, []
+    for round_i in range(3):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = _clock(device)
+        loss = framewise_calibrate(model, steps=fit_steps, batch=fit_batch, secs=secs,
+                                   utt_tokens=utt_tokens, lr=lr, seed=seed + round_i, log=log)
+        seconds = _clock(device) - t0
+        _, probe_pcm = make_eval_batch(model, B, secs, utt_tokens, seed=900 + round_i)
+        probe = model.transcribe_staged([(model.upload(probe_pcm), lens, B)])
+        density = sum(len(s) for s in probe) / max(len(probe), 1)
+        info = dict(loss=loss, seconds=seconds, steps=fit_steps, density=density)
+        if device.type == "cuda":
+            info["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        rounds.append(info)
+        log(f"tone calibration round {round_i}: final loss {loss:.4f}, {fit_steps} steps in "
+            f"{seconds:.2f} s, probe density {density:.1f} chars/utt (floor {density_floor})")
+        if density >= density_floor:
+            break
+    if density < density_floor:
+        raise RuntimeError(f"tone calibration failed: density {density:.1f} < {density_floor}: "
+                           "a benchmark would time a degenerate decode")
+    staged = [(model.upload(make_eval_batch(model, B, secs, utt_tokens, seed=100 + i)[1]),
+               lens, B) for i in range(iters + 1)]
+    return staged, density, rounds
+
+
+def _clock(device: torch.device) -> float:
+    """Host seconds, after the device's queued work is done."""
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter()

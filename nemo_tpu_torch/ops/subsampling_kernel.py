@@ -9,6 +9,10 @@ what bounds it.
 
 `fused_subsampling_x4` launches the kernel for CUDA tensors and runs
 `fused_subsampling_x4_plain` (the F.conv2d pair, in fp32) only for CPU tensors.
+The kernel has no backward, as the JAX kernel has none: for CUDA tensors the
+wrapper raises where a gradient is required, rather than return an output
+cut from the graph. A training forward runs the conv pair instead
+(`ConformerEncoder.forward(..., conv_pair_subsampling=True)`).
 """
 
 from __future__ import annotations
@@ -45,11 +49,16 @@ def fused_subsampling_x4(
 ) -> torch.Tensor:
     """→ [B, T4, F4·C]. CPU tensors take the plain version; CUDA tensors
     launch the kernel (fp32 or bf16, C a multiple of 128, a bf16 w2 16-byte
-    aligned) or raise."""
+    aligned) or raise; for CUDA tensors it also raises where grad mode is on
+    and an input requires grad (the kernel has no backward)."""
     if x.device.type == "cpu":
         return fused_subsampling_x4_plain(x, w1, b1, w2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"fused_subsampling_x4: unsupported device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2, b2)):
+        raise RuntimeError("fused_subsampling_x4 has no backward (nor has the JAX kernel): "
+                           "run the training forward through the conv pair "
+                           "(conv_pair_subsampling=True)")
     B, T, Fi = x.shape
     C = w1.shape[-1]
     dtype = x.dtype

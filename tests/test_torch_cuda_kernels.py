@@ -19,8 +19,10 @@ torch = pytest.importorskip("torch")
 from nemo_tpu_torch.models.asr.configs import conformer_ctc  # noqa: E402
 from nemo_tpu_torch.models.asr.ctc_models import EncDecCTCModel  # noqa: E402
 from nemo_tpu_torch.models.asr.modules.conformer import RelPositionalEncoding  # noqa: E402
+from nemo_tpu_torch.interop.jax_params import model_variables  # noqa: E402
 from nemo_tpu_torch.ops.flash_attention import (  # noqa: E402
-    relpos_flash_attention, relpos_flash_attention_plain)
+    relpos_flash_attention, relpos_flash_attention_backward_plain, relpos_flash_attention_plain,
+    relpos_flash_dkv, relpos_flash_dq, row_delta)
 from nemo_tpu_torch.ops.subsampling_kernel import (  # noqa: E402
     fused_subsampling_x4, fused_subsampling_x4_plain)
 
@@ -119,3 +121,86 @@ def test_small_model_on_cuda_matches_cpu(cuda):
     assert torch.equal(n, ref_n)
     for b, t in enumerate(n.tolist()):
         torch.testing.assert_close(lp[b, :t], ref[b, :t], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("T,lengths", [(64, [64, 64]), (151, [151, 77]), (200, [1, 133]),
+                                       (751, [751, 700])])
+def test_relpos_flash_backward_kernels_match_plain(cuda, dtype, tol, T, lengths):
+    """K3 (dqu, dqv) and K4 (dk, dv, dp) against the plain backward, each
+    within tol of its max-abs value: fp32 differs by the order of sums (dp
+    by atomics, whose order changes from run to run); bf16 also by the
+    kernels' rounding of P and dS to bf16 before each product."""
+    B, H = len(lengths), 3
+    args = [a.to(cuda, dtype) if torch.is_tensor(a) and a.is_floating_point() else
+            (a.to(cuda) if torch.is_tensor(a) else a)
+            for a in _attention_inputs(B, H, T, lengths, seed=T + 1)]
+    o, lse = relpos_flash_attention(*args)
+    do = torch.randn(o.shape, generator=torch.Generator().manual_seed(T)).to(cuda, dtype)
+    delta = row_delta(o, do)
+    launches = relpos_flash_dq.launches, relpos_flash_dkv.launches
+    out = (*relpos_flash_dq(*args, lse, delta, do), *relpos_flash_dkv(*args, lse, delta, do))
+    torch.cuda.synchronize()
+    assert (relpos_flash_dq.launches, relpos_flash_dkv.launches) == (launches[0] + 1,
+                                                                     launches[1] + 1)
+    ref = relpos_flash_attention_backward_plain(*args, o, lse, do)
+    for name, x, r in zip(("dqu", "dqv", "dk", "dv", "dp"), out, ref):
+        assert x.shape == r.shape and x.dtype == dtype, name
+        r = r.float()
+        torch.testing.assert_close(x.float(), r, atol=tol * float(r.abs().max()), rtol=0,
+                                   msg=name)
+
+
+def test_attention_output_is_differentiable_on_cuda(cuda):
+    """K1's output carries the autograd Function, and its backward launches
+    K3 and K4 once each."""
+    args = [a.to(cuda).requires_grad_() if torch.is_tensor(a) and a.is_floating_point() else
+            (a.to(cuda) if torch.is_tensor(a) else a)
+            for a in _attention_inputs(2, 2, 80, [80, 50], seed=1)]
+    o, _ = relpos_flash_attention(*args)
+    assert type(o.grad_fn.next_functions[0][0]).__name__ == "RelposFlashAttentionBackward"
+    launches = relpos_flash_dq.launches, relpos_flash_dkv.launches
+    grads = torch.autograd.grad(o[:, :, :50].sum(), [a for a in args[:5]])
+    assert all(torch.isfinite(g).all() and g.abs().sum() > 0 for g in grads)
+    assert (relpos_flash_dq.launches, relpos_flash_dkv.launches) == (launches[0] + 1,
+                                                                     launches[1] + 1)
+
+
+def test_fused_subsampling_raises_under_grad_on_cuda(cuda):
+    sub = [a.to(cuda) for a in _subsampling_inputs(1, 40, 16, 128, seed=0)]
+    sub[3].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_subsampling_x4(*sub)
+    with torch.no_grad():
+        fused_subsampling_x4(*sub)
+
+
+def test_small_model_gradients_on_cuda_match_cpu(cuda):
+    """The calibration loss of a 2-layer model (d_model 128, 2 heads of 64,
+    both kernel flags, fp32) on the same mel features: the gradient of every
+    variable on the card (K1, K3, K4; the conv pair) against the CPU (plain
+    versions), within 1e-4 of each leaf's max-abs value plus 1e-6."""
+    cfg = conformer_ctc("large", att_impl="decomposed_flash", fused_subsampling=True)
+    cfg.encoder.update(n_layers=2, d_model=128, n_heads=2)
+    cfg.decoder.feat_in = 128
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy((0.1 * rng.randn(2, 32000)).astype(np.float32))
+    lens = torch.tensor([32000, 25000], dtype=torch.int32)
+    labels = torch.from_numpy(rng.randint(0, 29, (2, 50)))
+    grads, feats = {}, None
+    for device in ("cpu", "cuda"):
+        model = EncDecCTCModel(cfg, device=device, seed=3)
+        if feats is None:  # one frontend for both: its last bits flip ReLU gates of conv0
+            with torch.no_grad():
+                feats = model.mel_features(x, lens)
+        leaves = model_variables(model)
+        for t in leaves.values():
+            t.requires_grad_(True)
+        enc, _ = model.encoder(*(f.to(device) for f in feats), conv_pair_subsampling=True)
+        lp = model.decoder(enc)[:, :labels.shape[1]]
+        loss = -lp.gather(-1, labels.to(device)[..., None])[..., 0].mean()
+        grads[device] = dict(zip(leaves, (g.cpu() for g in torch.autograd.grad(
+            loss, list(leaves.values())))))
+    for name, ref in grads["cpu"].items():
+        torch.testing.assert_close(grads["cuda"][name], ref, rtol=0,
+                                   atol=1e-4 * float(ref.abs().max()) + 1e-6, msg=name)
