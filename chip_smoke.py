@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""On-card check of the PyTorch port (`nemo_tpu_torch`): Conformer-Large CTC
-tone calibration (training) and then transcription on one NVIDIA card,
-through the four hand-written kernels, as bench.py's primary line runs them.
+"""On-card check of the PyTorch port (`nemo_tpu_torch`) on one NVIDIA card:
+Conformer-Large CTC tone calibration (training) and then transcription,
+through the four hand-written kernels K1-K4, as bench.py's primary line runs
+them; then Llama-3.2-1B training through the causal GQA flash kernels K5-K7.
 
     python3 chip_smoke.py            # from the repository root; needs one CUDA card
-    python3 chip_smoke.py --profile  # and torch.profiler breakdowns of one batch
-                                     # and of calibration steps
+    python3 chip_smoke.py --profile  # and torch.profiler breakdowns of one batch,
+                                     # of calibration steps and of LLM training steps
 
 Phases, each printing a line; any failure raises and exits non-zero:
 
@@ -31,11 +32,30 @@ Phases, each printing a line; any failure raises and exits non-zero:
    (at most 3 rounds); K1, K3 and K4 launch 18 times a step;
 8. the main path: `transcribe_staged` of the calibrated model over held-out
    tone batches, B=32 x 30 s int16, one warm batch and 5 timed ones; more
-   than 50 chars/utt (bench.py:132), K1 18 and K2 1 launch a batch.
+   than 50 chars/utt (bench.py:132), K1 18 and K2 1 launch a batch;
+9. K5, K6 and K7, the causal GQA flash forward and backward, against their
+   plain versions at B=2, S=2048 (H=32 over G=8 at dh 64, with no window and
+   a window of 512; H=G=12 at dh 128, GPT-551M's head), bf16 and fp32, and
+   their times at the training shape (B=8, H=32, G=8, S=2048, dh 64) beside
+   the plain versions' and SDPA's (is_causal, enable_gqa); o and each
+   gradient are held row by row (one query's o or dq, one key's dk or dv)
+   and by their relative norm, since causal rows shrink along the sequence;
+10. LLM gradients in fp32: a 2-layer model at Llama-3.2-1B's width (the
+   vocab cut to 8192), B=1 x S=256, on the card (K5-K7, full remat) and on
+   the CPU (plain versions): the loss and every gradient;
+11. a measurement: how far the fused CE's bf16 logits gradient moves the
+   gradients of a 2-layer bf16 model at Llama-3.2-1B's width and vocab from
+   a backward that keeps that gradient in fp32, as JAX's mixed products do;
+12. LLM training, this slice's path: `GPTTrainModule.train_step` on
+   Llama-3.2-1B (full width and depth, bf16, flash, full remat, AdamW) at
+   B=8 x S=2048 from seed 0, 2 warm-up steps and 20 timed ones over distinct
+   random batches: tokens/s, ms/step, MFU, peak memory; K5 32, K6 16 and K7
+   16 launches a step, none of K1-K4.
 
-With --profile, one more batch of the main path and then 6 more calibration
-steps run under torch.profiler, and their device time by kernel and the
-card's busy share of the wall time are printed. It ends with a JSON line of the kernels and then
+With --profile, one more batch of the transcription path, 6 more calibration
+steps and 2 more LLM training steps run under torch.profiler, and their
+device time by kernel and the card's busy share of the wall time are
+printed. It ends with a JSON line of the kernels and then
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 TF32 is off for the comparisons. Nothing of JAX or `nemo_tpu` is imported.
 """
@@ -62,6 +82,17 @@ B, SECS, SR = 32, 30.0, 16000
 TIMED_BATCHES = 5
 # calibration at bench.py's values: fit batch, steps per round, tokens per utterance
 FIT_BATCH, FIT_STEPS, UTT_TOKENS, DENSITY_FLOOR = 4, 250, 60, 50.0
+# LLM training at bench.py:325's shape (bench_llm_1b): batch, sequence, steps
+LLM_B, LLM_S, LLM_WARMUP, LLM_STEPS = 8, 2048, 2, 20
+# the step-0 loss of random weights: ln V plus half the logits' variance
+# (std 0.02 * sqrt(2048) = 0.9 → +0.41); the band allows [ln V, ln V + 1]
+LLM_LOSS_BAND = (0.0, 1.0)
+# kinds of device kernels in an LLM training step, by a piece of their names
+LLM_KERNEL_KINDS = (
+    ("K5 flash forward", ("fwd_kernel<",)), ("K6 flash dq", ("dq_kernel<",)),
+    ("K7 flash dk/dv", ("dkv_kernel<",)), ("cuBLAS GEMM", ("nvjet", "gemm", "cutlass", "sm90_")),
+    ("optimizer (foreach)", ("multi_tensor",)), ("reductions", ("reduce_kernel",)),
+    ("elementwise and copies", ("elementwise", "copy", "Memcpy", "Memset", "fill")))
 
 
 def log(msg: str) -> None:
@@ -94,6 +125,29 @@ def compare(what: str, out: torch.Tensor, ref: torch.Tensor, atol: float, rtol: 
         f"{bad} elements outside")
     if bad:
         raise AssertionError(f"{what}: {bad} elements outside the tolerance")
+    return max_err
+
+
+def compare_rows(what: str, out: torch.Tensor, ref: torch.Tensor, tol: float,
+                 norm_tol: float) -> float:
+    """Max abs error of an attention output or gradient, each row (the last
+    axis: one query's o or dq, one key's dk or dv) held at its own scale,
+    since causal rows and keys shrink along the sequence. Raises where |out -
+    ref| > tol * max|ref| over the row + tol / 100 * max|ref| anywhere, or
+    where ||out - ref|| > norm_tol * ||ref||."""
+    out, ref = out.float(), ref.float()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{what}: non-finite values")
+    err = (out - ref).abs()
+    limit = tol * ref.abs().amax(-1, keepdim=True) + tol / 100 * float(ref.abs().max())
+    worst = float((err / limit).max())
+    rel = float(torch.linalg.vector_norm(out - ref) / torch.linalg.vector_norm(ref))
+    max_err = float(err.max())
+    log(f"{what}: max_abs_err={max_err:.3e}, worst row at {worst:.3f} of its tolerance ({tol:g} "
+        f"of the row's max-abs + {tol / 100:g} of the max), rel_norm_err={rel:.3e} "
+        f"(tolerance {norm_tol:g})")
+    if worst > 1 or rel > norm_tol:
+        raise AssertionError(f"{what}: outside the tolerance")
     return max_err
 
 
@@ -516,14 +570,296 @@ def phase_main_path(model, staged, k1, k2, profile: bool) -> dict:
     return launches
 
 
+def _gqa_inputs(gen: torch.Generator, B_: int, H: int, G: int, T: int, dh: int, dtype):
+    """q, dO [B, H, T, dh] and k, v [B, G, T, dh] on the card, as views of
+    the [B, T, heads, dh] Linear-output layout the kernels read."""
+    q, do = (torch.randn(B_, T, H, dh, generator=gen).to("cuda", dtype).transpose(1, 2)
+             for _ in range(2))
+    k, v = (torch.randn(B_, T, G, dh, generator=gen).to("cuda", dtype).transpose(1, 2)
+            for _ in range(2))
+    return q, k, v, do
+
+
+def phase_k5_k7(gen: torch.Generator):
+    """K5, K6 and K7 against their plain versions at B=2, S=2048 (Llama's
+    32 heads over 8 kv heads at dh 64, with no window and a window of 512;
+    GPT-551M's 12 heads at dh 128), then their times at the training shape."""
+    from nemo_tpu_torch.ops.flash_attention import (_k5_launch, flash_attention,
+                                                    flash_attention_backward_plain,
+                                                    flash_attention_plain, flash_dkv, flash_dq,
+                                                    row_delta)
+
+    rows = [{"name": name, "route": "cuda", "source": f"nemo_tpu_torch/csrc/{src}.cu",
+             "replaces": f"nemo_tpu/ops/flash_attention.py:{line} (causal GQA)"}
+            for name, src, line in (("flash_attention", "flash_fwd", 77),
+                                    ("flash_dq", "flash_bwd", 213),
+                                    ("flash_dkv", "flash_bwd", 257))]
+    errs = {}  # kernel → worst bf16 max abs error
+    for (H, G, dh, window), dtype in ((c, d) for c in ((32, 8, 64, None), (32, 8, 64, 512),
+                                                       (12, 12, 128, None))
+                                      for d in (torch.float32, torch.bfloat16)):
+        # (K5 atol, rtol), gradients' tolerance of each row's max, relative norm
+        tol, gtol, ntol = (((1e-4, 1e-4), 1e-4, 1e-5) if dtype == torch.float32
+                           else ((1e-2, 2e-2), 3e-2, 1e-2))
+        q, k, v, do = _gqa_inputs(gen, 2, H, G, LLM_S, dh, dtype)
+        scale = 1.0 / math.sqrt(dh)
+        o = flash_attention(q, k, v, scale, True, window)  # the wrapper the model calls
+        _, lse = _k5_launch(q, k, v, scale, True, window)
+        o_ref, lse_ref = flash_attention_plain(q, k, v, scale, True, window)
+        what = f"{str(dtype)[6:]} B=2 H={H} G={G} dh={dh} window={window}"
+        err5 = compare(f"K5 {what}", o, o_ref, *tol)
+        compare_rows(f"K5 {what} by row", o, o_ref, tol[1], ntol)
+        compare(f"K5 {what} lse", lse, lse_ref, 1e-3, 1e-4)
+        del o_ref, lse_ref
+        args = (q, k, v, scale, True, window, lse, row_delta(o, do), do)
+        out = (flash_dq(*args), *flash_dkv(*args))
+        ref = flash_attention_backward_plain(q, k, v, scale, True, window, o, lse, do)
+        torch.cuda.synchronize()
+        grad_errs = [compare_rows(f"K{6 if name == 'dq' else 7} {what} {name}", x, r, gtol, ntol)
+                     for name, x, r in zip(("dq", "dk", "dv"), out, ref)]
+        del out, ref
+        if dtype == torch.bfloat16:
+            for key, err in (("k5", err5), ("k6", grad_errs[0]), ("k7", max(grad_errs[1:]))):
+                errs[key] = max(errs.get(key, 0.0), err)
+
+    H, G, dh = 32, 8, 64
+    scale, pairs = 1.0 / math.sqrt(dh), LLM_B * H * LLM_S * (LLM_S + 1) / 2
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = _gqa_inputs(gen, LLM_B, H, G, LLM_S, dh, dtype)
+        o, lse = _k5_launch(q, k, v, scale, True, None)
+        o = o.transpose(1, 2)
+        args = (q, k, v, scale, True, None, lse, row_delta(o, do), do)
+        fast = dtype == torch.bfloat16
+        ms = [cuda_ms(lambda: flash_attention(q, k, v, scale), iters=20 if fast else 3),
+              cuda_ms(lambda: flash_dq(*args), iters=20 if fast else 3),
+              cuda_ms(lambda: flash_dkv(*args), iters=20 if fast else 3)]
+        plain_fwd = cuda_ms(lambda: flash_attention_plain(q, k, v, scale, True, None), iters=3)
+        plain_bwd = cuda_ms(lambda: flash_attention_backward_plain(
+            q, k, v, scale, True, None, o, lse, do), iters=3)
+        # SDPA, causal with GQA, as the library yardstick: forward, backward
+        # alone (dq, dk, dv), and forward + backward
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            ql, kl, vl, is_causal=True, scale=scale, enable_gqa=True)
+        lib_fwd = cuda_ms(sdpa, iters=20 if fast else 3)
+        o_lib = sdpa()
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do,
+                                                      retain_graph=True), iters=10 if fast else 3)
+        lib_both = cuda_ms(lambda: torch.autograd.grad(sdpa(), (ql, kl, vl), do),
+                           iters=10 if fast else 3)
+        del o_lib
+        elt = q.element_size()
+        bq, bk = LLM_B * LLM_S * H * dh, LLM_B * LLM_S * G * dh  # elements of q (or o) and of k
+        rows_bytes = 4 * LLM_B * H * LLM_S  # one fp32 value a query row
+        bounds = [bound(elt * (2 * bq + 2 * bk) + rows_bytes, 4 * dh * pairs, dtype),
+                  bound(elt * (3 * bq + 2 * bk) + 2 * rows_bytes, 6 * dh * pairs, dtype),
+                  bound(elt * (2 * bq + 4 * bk) + 2 * rows_bytes, 8 * dh * pairs, dtype)]
+        name = str(dtype)[6:]
+        log(f"SDPA {name} B={LLM_B} causal GQA: forward {lib_fwd:.4f} ms, backward "
+            f"{lib_bwd:.4f} ms, forward+backward {lib_both:.4f} ms")
+        for i, (row, plain_ms, lib_ms) in enumerate(zip(rows, (plain_fwd, plain_bwd, plain_bwd),
+                                                         (lib_fwd, lib_bwd, lib_bwd))):
+            bound_ms, bound_by = bounds[i]
+            log(f"K{5 + i} {name} B={LLM_B} H={H} G={G} S={LLM_S}: kernel_ms={ms[i]:.4f} "
+                f"plain_ms({'forward' if i == 0 else 'whole backward'})={plain_ms:.4f} "
+                f"library_ms(SDPA {'forward' if i == 0 else 'backward'})={lib_ms:.4f} "
+                f"bound_ms={bound_ms:.4f} ({bound_by})")
+            row.update(max_abs_err=errs[f"k{5 + i}"], ms=ms[i], plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)  # bf16 last
+        del q, k, v, do, o, lse, args, ql, kl, vl
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _llm_cfg(**kw):
+    from nemo_tpu_torch.models.llm.config import llama32_1b
+
+    return llama32_1b(**{"seq_length": LLM_S, "compute_dtype": "bfloat16",
+                         "attention_backend": "flash", "remat": "full", **kw})
+
+
+def phase_llm_grad_exactness() -> None:
+    """fp32 loss and gradients of a 2-layer model at Llama-3.2-1B's width
+    (hidden 2048, 32 heads over 8, FFN 8192, llama3 RoPE; the vocab cut to
+    8192 to keep the CPU side cheap), B=1 x S=256, on the card (K5-K7 under
+    full remat) against the CPU (plain versions): the loss within 1e-5
+    relative, every gradient within 1e-4 of its leaf's max-abs plus 1e-6."""
+    from nemo_tpu_torch.models.llm.train import GPTTrainModule
+
+    cfg = _llm_cfg(num_layers=2, vocab_size=8192, seq_length=256, compute_dtype="float32")
+    rng = np.random.RandomState(3)
+    tokens, labels = (torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, 256)))
+                      for _ in range(2))
+    cpu = GPTTrainModule(cfg, device="cpu", seed=0)
+    card = GPTTrainModule(cfg, device="cuda", seed=0)
+    card.model.load_state_dict(cpu.model.state_dict())
+    out = {}
+    for name, mod in (("cpu", cpu), ("cuda", card)):
+        loss = mod.loss(tokens.to(mod.device), labels.to(mod.device))
+        grads = torch.autograd.grad(loss, mod.params)
+        out[name] = (float(loss.detach()), [g.cpu() for g in grads])
+    (loss, grads), (ref_loss, ref_grads) = out["cuda"], out["cpu"]
+    worst, bad = 0.0, []
+    for (pname, _), g, ref in zip(cpu.model.named_parameters(), grads, ref_grads):
+        tol = 1e-4 * float(ref.abs().max()) + 1e-6
+        err = float((g - ref).abs().max())
+        worst = max(worst, err / tol)
+        if not torch.isfinite(g).all() or err > tol:
+            bad.append(pname)
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    log(f"LLM fp32, 2 layers at Llama-3.2-1B width, vocab cut to {cfg.vocab_size}, B=1 x S=256, "
+        f"cuda (K5-K7, remat full) vs cpu (plain): loss {loss:.6f} vs {ref_loss:.6f} "
+        f"(rel {rel:.2e}, tolerance 1e-5); {len(ref_grads)} gradients, worst max_abs_err = "
+        f"{worst:.3f} of its tolerance (1e-4 of the leaf's max-abs + 1e-6)")
+    if rel > 1e-5 or bad:
+        raise AssertionError(f"LLM loss or gradients disagree: rel {rel:.2e}, leaves {bad}")
+
+
+def phase_ce_grad_rounding() -> None:
+    """The fused CE's backward (models/llm/loss.py) rounds the logits'
+    gradient to bf16 before its two products; JAX takes them as fp32 mixed
+    products. A 2-layer model at Llama-3.2-1B's width and vocab (bf16, no
+    remat), B=1 x S=2048: one forward, then the gradients of d(hidden) and of
+    every leaf with the port's loss against a backward written out here that
+    keeps the logits' gradient in fp32. Prints the gaps; no limit."""
+    from nemo_tpu_torch.models.llm.loss import fused_linear_cross_entropy
+    from nemo_tpu_torch.models.llm.train import GPTTrainModule
+
+    cfg = _llm_cfg(num_layers=2, remat="none")
+    model = GPTTrainModule(cfg, device="cuda", seed=0).model
+    params = list(model.parameters())
+    rng = np.random.RandomState(4)
+    tokens, labels = (torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, LLM_S))).cuda()
+                      for _ in range(2))
+    hidden = model(tokens, output_hidden=True)
+    h = hidden.detach().requires_grad_()
+    w = model.head_weight().detach().requires_grad_()
+    loss, _ = fused_linear_cross_entropy(h, w, labels, chunk=cfg.fused_ce_chunk)
+    dh, dw = torch.autograd.grad(loss, (h, w))
+    # the same loss's backward, the logits' gradient kept in fp32
+    n, c = LLM_S, min(cfg.fused_ce_chunk, LLM_S)
+    hs, ls, w_c = h.detach()[0], labels[0], w.detach().to(h.dtype)
+    dh32, dw32 = torch.empty_like(hs), torch.zeros_like(dw)
+    for s0 in range(0, n, c):
+        dlogits = torch.softmax(torch.mm(hs[s0:s0 + c], w_c.t(), out_dtype=torch.float32), -1)
+        dlogits[torch.arange(c, device="cuda"), ls[s0:s0 + c]] -= 1.0
+        dlogits /= n
+        dh32[s0:s0 + c] = (dlogits @ w_c.float()).to(hs.dtype)
+        dw32 += dlogits.t() @ hs[s0:s0 + c].float()
+    grads, [emb] = {}, [i for i, p in enumerate(params) if p is model.embedding]
+    for name, (d_h, d_w) in (("bf16", (dh, dw)), ("fp32", (dh32[None], dw32))):
+        g = list(torch.autograd.grad(hidden, params, d_h, retain_graph=True))
+        g[emb] = g[emb] + d_w  # the tied embedding: the lookup's gradient and the head's
+        grads[name] = [d_h.float()] + [x.float() for x in g]
+
+    def gap(x, ref):
+        rel = float(torch.linalg.vector_norm(x - ref) / torch.linalg.vector_norm(ref))
+        return rel, float((x - ref).abs().max() / ref.abs().max())
+
+    names = ["d(hidden)"] + [name for name, _ in model.named_parameters()]
+    gaps = {name: gap(x, r) for name, x, r in zip(names, grads["bf16"], grads["fp32"])}
+    if not all(torch.isfinite(x).all() for x in grads["bf16"]):
+        raise AssertionError("CE rounding: non-finite gradients")
+    worst = max((k for k in names[1:] if k != names[1 + emb]), key=lambda k: gaps[k][0])
+    log(f"CE logits gradient bf16 vs fp32, 2 layers at Llama-3.2-1B width and vocab, bf16, "
+        f"B=1 x S={LLM_S}: " + ", ".join(
+            f"{k} rel_norm_gap={gaps[k][0]:.3e} max_abs_gap={gaps[k][1]:.3e} of its max"
+            for k in ("d(hidden)", names[1 + emb], worst)) + f" (the worst other leaf); "
+        f"{len(names) - 1} leaves, loss {float(loss.detach()):.4f}")
+
+
+def phase_llm_training(counters: dict, profile: bool) -> dict:
+    """This slice's path: Llama-3.2-1B train steps at B=8 x S=2048; returns
+    the launch counts of the 20 timed steps."""
+    from nemo_tpu_torch.llm.auto_configurator import model_flops_per_token
+    from nemo_tpu_torch.models.llm.train import GPTTrainModule
+
+    cfg = _llm_cfg()
+    t0 = time.perf_counter()
+    mod = GPTTrainModule(cfg, device="cuda", seed=0)
+    n_params = sum(p.numel() for p in mod.params)
+    # distinct random batches, made from the seed and staged on the card (scripts/train_mfu.py:76-85)
+    rng = np.random.RandomState(0)
+    batches = [{key: torch.from_numpy(rng.randint(0, cfg.vocab_size, (LLM_B, LLM_S))).cuda()
+                for key in ("tokens", "labels")} for _ in range(LLM_WARMUP + LLM_STEPS)]
+    torch.cuda.synchronize()
+    log(f"LLM: Llama-3.2-1B built on the card from seed 0 ({n_params:,} parameters, fp32) with "
+        f"{len(batches)} batches in {time.perf_counter() - t0:.1f} s")
+    metrics = [mod.train_step(b) for b in batches[:LLM_WARMUP]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    metrics += [mod.train_step(b) for b in batches[LLM_WARMUP:]]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    tok_s = LLM_STEPS * LLM_B * LLM_S / wall
+    mfu = model_flops_per_token(cfg) * tok_s / PEAK_FLOPS[torch.bfloat16]
+    log(f"main path, LLM training: Llama-3.2-1B bf16, flash, remat full, AdamW, B={LLM_B} x "
+        f"S={LLM_S}, {LLM_STEPS} timed steps after {LLM_WARMUP}: {tok_s:.1f} tokens/s, "
+        f"{1e3 * wall / LLM_STEPS:.2f} ms/step, MFU {100 * mfu:.2f} % of 989 TFLOP/s "
+        f"({model_flops_per_token(cfg):.4e} FLOPs/token), peak_mem={peak:.2f} GiB, loss "
+        f"{losses[0]:.4f} (step 0) → {losses[-1]:.4f} (step {len(losses) - 1}), grad_norm "
+        f"{norms[0]:.4f} → {norms[-1]:.4f}, launches {launches}")
+    if not all(map(math.isfinite, losses + norms)):
+        raise AssertionError(f"non-finite loss or grad norm: {losses} {norms}")
+    lo, hi = (math.log(cfg.vocab_size) + d for d in LLM_LOSS_BAND)
+    if not lo <= losses[0] <= hi:
+        raise AssertionError(f"step-0 loss {losses[0]:.4f} outside [{lo:.3f}, {hi:.3f}]")
+    want = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 2 * cfg.num_layers * LLM_STEPS,
+            "k6": cfg.num_layers * LLM_STEPS, "k7": cfg.num_layers * LLM_STEPS}
+    if launches != want:
+        raise AssertionError(f"LLM launch counts {launches}, expected {want}")
+    if profile:
+        profile_llm(mod, batches[:2])
+    return launches
+
+
+def profile_llm(mod, batches) -> None:
+    """Two more LLM training steps under torch.profiler (device activity
+    only): device time by kernel, the step's wall and kernel time, and the
+    card's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            mod.train_step(b)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / len(batches)
+    groups = {}  # device ms a step by kind of kernel
+    for e in kernels:
+        name = e.name
+        kind = next((k for k, keys in LLM_KERNEL_KINDS if any(x in name for x in keys)), "other")
+        groups[kind] = groups.get(kind, 0.0) + e.self_device_time_total / 1e3 / len(batches)
+    log("profile, LLM training step by kind: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
+    log(f"profile, LLM training step (Llama-3.2-1B, B={LLM_B} x S={LLM_S}): wall {wall_ms:.2f} "
+        f"ms, kernels {busy_ms:.2f} ms in {len(kernels) / len(batches):.0f} device operations, "
+        f"card idle {100 - 100 * busy_ms / wall_ms:.1f} % of the wall time")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile one batch of the main path and calibration steps")
+                        help="also profile one transcription batch, calibration steps and "
+                             "LLM training steps")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this check runs on the GPU only", file=sys.stderr)
         return 1
+    from nemo_tpu_torch.ops.flash_attention import flash_attention as k5
+    from nemo_tpu_torch.ops.flash_attention import flash_dkv as k7
+    from nemo_tpu_torch.ops.flash_attention import flash_dq as k6
     from nemo_tpu_torch.ops.flash_attention import relpos_flash_attention as k1
     from nemo_tpu_torch.ops.flash_attention import relpos_flash_dkv as k4
     from nemo_tpu_torch.ops.flash_attention import relpos_flash_dq as k3
@@ -541,6 +877,16 @@ def main() -> int:
     launches = phase_main_path(model, staged, k1, k2, args.profile)
     rows[0]["launches"], rows[1]["launches"] = launches["k1"], launches["k2"]
     rows[2]["launches"], rows[3]["launches"] = fit_launches["k3"], fit_launches["k4"]
+    del model, staged
+    torch.cuda.empty_cache()
+    llm_rows = phase_k5_k7(gen)
+    phase_llm_grad_exactness()
+    phase_ce_grad_rounding()
+    llm_launches = phase_llm_training(
+        {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k5": k5, "k6": k6, "k7": k7}, args.profile)
+    for row, key in zip(llm_rows, ("k5", "k6", "k7")):
+        row["launches"] = llm_launches[key]
+    rows += llm_rows
     log(f"total: {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

@@ -1,18 +1,25 @@
-"""The optimizer of the JAX package's calibration, with optax's semantics:
+"""clip_by_global_norm + AdamW with optax's semantics, on fp32 masters.
 
-    optax.chain(optax.clip_by_global_norm(5.0), optax.adamw(schedule))
+Two chains of the JAX package run through `ClippedAdamW`:
 
-(nemo_tpu/models/asr/synthetic.py:231-233) and optax's
-`warmup_cosine_decay_schedule`. Where torch's own differ: torch's
-`clip_grad_norm_` adds 1e-6 to the norm and `torch.optim.AdamW` decays by
-lr·wd·p before the Adam step with a default wd of 0.01; optax adds wd·p to
-the Adam direction and scales the sum by the schedule, whose first value
-(count 0) is used by the first update.
+- calibration (nemo_tpu/models/asr/synthetic.py:231-233):
+  `optax.chain(optax.clip_by_global_norm(5.0), optax.adamw(schedule))` with
+  optax's `warmup_cosine_decay_schedule` (the class defaults);
+- GPT training (nemo_tpu/models/llm/train.py:105-110):
+  `optax.chain(optax.clip_by_global_norm(1.0), optax.adamw(3e-4, b1=0.9,
+  b2=0.95, eps=1e-8, weight_decay=0.1))`, a constant schedule, weight decay
+  on every leaf (`gpt_optimizer`).
+
+Where torch's own differ: torch's `clip_grad_norm_` adds 1e-6 to the norm
+and `torch.optim.AdamW` decays by lr·wd·p before the Adam step with a
+default wd of 0.01; optax adds wd·p to the Adam direction and scales the sum
+by the schedule, whose first value (count 0) is used by the first update.
 
 The optimizer owns fp32 master copies of its leaves. Leaves held in a
 narrower dtype (the bf16 weights of a bf16 model) receive the rounded master
 after each step, so an update smaller than a bf16 ulp is kept in the master,
-as in the JAX package, whose variables are fp32 and cast at each use.
+as in the JAX package, whose variables are fp32 and cast at each use. An
+fp32 leaf is its own master.
 """
 
 from __future__ import annotations
@@ -42,18 +49,26 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
     return schedule
 
 
+def constant_schedule(value: float) -> Callable[[int], float]:
+    """optax.constant_schedule: `value` at every count."""
+    return lambda count: value
+
+
 class ClippedAdamW:
-    """clip_by_global_norm(5) then AdamW (optax's b1 0.9, b2 0.999, eps 1e-8
-    outside the square root, weight decay 1e-4) over `leaves` (any tensors:
-    parameters and BatchNorm running stats alike), on fp32 masters.
+    """clip_by_global_norm(max_norm) then AdamW (b1, b2, eps outside the
+    square root, weight decay on every leaf; by default calibration's 5.0,
+    0.9, 0.999, 1e-8 and 1e-4) over `leaves` (any tensors: parameters and
+    BatchNorm running stats alike), on fp32 masters.
 
     `step(grads)` takes one gradient per leaf (any float dtype), updates the
     masters and writes them into the leaves. It runs on the leaves' device
     and does not synchronise with the host."""
 
-    B1, B2, EPS, WEIGHT_DECAY, MAX_NORM = 0.9, 0.999, 1e-8, 1e-4, 5.0
-
-    def __init__(self, leaves: Sequence[torch.Tensor], schedule: Callable[[int], float]):
+    def __init__(self, leaves: Sequence[torch.Tensor], schedule: Callable[[int], float], *,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 1e-4, max_norm: float = 5.0):
+        self.B1, self.B2, self.EPS = b1, b2, eps
+        self.WEIGHT_DECAY, self.MAX_NORM = weight_decay, max_norm
         self.leaves = list(leaves)
         # an fp32 leaf is its own master; a narrower one gets an fp32 copy
         self.masters = [t.detach() if t.dtype == torch.float32 else t.detach().float()
@@ -83,7 +98,10 @@ class ClippedAdamW:
         den = torch._foreach_div(self.nu, 1 - b2 ** self.count)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.EPS)
-        update = torch._foreach_div(mu_hat, den)
+        del g
+        update = mu_hat  # the Adam direction, in place of mu_hat's buffers
+        torch._foreach_div_(update, den)
+        del den
         torch._foreach_add_(update, self.masters, alpha=self.WEIGHT_DECAY)
         lr = self.schedule(self.count - 1)  # optax's schedule count starts at 0
         torch._foreach_add_(self.masters, update, alpha=-lr)
@@ -91,3 +109,11 @@ class ClippedAdamW:
             if leaf.dtype != torch.float32:
                 leaf.copy_(master)
         return norm
+
+
+def gpt_optimizer(leaves: Sequence[torch.Tensor]) -> ClippedAdamW:
+    """GPTTrainModule's default chain (nemo_tpu/models/llm/train.py:105-110):
+    clip 1.0, then AdamW(b1 0.9, b2 0.95, eps 1e-8, weight decay 0.1 on every
+    leaf) at a constant learning rate of 3e-4."""
+    return ClippedAdamW(leaves, constant_schedule(3e-4), b1=0.9, b2=0.95, eps=1e-8,
+                        weight_decay=0.1, max_norm=1.0)

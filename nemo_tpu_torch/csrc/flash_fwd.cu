@@ -1,0 +1,331 @@
+// Causal / sliding-window GQA flash attention forward (K5) for Hopper
+// (sm_90a), fp32 or bf16 inputs, head width D in {64, 128}.
+//
+// Replaces the TPU kernel nemo_tpu/ops/flash_attention.py:_fwd_kernel
+// (pallas_call in _flash_forward) as nemo_tpu/models/llm/gpt.py:642 calls
+// it: causal, an optional sliding window, G kv heads under H query heads
+// (head h reads kv head h*G/H, as _kv_index_map does):
+//
+//   s[i,j] = scale * q_i . k_j   for j <= i (causal) and j > i - window, else -1e30
+//   o_i    = softmax_j(s[i,:]) v ;  lse_i = log sum_j exp s[i,j]
+//
+// One block owns (b, h, 64 query rows) and loops over the 64-key tiles that
+// hold an unmasked pair (_block_active: from the window's first tile to the
+// diagonal), with an online softmax; only boundary tiles (_needs_mask) are
+// masked element by element. Causal, that is half the tiles at T = 2048.
+// Blocks of later query tiles have more tiles to visit and are launched
+// first. Every row keeps its own key (j = i), so no row is all masked.
+//
+// Bound on the H100: 4 * B * H * D * (valid pairs) operations against ~4 x
+// B T H D x 2 bytes of q, k, v and o, so the operations bound it at the
+// training shape (B=8, H=32, G=8, T=2048, D=64: 0.14 ms at the bf16 peak).
+//
+// - bf16 (the main path): tensor cores through mma.sync m16n8k16 (fp32
+//   accumulators), 4 warps of 16 query rows holding q in registers; per key
+//   tile s = q k^T from the staged k tile, then o += P v with P rounded to
+//   bf16 straight from the score registers (as flash_attention.py:131 rounds
+//   p to v's dtype) and v's fragments read by ldmatrix.trans.
+// - fp32 (the exactness check): scalar FMAs from shared-memory tiles, 16 x 16
+//   threads with 4 x 4 scores each.
+// wgmma, TMA and double buffering come later.
+//
+// Layouts: q, o [B, T, H, D]; k, v [B, T, G, D]; lse [B, H, T] fp32.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+#include "flash_tiles.cuh"
+
+namespace {
+
+using flash::BKV;
+using flash::BQ;
+using flash::Mask;
+using flash::NEG;
+
+// ---------------------------------------------------------------- fp32 path
+
+namespace f32 {
+
+constexpr int NT = 256;      // 16 x 16 threads, 4 x 4 scores each
+constexpr int LDT = BQ + 4;  // stride of the transposed [D][rows] tiles
+
+// shared memory, floats: Q^T, K^T (reused for the probabilities), V
+template <int D>
+constexpr size_t smem() { return (2 * D * LDT + BKV * D) * sizeof(float); }
+
+template <int D>
+__global__ void __launch_bounds__(NT) fwd_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, float* __restrict__ lse, int H, int G, int Tn, float scale, int causal,
+    int window) {
+  constexpr int NC = D / 64;  // column groups of 64 per thread
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);  // [D][LDT]
+  float* sK = sQ + D * LDT;                      // [D][LDT]; then probabilities [BKV][LDT]
+  float* sV = sK + D * LDT;                      // [BKV][D]
+
+  const Mask mask{Tn, causal, window};
+  const int i0 = (gridDim.x - 1 - blockIdx.x) * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const long long rq = (long long)H * D, rk = (long long)G * D;
+  const long long qoff = (long long)b * Tn * rq + (long long)h * D;
+  const long long koff = (long long)b * Tn * rk + (long long)(h * G / H) * D;
+
+  for (int idx = tid; idx < BQ * D; idx += NT) {
+    const int r = idx / D, d = idx % D, i = i0 + r;
+    sQ[d * LDT + r] = (i < Tn) ? q[qoff + i * rq + d] : 0.f;
+  }
+
+  float m[4], l[4], acc[4][4 * NC];
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    m[ii] = NEG;
+    l[ii] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * NC; ++c) acc[ii][c] = 0.f;
+  }
+
+  int lo, hi;
+  mask.kv_range(i0, lo, hi);
+  for (int kt = lo; kt <= hi; ++kt) {
+    const int j0 = kt * BKV;
+    __syncthreads();  // the previous tile is no longer read
+    for (int idx = tid; idx < BKV * D; idx += NT) {
+      const int r = idx / D, d = idx % D, j = j0 + r;
+      float a = 0.f, c = 0.f;
+      if (j < Tn) {
+        a = k[koff + j * rk + d];
+        c = v[koff + j * rk + d];
+      }
+      sK[d * LDT + r] = a;
+      sV[r * D + d] = c;
+    }
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) s[ii][jj] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      const float4 a = *reinterpret_cast<const float4*>(&sQ[d * LDT + 4 * ty]);
+      const float4 kk = *reinterpret_cast<const float4*>(&sK[d * LDT + 4 * tx]);
+      const float qa[4] = {a.x, a.y, a.z, a.w};
+      const float kr[4] = {kk.x, kk.y, kk.z, kk.w};
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) s[ii][jj] = fmaf(qa[ii], kr[jj], s[ii][jj]);
+    }
+
+    // online softmax; the 16 threads of a row group are 16 lanes of one warp
+    const bool edge = mask.edge(i0, j0);
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+      float mx = NEG;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float val = s[ii][jj] * scale;
+        if (edge && !mask.allowed(i0 + 4 * ty + ii, j0 + 4 * tx + jj)) val = NEG;
+        s[ii][jj] = val;
+        mx = fmaxf(mx, val);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[ii], mx);
+      const float alpha = expf(m[ii] - m_new);
+      float ps = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        s[ii][jj] = expf(s[ii][jj] - m_new);
+        ps += s[ii][jj];
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, off);
+      l[ii] = l[ii] * alpha + ps;
+      m[ii] = m_new;
+#pragma unroll
+      for (int c = 0; c < 4 * NC; ++c) acc[ii][c] *= alpha;
+    }
+    __syncthreads();  // every thread is done reading K^T: reuse it for probabilities
+    float* sS = sK;   // [BKV][LDT], sS[j][i]
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) sS[(4 * tx + jj) * LDT + 4 * ty + ii] = s[ii][jj];
+    __syncthreads();
+#pragma unroll 4
+    for (int j = 0; j < BKV; ++j) {
+      const float4 pp = *reinterpret_cast<const float4*>(&sS[j * LDT + 4 * ty]);
+      const float pa[4] = {pp.x, pp.y, pp.z, pp.w};
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float4 vv = *reinterpret_cast<const float4*>(&sV[j * D + 64 * c + 4 * tx]);
+        const float va[4] = {vv.x, vv.y, vv.z, vv.w};
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+          for (int dd = 0; dd < 4; ++dd)
+            acc[ii][4 * c + dd] = fmaf(pa[ii], va[dd], acc[ii][4 * c + dd]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    const int i = i0 + 4 * ty + ii;
+    if (i >= Tn) continue;
+    const float lv = fmaxf(l[ii], 1e-30f);
+    const float inv = 1.f / lv;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd)
+        o[qoff + i * rq + 64 * c + 4 * tx + dd] = acc[ii][4 * c + dd] * inv;
+    if (tx == 0) lse[((long long)b * H + h) * Tn + i] = m[ii] + logf(lv);
+  }
+}
+
+}  // namespace f32
+
+// ------------------------------------------------------- bf16 tensor-core path
+
+namespace tc {
+
+using namespace flash::tc;
+
+// shared memory: K, V [BKV][D + 8] bf16
+template <int D>
+constexpr size_t smem() { return 2 * BKV * (D + 8) * sizeof(bf16); }
+
+template <int D>
+__global__ void __launch_bounds__(NT, 2) fwd_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ o, float* __restrict__ lse, int H, int G, int Tn, float scale, int causal,
+    int window) {
+  constexpr int LDS = D + 8, KS = D / 16, NDT = D / 8;
+  extern __shared__ float4 smem4[];
+  bf16* sK = reinterpret_cast<bf16*>(smem4);  // [BKV][LDS]: k_j, d contiguous
+  bf16* sV = sK + BKV * LDS;                  // [BKV][LDS]: v_j, d contiguous
+
+  const Mask mask{Tn, causal, window};
+  const int i0 = (gridDim.x - 1 - blockIdx.x) * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long rq = (long long)H * D, rk = (long long)G * D;
+  const long long qoff = (long long)b * Tn * rq + (long long)h * D;
+  const long long koff = (long long)b * Tn * rk + (long long)(h * G / H) * D;
+
+  // this warp's query rows ia, ib as A fragments
+  const int ia = i0 + 16 * warp + g, ib = ia + 8;
+  uint32_t fq[KS][4];
+  load_rows_a<KS>(fq, q + qoff, ia, ib, Tn, rq, t);
+
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, acc[NDT][4];
+  zero<NDT>(acc);
+
+  int lo, hi;
+  mask.kv_range(i0, lo, hi);
+  for (int kt = lo; kt <= hi; ++kt) {
+    const int j0 = kt * BKV;
+    __syncthreads();  // the previous tile is no longer read
+    stage_rows<D>(sK, k + koff, j0, BKV, Tn, rk);
+    stage_rows<D>(sV, v + koff, j0, BKV, Tn, rk);
+    __syncthreads();
+
+    float s[8][4];
+    zero<8>(s);
+    mma_nt<8, KS, LDS>(s, fq, sK, g, t);
+
+    // scaled scores, masked on a boundary tile; row r of the warp, key jl of the tile
+    const bool edge = mask.edge(i0, j0);
+    float mx[2] = {NEG, NEG};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = g + 8 * (e >> 1), jl = 8 * nt + 2 * t + (e & 1);
+        float val = s[nt][e] * scale;
+        if (edge && !mask.allowed(i0 + 16 * warp + r, j0 + jl)) val = NEG;
+        s[nt][e] = val;
+        mx[e >> 1] = fmaxf(mx[e >> 1], val);
+      }
+
+    // online softmax over the 4 lanes that share a row
+    float alpha[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m[hh], mx[hh]);
+      alpha[hh] = __expf(m[hh] - m_new);
+      m[hh] = m_new;
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = __expf(s[nt][e] - m[e >> 1]);
+        ps[e >> 1] += s[nt][e];
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + ps[hh];  // this lane's share
+#pragma unroll
+    for (int dt = 0; dt < NDT; ++dt) {
+      acc[dt][0] *= alpha[0];
+      acc[dt][1] *= alpha[0];
+      acc[dt][2] *= alpha[1];
+      acc[dt][3] *= alpha[1];
+    }
+
+    // acc += probabilities (bf16, from the score registers) x v
+    uint32_t a[4][4];
+    pack_a(a, s);
+    mma_nn<4, NDT, LDS>(acc, a, sV, lane);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float lt = l[hh];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const float lv = fmaxf(lt, 1e-30f);
+    inv[hh] = 1.f / lv;
+    const int i = hh ? ib : ia;
+    if (t == 0 && i < Tn) lse[((long long)b * H + h) * Tn + i] = m[hh] + logf(lv);
+  }
+  store_rows<NDT>(o + qoff, acc, ia, ib, Tn, rq, t, inv);
+}
+
+}  // namespace tc
+
+template <int D>
+int fwd(int dtype, void** args, int n_q, int H, int B, cudaStream_t s) {
+  if (dtype == 0)
+    return flash::launch(f32::fwd_kernel<D>, f32::smem<D>(), f32::NT, n_q, H, B, s, args);
+  return flash::launch(tc::fwd_kernel<D>, tc::smem<D>(), tc::NT, n_q, H, B, s, args);
+}
+
+}  // namespace
+
+// K5. dtype: 0 = float32, 1 = bfloat16 (every tensor 16-byte aligned).
+// head_dim 64 or 128; causal 0/1; window 0 = none. o [B, T, H, D] in the
+// input dtype, lse [B, H, T] fp32. Returns a cudaError_t.
+extern "C" int flash_fwd(int dtype, void* q, void* k, void* v, void* o, void* lse, int B, int H,
+                         int G, int Tn, int head_dim, float scale, int causal, int window,
+                         void* stream) {
+  if (!flash::valid_shape(B, H, G, Tn, head_dim, window) || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    const void* bf[] = {q, k, v, o};
+    if (!flash::aligned16(bf, 4)) return (int)cudaErrorMisalignedAddress;
+  }
+  void* args[] = {&q, &k, &v, &o, &lse, &H, &G, &Tn, &scale, &causal, &window};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_q = (Tn + BQ - 1) / BQ;
+  return head_dim == 64 ? fwd<64>(dtype, args, n_q, H, B, s) : fwd<128>(dtype, args, n_q, H, B, s);
+}

@@ -1,0 +1,217 @@
+// Tiles, masks and warp-level products shared by the causal GQA flash
+// attention kernels (flash_fwd.cu: K5; flash_bwd.cu: K6, K7).
+//
+// Layouts: q, o, dO, dq are [B, T, H, D] and k, v, dk, dv [B, T, G, D] (the
+// Linear outputs viewed per head; row stride H*D or G*D); query head h reads
+// kv head h*G/H. Tiles are 64 query rows by 64 keys.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include "mma_bf16.cuh"
+
+namespace flash {
+
+constexpr int BQ = 64;
+constexpr int BKV = 64;
+constexpr float NEG = -1e30f;
+
+// The causal / sliding-window mask (window 0 = none) over T rows and keys:
+// nemo_tpu/ops/flash_attention.py:_mask_block, and the tile ranges of
+// _block_active and _needs_mask.
+struct Mask {
+  int Tn, causal, window;
+
+  __device__ __forceinline__ bool allowed(int i, int j) const {
+    return i < Tn && j < Tn && (!causal || j <= i) && (window <= 0 || j > i - window);
+  }
+  // the key tiles [lo, hi] that hold an unmasked pair for the query tile at i0
+  __device__ __forceinline__ void kv_range(int i0, int& lo, int& hi) const {
+    const int n = (Tn + BKV - 1) / BKV;
+    hi = causal ? min((i0 + BQ - 1) / BKV, n - 1) : n - 1;
+    lo = window > 0 ? max(i0 - window + 1, 0) / BKV : 0;
+  }
+  // the query tiles [lo, hi] that hold an unmasked pair for the key tile at j0
+  __device__ __forceinline__ void q_range(int j0, int& lo, int& hi) const {
+    const int n = (Tn + BQ - 1) / BQ;
+    lo = causal ? j0 / BQ : 0;
+    hi = window > 0 ? min((j0 + BKV - 1 + window - 1) / BQ, n - 1) : n - 1;
+  }
+  // a tile pair with masked elements (a boundary tile, or one past the end)
+  __device__ __forceinline__ bool edge(int i0, int j0) const {
+    return (causal && j0 + BKV - 1 > i0) || (window > 0 && j0 <= i0 + BQ - 1 - window) ||
+           j0 + BKV > Tn || i0 + BQ > Tn;
+  }
+};
+
+// --------------------------------------------------------- bf16 tensor-core tiles
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int NT = 128;  // 4 warps x 16 rows
+
+// rows [row0, row0 + n) of a [rows, heads, D] tensor (row stride rs, src at
+// the head) into shared memory [n][D + 8]; rows outside [0, rows) are 0
+template <int D>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ src, int row0,
+                                           int n, int rows, long long rs) {
+  constexpr int LDS = D + 8, C = D / 8;
+  for (int idx = threadIdx.x; idx < n * C; idx += NT) {
+    const int r = idx / C, c = idx % C, t = row0 + r;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (t >= 0 && t < rows) val = *reinterpret_cast<const uint4*>(src + t * rs + 8 * c);
+    *reinterpret_cast<uint4*>(dst + r * LDS + 8 * c) = val;
+  }
+}
+
+// A fragments (KS k-steps of 16) of rows ra, rb of a [T, heads, D] tensor in
+// device memory (src at the head); rows past Tn are 0
+template <int KS>
+__device__ __forceinline__ void load_rows_a(uint32_t f[][4], const bf16* __restrict__ src, int ra,
+                                            int rb, int Tn, long long rs, int t) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = (e & 1) ? rb : ra;
+      const int d = 16 * ks + 2 * t + 8 * (e >> 1);
+      f[ks][e] = (r < Tn) ? ld_bf16x2(src + r * rs + d) : 0u;
+    }
+}
+
+// A fragment of k-step ks of a row-major bf16 [16][ld] tile in shared memory
+__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* m, int ld, int ks, int g,
+                                       int t) {
+  const bf16* r0 = m + g * ld + 16 * ks + 2 * t;
+  const bf16* r1 = r0 + 8 * ld;
+  a[0] = ld_bf16x2(r0);
+  a[1] = ld_bf16x2(r1);
+  a[2] = ld_bf16x2(r0 + 8);
+  a[3] = ld_bf16x2(r1 + 8);
+}
+
+// acc[16 x 8 NTL] += A[16 x 16 KS] . M^T, M [8 NTL][LDS] (k contiguous) in
+// shared memory, A from registers
+template <int NTL, int KS, int LDS>
+__device__ __forceinline__ void mma_nt(float acc[][4], const uint32_t a[][4], const bf16* m,
+                                       int g, int t) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt) {
+      const bf16* r = m + (8 * nt + g) * LDS + 16 * ks + 2 * t;
+      const uint32_t bb[2] = {ld_bf16x2(r), ld_bf16x2(r + 8)};
+      mma_bf16_16816(acc[nt], a[ks], bb);
+    }
+}
+
+// the same with A read from a row-major [16][LDS] tile in shared memory
+template <int NTL, int KS, int LDS>
+__device__ __forceinline__ void mma_nt_s(float acc[][4], const bf16* am, const bf16* m, int g,
+                                         int t) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    uint32_t a[4];
+    load_a(a, am, LDS, ks, g, t);
+#pragma unroll
+    for (int nt = 0; nt < NTL; ++nt) {
+      const bf16* r = m + (8 * nt + g) * LDS + 16 * ks + 2 * t;
+      const uint32_t bb[2] = {ld_bf16x2(r), ld_bf16x2(r + 8)};
+      mma_bf16_16816(acc[nt], a, bb);
+    }
+  }
+}
+
+// acc[16 x 8 NDT] += A[16 x 16 KS] . M for M [16 KS][LDS] row-major in shared
+// memory; B fragments by ldmatrix.x4.trans (lane L addresses row L % 8 +
+// 8 (L / 8 % 2) at column 8 (L / 16): two n-tiles of 8 per load)
+template <int KS, int NDT, int LDS>
+__device__ __forceinline__ void mma_nn(float acc[][4], const uint32_t a[][4], const bf16* m,
+                                       int lane) {
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(
+      m + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LDS + 8 * (lane >> 4)));
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int dp = 0; dp < NDT / 2; ++dp) {
+      uint32_t bq[4];
+      asm volatile(
+          "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+          : "=r"(bq[0]), "=r"(bq[1]), "=r"(bq[2]), "=r"(bq[3])
+          : "r"(base + 2 * (16 * kk * LDS + 16 * dp)));
+      const uint32_t lo[2] = {bq[0], bq[1]}, hi[2] = {bq[2], bq[3]};
+      mma_bf16_16816(acc[2 * dp], a[kk], lo);
+      mma_bf16_16816(acc[2 * dp + 1], a[kk], hi);
+    }
+}
+
+// the 16 x 64 accumulator tile (8 n-tiles) as bf16 A fragments of 4 k-steps
+__device__ __forceinline__ void pack_a(uint32_t a[4][4], const float s[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
+    a[kk][1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
+    a[kk][2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float acc[][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+}
+
+// rows ra, rb of a 16 x 8 NDT accumulator into a [T, heads, D] bf16 tensor
+// (dst at the head), times `mul[hh]` for row ra (hh 0) and rb (hh 1)
+template <int NDT>
+__device__ __forceinline__ void store_rows(bf16* dst, const float acc[][4], int ra, int rb,
+                                           int Tn, long long rs, int t,
+                                           const float mul[2]) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = hh ? rb : ra;
+    if (r >= Tn) continue;
+#pragma unroll
+    for (int dt = 0; dt < NDT; ++dt)
+      *reinterpret_cast<uint32_t*>(dst + r * rs + 8 * dt + 2 * t) =
+          pack_bf16x2(acc[dt][2 * hh] * mul[hh], acc[dt][2 * hh + 1] * mul[hh]);
+  }
+}
+
+}  // namespace tc
+
+// head_dim in {64, 128}, B, H, G, T positive, H a multiple of G, window >= 0
+inline bool valid_shape(int B, int H, int G, int Tn, int head_dim, int window) {
+  return (head_dim == 64 || head_dim == 128) && B > 0 && H > 0 && G > 0 && Tn > 0 &&
+         H % G == 0 && window >= 0;
+}
+
+inline bool aligned16(const void* const* ptrs, int n) {
+  for (int i = 0; i < n; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
+  return true;
+}
+
+// launch `kernel` on grid (grid_x, grid_y, B) with `smem` bytes of dynamic
+// shared memory; returns a cudaError_t
+template <typename K>
+int launch(K kernel, size_t smem, int threads, int grid_x, int grid_y, int B,
+           cudaStream_t stream, void** args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(grid_x, grid_y, B),
+                         dim3(threads), args, smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace flash

@@ -25,7 +25,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent
 BUILD = CSRC / "build"
-SOURCES = ("relpos_flash", "relpos_flash_bwd", "fused_subsampling")
+SOURCES = ("relpos_flash", "relpos_flash_bwd", "fused_subsampling", "flash_fwd", "flash_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

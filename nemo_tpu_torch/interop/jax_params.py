@@ -6,11 +6,18 @@ fills the port's parameters, whose names mirror the JAX tree. Only layouts
 change:
 
 - Dense kernel [in, out] → Linear weight [out, in]; a 1×1 conv kernel
-  [1, in, out] (the CTC head's `proj`) → Linear weight [out, in]
+  [1, in, out] (the CTC head's `proj`) and a DenseGeneral kernel with
+  split axes (GPT's q_proj [D, heads, head_dim], o_proj [heads, head_dim,
+  D]) likewise, flattened to [in, out] first
 - Conv2d kernel HWIO → OIHW; Conv1d kernel [k, in/g, out] → [out, in/g, k]
 - LayerNorm / BatchNorm `scale`, `bias` → `weight`, `bias`; BatchNorm
   `batch_stats` `mean`, `var` → `running_mean`, `running_var`
-- any other parameter (`pos_bias_u`, `pos_bias_v`, `linear_pos.kernel`) as is
+- any other parameter (`pos_bias_u`, `pos_bias_v`, `linear_pos.kernel`,
+  GPT's `embedding` and RMSNorm `scale`) as is
+- a GPT model's layers (a ModuleList, `layers.{i}`) come from the scanned
+  tree (`layers/...`, each leaf with a leading layer axis) or the unrolled
+  one (`layer{i}/...`); export writes the form of the model's config
+  (`scan_layers`)
 
 It is strict: a key the port needs and the tree lacks, or a key of the tree
 that the port does not take, raises.
@@ -23,11 +30,14 @@ lists those variables by state name.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+import re
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
+
+from nemo_tpu_torch.models.llm.config import GPTConfig
 
 Path_ = Tuple[str, ...]
 
@@ -42,9 +52,21 @@ def _flatten(tree: Mapping[str, Any], prefix: Path_ = ()) -> Dict[Path_, np.ndar
     return out
 
 
+def _gpt_layers(model: nn.Module) -> Optional[str]:
+    """The JAX tree's layout of a GPT model's layers: "stacked" where the
+    JAX model stacks them with nn.scan (gpt.py:172; no per-layer MLP
+    choice), else "unrolled"; None for any other model."""
+    cfg = getattr(model, "cfg", None)
+    if not isinstance(cfg, GPTConfig):
+        return None
+    return "stacked" if cfg.scan_layers and cfg.moe_first_k_dense == 0 else "unrolled"
+
+
 def _conv_layout(kernel: np.ndarray, mod: nn.Module) -> np.ndarray:
     if isinstance(mod, nn.Linear):
-        return (kernel[0] if kernel.ndim == 3 else kernel).T
+        if kernel.size != mod.in_features * mod.out_features:
+            return kernel  # the shape check below names it
+        return kernel.reshape(mod.in_features, mod.out_features).T
     if isinstance(mod, nn.Conv2d):
         return kernel.transpose(3, 2, 0, 1)
     if isinstance(mod, nn.Conv1d):
@@ -88,6 +110,8 @@ def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Mod
     if unknown:
         raise ValueError(f"load_jax_variables: unknown collections {sorted(unknown)}")
     trees = {c: _flatten(variables.get(c, {})) for c in ("params", "batch_stats")}
+    if _gpt_layers(model):
+        trees["params"] = _per_layer(trees["params"], len(model.layers))
     missing = []
     for _, target, mod, collection, path in _entries(model):
         if path not in trees[collection]:
@@ -109,10 +133,37 @@ def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Mod
     return model
 
 
+def _per_layer(tree: Dict[Path_, np.ndarray], n_layers: int) -> Dict[Path_, np.ndarray]:
+    """A JAX GPT tree's layers as the port's `layers/{i}/...` paths: from the
+    scanned form (`layers/...`, leading layer axis) or the unrolled one
+    (`layer{i}/...`)."""
+    out: Dict[Path_, np.ndarray] = {}
+    for path, value in tree.items():
+        if path[0] == "layers":
+            if value.shape[:1] != (n_layers,):
+                raise ValueError(f"load_jax_variables: {'/'.join(path)} has shape {value.shape}, "
+                                 f"the port expects a leading layer axis of {n_layers}")
+            for i in range(n_layers):
+                out[("layers", str(i)) + path[1:]] = value[i]
+        elif re.fullmatch(r"layer\d+", path[0]):
+            out[("layers", path[0][len("layer"):]) + path[1:]] = value
+        else:
+            out[path] = value
+    return out
+
+
+def _stack(trees: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Nested dicts of one structure → one nested dict of stacked leaves."""
+    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
+            else np.stack([t[k] for t in trees]) for k, v in trees[0].items()}
+
+
 def _jax_layout(value: np.ndarray, mod: nn.Module) -> np.ndarray:
     """The inverse of `_conv_layout`."""
     if isinstance(mod, nn.Linear):
-        return value.T[None] if getattr(mod, "jax_conv1x1", False) else value.T
+        if getattr(mod, "jax_conv1x1", False):
+            return value.T[None]
+        return value.T.reshape(getattr(mod, "jax_kernel_shape", value.T.shape))
     if isinstance(mod, nn.Conv2d):
         return value.transpose(2, 3, 1, 0)
     if isinstance(mod, nn.Conv1d):
@@ -151,4 +202,12 @@ def export_jax_variables(model: nn.Module, values: Optional[Mapping[str, torch.T
         node[path[-1]] = np.ascontiguousarray(arr)
     if not tree["batch_stats"]:
         del tree["batch_stats"]
+    layout = _gpt_layers(model)
+    if layout:
+        layers = tree["params"].pop("layers")
+        per_layer = [layers[str(i)] for i in range(len(layers))]
+        if layout == "stacked":
+            tree["params"]["layers"] = _stack(per_layer)
+        else:
+            tree["params"].update({f"layer{i}": t for i, t in enumerate(per_layer)})
     return tree

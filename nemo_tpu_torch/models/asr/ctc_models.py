@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 
 from nemo_tpu_torch.core.config import ConfigDict
+from nemo_tpu_torch.core.device import resolve_device
 from nemo_tpu_torch.data.audio_io import read_wav
 from nemo_tpu_torch.models.asr.modules.conformer import ConformerEncoder, subsampled_length
 from nemo_tpu_torch.models.asr.modules.conv_asr import ConvASRDecoder
@@ -25,15 +26,6 @@ from nemo_tpu_torch.models.asr.parts.ctc_decoding import CTCDecoding
 from nemo_tpu_torch.ops.audio import (MelSpectrogramConfig, build_mel_constants,
                                       mel_seq_len, mel_spectrogram, pcm_to_float)
 from nemo_tpu_torch.ops.ctc import ctc_collapse, ctc_greedy_predictions
-
-
-def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
-    """None means CUDA. A CUDA device on a machine without one raises: the
-    port never drops quietly to the CPU."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
-    return device
 
 
 def _mel_cfg_from(cfg) -> MelSpectrogramConfig:

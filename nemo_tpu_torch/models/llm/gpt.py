@@ -1,0 +1,325 @@
+"""GPT transformer stack (counterpart of nemo_tpu/models/llm/gpt.py) in the
+dense, causal, RoPE form that Llama-3.2-1B and GPT-551M train in:
+
+    embedding → L × [RMSNorm → GQA attention with RoPE → residual,
+                     RMSNorm → SwiGLU MLP → residual] → RMSNorm → (tied) head
+
+Parameters are held in `params_dtype` (fp32 by default) and cast to the
+compute dtype at each use, as flax's DenseGeneral does; the norms and the
+RoPE rotation are fp32 islands. The layers are a ModuleList (no scan
+stacking); `remat="full"` wraps each layer in `torch.utils.checkpoint`, the
+counterpart of `nn.remat` at gpt.py:1195. Attention takes the hand-written
+flash kernels (K5 forward, K6/K7 backward, `ops/flash_attention.py`) where
+the JAX model takes its Pallas kernel (gpt.py:627-633: backend "flash", no
+KV cache, S a multiple of 128), and the einsum path otherwise.
+
+Parameter names mirror the JAX tree (`layers.3.attention.q_proj`,
+`final_norm.scale`, `embedding`), so `interop/jax_params.py` carries JAX
+variables across. `check_supported` raises on every config value the port
+does not implement.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from nemo_tpu_torch.models.llm.config import GPTConfig
+from nemo_tpu_torch.ops.flash_attention import flash_attention
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def check_supported(cfg: GPTConfig) -> None:
+    """Raise NotImplementedError naming the first field of `cfg` whose value
+    selects a part of the JAX model that the port does not implement (MoE,
+    MLA, MTP, softcapping, sinks, chunked or per-layer attention patterns,
+    qk norms, sandwich norms, other position embeddings, dropout,
+    quantization, context parallelism, other remat policies, LayerNorm,
+    biases, bidirectional attention, RoPE scalings other than llama3, MLPs
+    other than SwiGLU)."""
+    ok = {
+        "num_moe_experts": cfg.num_moe_experts == 0,
+        "kv_lora_rank": cfg.kv_lora_rank is None,
+        "mtp_num_layers": cfg.mtp_num_layers == 0,
+        "logit_softcapping": not cfg.logit_softcapping,
+        "attn_logit_softcapping": not cfg.attn_logit_softcapping,
+        "attention_sinks": not cfg.attention_sinks,
+        "attention_chunk_size": cfg.attention_chunk_size is None,
+        "window_pattern": cfg.window_pattern is None,
+        "nope_layer_interval": not cfg.nope_layer_interval,
+        "qk_layernorm": not cfg.qk_layernorm,
+        "qk_l2_norm": not cfg.qk_l2_norm,
+        "sandwich_norms": not cfg.sandwich_norms,
+        "position_embedding_type": cfg.position_embedding_type == "rope",
+        "mrope_sections": cfg.mrope_sections is None,
+        "rotary_interleaved": not cfg.rotary_interleaved,
+        "rope_scaling": cfg.rope_scaling in (None, "llama3"),
+        "rope_local_base": cfg.rope_local_base is None,
+        "hidden_dropout": not cfg.hidden_dropout,
+        "attention_dropout": not cfg.attention_dropout,
+        "quantization": cfg.quantization is None,
+        "cp_size": cfg.cp_size == 1,
+        "remat": cfg.remat in ("full", "none"),
+        "normalization": cfg.normalization == "RMSNorm",
+        "layernorm_zero_centered_gamma": not cfg.layernorm_zero_centered_gamma,
+        "add_bias_linear": not cfg.add_bias_linear,
+        "add_qkv_bias": not cfg.add_qkv_bias,
+        "causal": cfg.causal,
+        "embedding_multiplier": cfg.embedding_multiplier is None,
+        "activation_clamp": cfg.activation_clamp is None,
+        "glu_linear_offset": not cfg.glu_linear_offset,
+        "gated_linear_unit": cfg.gated_linear_unit,
+        "activation": cfg.activation == "silu",
+        "attention_backend": cfg.attention_backend in ("xla", "flash"),
+        "params_dtype": cfg.params_dtype in DTYPES,
+        "compute_dtype": cfg.compute_dtype in DTYPES,
+    }
+    for name, good in ok.items():
+        if not good:
+            raise NotImplementedError(
+                f"GPTConfig.{name}={getattr(cfg, name)!r} is not implemented by the PyTorch port")
+
+
+# --------------------------------------------------------------------------
+# RMSNorm, RoPE
+# --------------------------------------------------------------------------
+
+
+class RMSNorm(nn.Module):
+    """x · rsqrt(mean(x²) + eps) · scale in fp32, cast back to x's dtype
+    (gpt.py:47)."""
+
+    def __init__(self, dim: int, eps: float, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        y = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + self.eps)
+        return (y * self.scale.float()).to(x.dtype)
+
+
+def rope_frequencies(cfg: GPTConfig) -> np.ndarray:
+    """Inverse frequencies [head_dim/2] in float64 numpy, cast to fp32, with
+    llama3's wavelength-dependent scaling where the config asks for it: the
+    branches of gpt.py:183 that `check_supported` lets through."""
+    dim = int(cfg.head_dim * cfg.rotary_percent)
+    inv = 1.0 / (cfg.rotary_base ** (np.arange(0, dim, 2, dtype=np.float64) / dim))
+    if cfg.rope_scaling == "llama3":
+        factor = cfg.rope_scaling_factor
+        low_freq_factor, high_freq_factor = 1.0, 4.0
+        old_len = cfg.old_context_len
+        wavelen = 2 * np.pi / inv
+        low_wl = old_len / low_freq_factor
+        high_wl = old_len / high_freq_factor
+        scaled = inv / factor
+        smooth = (old_len / wavelen - low_freq_factor) / (high_freq_factor - low_freq_factor)
+        mid = (1 - smooth) * scaled + smooth * inv
+        inv = np.where(wavelen > low_wl, scaled, np.where(wavelen < high_wl, inv, mid))
+    return inv.astype(np.float32)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor
+               ) -> torch.Tensor:
+    """x [B, S, heads, D], positions [B, S] or [S]: rotates the first
+    2·len(inv_freq) channels in the half-split convention, angles and
+    rotation in fp32 (gpt.py:260)."""
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * inv_freq  # [B, S, D/2]
+    sin, cos = ang.sin()[:, :, None, :], ang.cos()[:, :, None, :]
+    rot = 2 * inv_freq.shape[-1]
+    x1, x2 = x[..., :rot].float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+    return out if rot == x.shape[-1] else torch.cat([out, x[..., rot:]], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# Attention
+# --------------------------------------------------------------------------
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
+                     window: Optional[int] = None, softmax_fp32: bool = True) -> torch.Tensor:
+    """Grouped-query causal attention as einsums (gpt.py:341, the
+    `attention_backend="xla"` path without caches, segments or sinks):
+    q [B, S, H, D], k and v [B, S, G, D] → [B, S, H, D]; fp32 scores, the
+    causal and window mask at -1e30, softmax, then the value product in v's
+    dtype."""
+    B, S, H, D = q.shape
+    G = k.shape[2]
+    qg = q.reshape(B, S, G, H // G, D)
+    scores = torch.einsum("bsgrd,btgd->bgrst", qg.float(), k.float()) * scale
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = kpos <= qpos
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    scores = scores.masked_fill(~mask, -1e30)
+    if not softmax_fp32:
+        scores = scores.to(q.dtype)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgrst,btgd->bsgrd", probs.to(v.dtype), v)
+    return out.reshape(B, S, H, v.shape[-1])
+
+
+class Dense(nn.Linear):
+    """A bias-free Linear whose weight (held in `params_dtype`) is cast to the
+    input's dtype at each use, as flax's DenseGeneral casts its kernel;
+    `jax_kernel_shape` is the kernel's shape in the JAX tree (e.g. q_proj's
+    [D, heads, head_dim]), for `interop/jax_params.py`."""
+
+    def __init__(self, in_features: int, out_features: int, jax_kernel_shape=None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=False, dtype=dtype)
+        self.jax_kernel_shape = tuple(jax_kernel_shape or (in_features, out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype))
+
+
+class Attention(nn.Module):
+    """q/k/v projections, RoPE, causal GQA attention (the flash kernels or the
+    einsum path), output projection (gpt.py:473)."""
+
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.cfg = cfg
+        H, G, D, hidden = cfg.num_attention_heads, cfg.n_kv_heads, cfg.head_dim, cfg.hidden_size
+        pdt = DTYPES[cfg.params_dtype]
+        self.q_proj = Dense(hidden, H * D, (hidden, H, D), pdt)
+        self.k_proj = Dense(hidden, G * D, (hidden, G, D), pdt)
+        self.v_proj = Dense(hidden, G * D, (hidden, G, D), pdt)
+        self.o_proj = Dense(H * D, hidden, (H, D, hidden), pdt)
+        self.window = cfg.window_size
+        self.scale = float(cfg.attention_multiplier or 1.0 / np.sqrt(D))
+        self.inv_freq_np = rope_frequencies(cfg)
+        self._inv_freq: Optional[torch.Tensor] = None
+
+    def inv_freq(self, device: torch.device) -> torch.Tensor:
+        if self._inv_freq is None or self._inv_freq.device != device:
+            self._inv_freq = torch.from_numpy(self.inv_freq_np).to(device)
+        return self._inv_freq
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        B, S, _ = x.shape
+        H, G, D = cfg.num_attention_heads, cfg.n_kv_heads, cfg.head_dim
+        inv = self.inv_freq(x.device)
+        q = apply_rope(self.q_proj(x).view(B, S, H, D), positions, inv)
+        k = apply_rope(self.k_proj(x).view(B, S, G, D), positions, inv)
+        v = self.v_proj(x).view(B, S, G, D)
+        if cfg.attention_backend == "flash" and S % 128 == 0:
+            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                  self.scale, True, self.window).transpose(1, 2)
+        else:
+            out = causal_attention(q, k, v, scale=self.scale, window=self.window,
+                                   softmax_fp32=cfg.attention_softmax_in_fp32)
+        return self.o_proj(out.reshape(B, S, H * D))
+
+
+# --------------------------------------------------------------------------
+# MLP, layer, model
+# --------------------------------------------------------------------------
+
+
+class MLP(nn.Module):
+    """SwiGLU: fc1 → (gate, up) halves → silu(gate)·up → fc2 (gpt.py:822)."""
+
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        pdt = DTYPES[cfg.params_dtype]
+        self.fc1 = Dense(cfg.hidden_size, 2 * cfg.ffn_hidden_size, dtype=pdt)
+        self.fc2 = Dense(cfg.ffn_hidden_size, cfg.hidden_size, dtype=pdt)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gate, up = self.fc1(x).chunk(2, dim=-1)
+        return self.fc2(F.silu(gate) * up)
+
+
+class TransformerLayer(nn.Module):
+    """Pre-norm attention and MLP with residuals (gpt.py:1065)."""
+
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        pdt = DTYPES[cfg.params_dtype]
+        self.input_norm = RMSNorm(cfg.hidden_size, cfg.layernorm_epsilon, pdt)
+        self.attention = Attention(cfg)
+        self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.layernorm_epsilon, pdt)
+        self.mlp = MLP(cfg)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        x = x + self.attention(self.input_norm(x), positions)
+        return x + self.mlp(self.post_attn_norm(x))
+
+
+class GPTModel(nn.Module):
+    """The model (gpt.py:1131). forward(tokens [B, S]) → logits [B, S, V]
+    fp32, or with output_hidden=True the final-norm hidden states [B, S, D]
+    in the compute dtype (the fused-CE training path applies the head inside
+    the loss)."""
+
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        pdt = DTYPES[cfg.params_dtype]
+        self.embedding = nn.Parameter(torch.empty(cfg.vocab_size, cfg.hidden_size, dtype=pdt))
+        self.layers = nn.ModuleList(TransformerLayer(cfg) for _ in range(cfg.num_layers))
+        self.final_norm = RMSNorm(cfg.hidden_size, cfg.layernorm_epsilon, pdt)
+        if not cfg.share_embeddings_and_output_weights:
+            self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, dtype=pdt)
+
+    def head_weight(self) -> torch.Tensor:
+        """The LM head as [V, D]: the tied embedding or lm_head's weight."""
+        if self.cfg.share_embeddings_and_output_weights:
+            return self.embedding
+        return self.lm_head.weight
+
+    def forward(self, tokens: torch.Tensor, output_hidden: bool = False) -> torch.Tensor:
+        cfg = self.cfg
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        # the gather runs in the parameter dtype, so the embedding's gradient
+        # is an fp32 scatter-add, as in JAX (gpt.py:1177)
+        x = F.embedding(tokens, self.embedding).to(DTYPES[cfg.compute_dtype])
+        remat = cfg.remat == "full" and torch.is_grad_enabled()
+        for layer in self.layers:
+            if remat:
+                x = checkpoint(layer, x, positions, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = layer(x, positions)
+        x = self.final_norm(x)
+        if output_hidden:
+            return x
+        return F.linear(x, self.head_weight().to(x.dtype)).float()
+
+
+def init_parameters(model: nn.Module, generator: torch.Generator, std: float) -> None:
+    """JAX's initialisers (gpt.py:_init): normal(std) for every kernel and the
+    embedding, ones for the RMSNorm scales. The values cannot match
+    jax.random's; tests carry weights across instead."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("scale"):
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, std, generator=generator)
+
+
+def build_model(cfg: GPTConfig, device: torch.device, seed: int) -> GPTModel:
+    """A GPTModel on `device` (allocated there, never on the host first) with
+    parameters drawn from `seed` by a generator on that device."""
+    with torch.device("meta"):
+        model = GPTModel(cfg)
+    model.to_empty(device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    init_parameters(model, gen, cfg.init_method_std)
+    return model

@@ -1,8 +1,9 @@
-"""Rel-pos flash attention: the forward kernel K1, the backward kernels K3
-(dq side) and K4 (dk/dv side), and their plain versions.
+"""Flash attention on the card: the rel-pos form of the Conformer (K1, K3,
+K4) and the causal GQA form of the LLM (K5, K6, K7), each with its plain
+version.
 
-Counterpart of nemo_tpu/ops/flash_attention.py:flash_attention (`_fwd_kernel`,
-and through its custom_vjp `_dq_kernel` and `_dkv_kernel`) as
+**Rel-pos form.** Counterpart of nemo_tpu/ops/flash_attention.py:flash_attention
+(`_fwd_kernel`, and through its custom_vjp `_dq_kernel` and `_dkv_kernel`) as
 nemo_tpu/ops/attention.py:_relpos_flash calls it: non-causal attention with
 the Transformer-XL rel-pos term and key padding,
 
@@ -15,9 +16,20 @@ notes give the designs and what bounds them.
 `relpos_flash_attention` is differentiable (`RelposFlashAttention`): its
 backward is `relpos_flash_attention_backward`, which launches K3 and K4 for
 CUDA tensors and runs `relpos_flash_attention_backward_plain` for CPU tensors.
+Padded query rows (i >= len_b) hold values that callers must not read as
+results.
+
+**Causal GQA form.** `flash_attention(q, k, v, scale, causal, window)` is the
+counterpart of the same JAX function as nemo_tpu/models/llm/gpt.py:642 calls
+it: q [B, H, T, dh], k and v [B, G, T, dh] (head h reads kv head h*G/H), a
+causal and an optional sliding-window mask, dh 64 or 128. It is
+differentiable (`FlashAttention`): the forward is K5 (`csrc/flash_fwd.cu`),
+the backward K6 (dq) and K7 (dk, dv summed over each group's heads;
+`csrc/flash_bwd.cu`); CPU tensors take `flash_attention_plain` and
+`flash_attention_backward_plain`.
+
 Every wrapper launches its kernel for CUDA tensors (or raises) and takes the
-plain version only for CPU tensors. Padded query rows (i >= len_b) hold
-values that callers must not read as results.
+plain version only for CPU tensors; each counts its launches in `.launches`.
 """
 
 from __future__ import annotations
@@ -306,5 +318,246 @@ def _lib(name: str = "relpos_flash") -> ctypes.CDLL:
         fn = getattr(lib, fn_name)
         if fn.argtypes is None:
             fn.argtypes = head + [ci, ci, ci, ci, ctypes.c_float, vp]
+            fn.restype = ci
+    return lib
+
+
+# --------------------------------------------------------------------------
+# causal GQA flash attention: K5 (forward), K6 (dq), K7 (dk, dv)
+# --------------------------------------------------------------------------
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor, scale: float, causal: bool,
+                window) -> torch.Tensor:
+    """Masked fp32 scores [B, G, H/G, Tq, Tk] of q [B, H, Tq, dh] against k
+    [B, G, Tk, dh], as nemo_tpu/ops/flash_attention.py:_xla_reference builds them."""
+    B, H, Tq, dh = q.shape
+    G, Tk = k.shape[1], k.shape[2]
+    qg = q.reshape(B, G, H // G, Tq, dh).float()
+    s = torch.einsum("bgrid,bgjd->bgrij", qg, k.float()) * scale
+    qpos = torch.arange(Tq, device=q.device)[:, None]
+    kpos = torch.arange(Tk, device=q.device)[None, :]
+    keep = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= kpos <= qpos
+    if window is not None:
+        keep &= kpos > qpos - window
+    return s.masked_fill(~keep, NEG_INF)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                          causal: bool = True, window=None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K5, the counterpart of `_xla_reference`
+    (flash_attention.py:410): dense fp32 GQA scores, the causal and window
+    mask at -1e30, softmax, then (o [B, H, T, dh] in q's dtype, lse [B, H, T]
+    fp32). Shapes as `flash_attention`."""
+    B, H, T, dh = q.shape
+    s = _gqa_scores(q, k, scale, causal, window)
+    lse = torch.logsumexp(s, dim=-1)
+    probs = torch.exp(s - lse[..., None])
+    o = torch.einsum("bgrij,bgjd->bgrid", probs, v.float())
+    return o.reshape(B, H, T, dh).to(q.dtype), lse.reshape(B, H, T)
+
+
+def _flash_backward_plain(q, k, v, scale, causal, window, lse, delta, do):
+    B, H, T, dh = q.shape
+    G = k.shape[1]
+    rows = (B, G, H // G, T)
+    probs = torch.exp(_gqa_scores(q, k, scale, causal, window)
+                      - lse.reshape(rows)[..., None])  # 0 on masked pairs
+    dog = do.reshape(*rows, dh).float()
+    dprobs = torch.einsum("bgrid,bgjd->bgrij", dog, v.float())
+    ds = probs * (dprobs - delta.reshape(rows)[..., None]) * scale
+    dq = torch.einsum("bgrij,bgjd->bgrid", ds, k.float()).reshape(B, H, T, dh)
+    dk = torch.einsum("bgrij,bgrid->bgjd", ds, q.reshape(*rows, dh).float())
+    dv = torch.einsum("bgrij,bgrid->bgjd", probs, dog)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_backward_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, causal: bool, window,
+    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K6 and K7: (dq, dk, dv), the dense
+    FlashAttention-2 backward in fp32 (flash_attention.py:318), dk and dv
+    summed over the query heads of each kv group:
+
+        δ = rowsum(dO∘O);  P = exp(s − lse), 0 on masked pairs
+        dS = P∘(dO·vᵀ − δ)·scale;  dq = dS·k;  dk = Σ_group dSᵀ·q;  dv = Σ_group Pᵀ·dO
+
+    The bf16 kernels (and the JAX kernels, flash_attention.py:248,291,299)
+    round P and dS to the input dtype before each product; here every
+    product is fp32."""
+    return _flash_backward_plain(q, k, v, scale, causal, window, lse, row_delta(o, do), do)
+
+
+def _flash_check(what: str, q, k, v, window) -> None:
+    """What the kernels take: fp32 or bf16; q [B, H, T, dh] and k, v
+    [B, G, T, dh] on one device, G dividing H, dh 64 or 128, window >= 1."""
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"{what}: dtype {q.dtype} not supported")
+    if q.dim() != 4:
+        raise ValueError(f"{what}: q must be [B, H, T, dh]")
+    B, H, T, dh = q.shape
+    if dh not in (64, 128):
+        raise ValueError(f"{what}: head dim {dh} not in (64, 128)")
+    if k.dim() != 4 or (k.shape[0], k.shape[2], k.shape[3]) != (B, T, dh) or H % k.shape[1]:
+        raise ValueError(f"{what}: k must be [{B}, G, {T}, {dh}] with G dividing {H}")
+    for name, t in (("k", k), ("v", v)):
+        if t.shape != k.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{what}: {name} does not match k and q")
+    if window is not None and window < 1:
+        raise ValueError(f"{what}: window {window} < 1")
+
+
+def _k5_launch(q, k, v, scale, causal, window):
+    """K5 → (o [B, T, H, dh], lse [B, H, T] fp32)."""
+    what = "flash_attention"
+    _flash_check(what, q, k, v, window)
+    B, H, T, dh = q.shape
+    qt, kt, vt = _bthd(what, (q, k, v))
+    o = torch.empty((B, T, H, dh), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    err = _flash_lib("flash_fwd").flash_fwd(
+        _DTYPES[q.dtype], qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), B, H, k.shape[1], T, dh, float(scale), int(causal), int(window or 0),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+    flash_attention.launches += 1
+    return o, lse
+
+
+class FlashAttention(torch.autograd.Function):
+    """K5 with its backward. Forward: o [B, T, H, dh] and lse (not
+    differentiable); backward: `flash_attention_backward` (K6 + K7 on the
+    card, the plain backward on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window):
+        if _device("flash_attention", q) == "cpu":
+            o, lse = flash_attention_plain(q, k, v, scale, causal, window)
+            o = o.transpose(1, 2).contiguous()
+        else:
+            o, lse = _k5_launch(q, k, v, scale, causal, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (scale, causal, window)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        grads = flash_attention_backward(q, k, v, *ctx.args, o.transpose(1, 2), lse,
+                                         do.to(q.dtype).transpose(1, 2))
+        return (*grads, None, None, None)
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, H, T, dh]
+    k: torch.Tensor,  # [B, G, T, dh], G dividing H
+    v: torch.Tensor,  # [B, G, T, dh]
+    scale: float,
+    causal: bool = True,
+    window=None,  # sliding window: key j is seen by query i only if j > i - window
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """→ o [B, H, T, dh] in q's dtype, differentiable in q, k and v: the
+    counterpart of nemo_tpu/ops/flash_attention.py:flash_attention (430).
+
+    CPU tensors take the plain version; CUDA tensors launch K5 (fp32, or bf16
+    at 16-byte aligned addresses; dh 64 or 128) or raise. The kernel reads
+    q/k/v in the [B, T, heads, dh] layout (a view of the Linear outputs needs
+    no copy) and writes o in that layout too. `q_offset` (queries placed
+    after a prefix of keys) is not ported: no caller passes it."""
+    if q_offset:
+        raise NotImplementedError("flash_attention: q_offset != 0 is not ported")
+    o, _ = FlashAttention.apply(q, k, v, float(scale), bool(causal), window)
+    return o.transpose(1, 2)
+
+
+flash_attention.launches = 0
+
+
+def flash_dq(q, k, v, scale, causal, window, lse, delta, do):
+    """K6 → dq [B, H, T, dh]; `delta` is `row_delta(o, do)`. Inputs as
+    `flash_attention`, plus lse and delta [B, H, T] fp32 and do [B, H, T, dh]
+    in q's dtype. CPU tensors take the plain backward."""
+    if _device("flash_dq", q) == "cpu":
+        return _flash_backward_plain(q, k, v, scale, causal, window, lse, delta, do)[0]
+    (dq,) = _flash_bwd_launch("flash_bwd_dq", q, k, v, scale, causal, window, lse, delta, do)
+    flash_dq.launches += 1
+    return dq.transpose(1, 2)
+
+
+flash_dq.launches = 0
+
+
+def flash_dkv(q, k, v, scale, causal, window, lse, delta, do):
+    """K7 → (dk, dv) [B, G, T, dh], each summed over the H/G query heads of
+    its kv head; arguments as `flash_dq`. CPU tensors take the plain
+    backward."""
+    if _device("flash_dkv", q) == "cpu":
+        return _flash_backward_plain(q, k, v, scale, causal, window, lse, delta, do)[1:]
+    dk, dv = _flash_bwd_launch("flash_bwd_dkv", q, k, v, scale, causal, window, lse, delta, do)
+    flash_dkv.launches += 1
+    return dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+flash_dkv.launches = 0
+
+
+def _flash_bwd_launch(fn: str, q, k, v, scale, causal, window, lse, delta, do):
+    """Launch K6 (→ dq [B, T, H, dh]) or K7 (→ dk, dv [B, T, G, dh])."""
+    _flash_check(fn, q, k, v, window)
+    B, H, T, dh = q.shape
+    G = k.shape[1]
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"{fn}: do must match q")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (B, H, T) or t.dtype != torch.float32:
+            raise ValueError(f"{fn}: {name} must be [B, H, T] float32")
+    qt, kt, vt, dot = _bthd(fn, (q, k, v, do))
+    lse_c, delta_c = lse.contiguous(), delta.contiguous()
+    heads = H if fn == "flash_bwd_dq" else G
+    outs = [torch.empty((B, T, heads, dh), dtype=q.dtype, device=q.device)
+            for _ in range(1 if fn == "flash_bwd_dq" else 2)]
+    err = getattr(_flash_lib("flash_bwd"), fn)(
+        _DTYPES[q.dtype], qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), dot.data_ptr(),
+        lse_c.data_ptr(), delta_c.data_ptr(), *(t.data_ptr() for t in outs), B, H, G, T, dh,
+        float(scale), int(causal), int(window or 0),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA error {err} at launch")
+    return outs
+
+
+def flash_attention_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, causal: bool, window,
+    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of `flash_attention` for the output cotangent do: K6 and
+    K7 for CUDA tensors, the plain backward for CPU tensors."""
+    if _device("flash_attention_backward", q) == "cpu":
+        return flash_attention_backward_plain(q, k, v, scale, causal, window, o, lse, do)
+    args = (q, k, v, scale, causal, window, lse, row_delta(o, do), do)
+    return (flash_dq(*args), *flash_dkv(*args))
+
+
+def _flash_lib(name: str) -> ctypes.CDLL:
+    """The K5 (`flash_fwd`) or K6 + K7 (`flash_bwd`) kernel library, with its
+    C signatures set."""
+    from nemo_tpu_torch.csrc.loader import library
+
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib = library(name)
+    # dtype, tensors, B, H, G, T, head_dim, scale, causal, window, stream
+    n_ptrs = {"flash_fwd": 5, "flash_bwd_dq": 7, "flash_bwd_dkv": 8}
+    for fn_name in (("flash_fwd",) if name == "flash_fwd" else ("flash_bwd_dq", "flash_bwd_dkv")):
+        fn = getattr(lib, fn_name)
+        if fn.argtypes is None:
+            fn.argtypes = ([ci] + [vp] * n_ptrs[fn_name] + [ci] * 5
+                           + [ctypes.c_float, ci, ci, vp])
             fn.restype = ci
     return lib

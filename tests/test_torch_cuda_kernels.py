@@ -21,6 +21,7 @@ from nemo_tpu_torch.models.asr.ctc_models import EncDecCTCModel  # noqa: E402
 from nemo_tpu_torch.models.asr.modules.conformer import RelPositionalEncoding  # noqa: E402
 from nemo_tpu_torch.interop.jax_params import model_variables  # noqa: E402
 from nemo_tpu_torch.ops.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_backward_plain, flash_attention_plain, flash_dkv, flash_dq,
     relpos_flash_attention, relpos_flash_attention_backward_plain, relpos_flash_attention_plain,
     relpos_flash_dkv, relpos_flash_dq, row_delta)
 from nemo_tpu_torch.ops.subsampling_kernel import (  # noqa: E402
@@ -179,7 +180,15 @@ def test_small_model_gradients_on_cuda_match_cpu(cuda):
     """The calibration loss of a 2-layer model (d_model 128, 2 heads of 64,
     both kernel flags, fp32) on the same mel features: the gradient of every
     variable on the card (K1, K3, K4; the conv pair) against the CPU (plain
-    versions), within 1e-4 of each leaf's max-abs value plus 1e-6."""
+    versions), within 1e-4 of each leaf's max-abs value plus 1e-6.
+
+    cuDNN and the CPU conv sum in another order, so the conv pair's
+    pre-ReLU outputs differ by ~3e-6; a value that close to 0 can open its
+    ReLU gate on one device and not on the other, which moves both convs'
+    weight gradients by ~1 % of their max (one such value of 261,120 did, on
+    an H100). The CPU run therefore takes the card's gate where the two
+    pre-activations straddle 0 within 1e-5 of it; a gate that differs
+    anywhere else fails."""
     cfg = conformer_ctc("large", att_impl="decomposed_flash", fused_subsampling=True)
     cfg.encoder.update(n_layers=2, d_model=128, n_heads=2)
     cfg.decoder.feat_in = 128
@@ -187,12 +196,28 @@ def test_small_model_gradients_on_cuda_match_cpu(cuda):
     x = torch.from_numpy((0.1 * rng.randn(2, 32000)).astype(np.float32))
     lens = torch.tensor([32000, 25000], dtype=torch.int32)
     labels = torch.from_numpy(rng.randint(0, 29, (2, 50)))
-    grads, feats = {}, None
-    for device in ("cpu", "cuda"):
-        model = EncDecCTCModel(cfg, device=device, seed=3)
-        if feats is None:  # one frontend for both: its last bits flip ReLU gates of conv0
-            with torch.no_grad():
-                feats = model.mel_features(x, lens)
+    models = {device: EncDecCTCModel(cfg, device=device, seed=3) for device in ("cpu", "cuda")}
+    with torch.no_grad():  # one frontend for both: its last bits flip ReLU gates of conv0
+        feats = models["cpu"].mel_features(x, lens)
+    card_pre = {}
+
+    def gate_hook(i, device):
+        def hook(module, args, out):
+            if device == "cuda":
+                card_pre[i] = out.detach().cpu()
+                return None
+            card = card_pre[i]
+            flip = (card > 0) != (out.detach() > 0)
+            assert bool((out.detach()[flip].abs() < 1e-5).all()), f"conv{i}: a gate differs"
+            return out + torch.where(flip, card - out.detach(), torch.zeros_like(card))
+        return hook
+
+    grads = {}
+    for device in ("cuda", "cpu"):
+        model = models[device]
+        for i in (0, 1):
+            getattr(model.encoder.pre_encode, f"conv{i}").register_forward_hook(
+                gate_hook(i, device))
         leaves = model_variables(model)
         for t in leaves.values():
             t.requires_grad_(True)
@@ -204,3 +229,93 @@ def test_small_model_gradients_on_cuda_match_cpu(cuda):
     for name, ref in grads["cpu"].items():
         torch.testing.assert_close(grads["cuda"][name], ref, rtol=0,
                                    atol=1e-4 * float(ref.abs().max()) + 1e-6, msg=name)
+
+
+# causal GQA flash attention: K5 (forward), K6 (dq), K7 (dk, dv)
+def _assert_rows_close(x, r, tol, norm_tol, msg):
+    """Each row (the last axis: one query's o or dq, one key's dk or dv) at
+    its own scale, since causal rows and keys shrink along the sequence:
+    |x - r| <= tol * max|r| over the row + tol / 100 * max|r|, and ||x - r|| <=
+    norm_tol * ||r||."""
+    x, r = x.float(), r.float()
+    limit = tol * r.abs().amax(-1, keepdim=True) + tol / 100 * float(r.abs().max())
+    worst = float(((x - r).abs() / limit).max())
+    rel = float(torch.linalg.vector_norm(x - r) / torch.linalg.vector_norm(r))
+    assert worst <= 1 and rel <= norm_tol, f"{msg}: worst row {worst:.3f}, rel norm {rel:.2e}"
+
+
+GQA_CASES = [  # H, G, T, dh, causal, window
+    (4, 1, 256, 64, True, None), (4, 2, 200, 64, True, 48), (4, 4, 192, 128, True, None),
+    (4, 2, 128, 128, False, None), (8, 2, 320, 64, False, 100), (4, 4, 256, 64, True, 64)]
+
+
+@pytest.mark.parametrize("dtype,tol,gtol,ntol", [(torch.float32, 2e-5, 1e-4, 1e-5),
+                                                 (torch.bfloat16, 2e-2, 3e-2, 1e-2)])
+@pytest.mark.parametrize("H,G,T,dh,causal,window", GQA_CASES)
+def test_flash_kernels_match_plain(cuda, dtype, tol, gtol, H, G, T, dh, causal, window, ntol):
+    """K5 against the plain forward (o within tol, and row by row; lse
+    within 1e-4), and K6, K7 against the plain backward, each gradient within
+    gtol of each row's max-abs value and within ntol in relative norm: at
+    G < H and G = H, dh 64 and 128, with and without a window, causal or
+    not, and T not a multiple of the 64-row tile."""
+    B, scale = 2, 1.0 / math.sqrt(dh)
+    g = torch.Generator().manual_seed(T + dh)
+    q, do = (torch.randn(B, T, H, dh, generator=g).to(cuda, dtype).transpose(1, 2)
+             for _ in range(2))
+    k, v = (torch.randn(B, T, G, dh, generator=g).to(cuda, dtype).transpose(1, 2)
+            for _ in range(2))
+    launches = flash_attention.launches, flash_dq.launches, flash_dkv.launches
+    o = flash_attention(q, k, v, scale, causal, window)
+    o_ref, lse = flash_attention_plain(q, k, v, scale, causal, window)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
+    _assert_rows_close(o, o_ref, tol, ntol, "o")
+    from nemo_tpu_torch.ops.flash_attention import _k5_launch
+    _, lse_k = _k5_launch(q, k, v, scale, causal, window)
+    torch.testing.assert_close(lse_k, lse, atol=1e-4, rtol=1e-5)
+    delta = row_delta(o, do)
+    args = (q, k, v, scale, causal, window, lse_k, delta, do)
+    out = (flash_dq(*args), *flash_dkv(*args))
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_dq.launches, flash_dkv.launches) == (
+        launches[0] + 2, launches[1] + 1, launches[2] + 1)
+    ref = flash_attention_backward_plain(q, k, v, scale, causal, window, o, lse_k, do)
+    for name, x, r in zip(("dq", "dk", "dv"), out, ref):
+        assert x.shape == r.shape and x.dtype == dtype, name
+        _assert_rows_close(x, r, gtol, ntol, name)
+
+
+def test_flash_output_is_differentiable_on_cuda(cuda):
+    """K5's output carries the autograd Function, and its backward launches
+    K6 and K7 once each."""
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 8, 128, 64, generator=g).to(cuda).requires_grad_()
+    k, v = (torch.randn(2, 2, 128, 64, generator=g).to(cuda).requires_grad_() for _ in range(2))
+    o = flash_attention(q, k, v, 0.125)
+    assert type(o.grad_fn.next_functions[0][0]).__name__ == "FlashAttentionBackward"
+    launches = flash_dq.launches, flash_dkv.launches
+    grads = torch.autograd.grad(o.square().sum(), (q, k, v))
+    assert all(torch.isfinite(x).all() and x.abs().sum() > 0 for x in grads)
+    assert (flash_dq.launches, flash_dkv.launches) == (launches[0] + 1, launches[1] + 1)
+
+
+def test_llm_train_step_launch_counts(cuda):
+    """One train step of a tiny Llama-style model (2 layers, 8 heads of 64
+    over 2 kv heads, bf16, flash backend, full remat) on the card: K5
+    launches twice a layer (forward and recompute), K6 and K7 once; the
+    loss and grad norm are finite."""
+    from nemo_tpu_torch.models.llm.config import tiny_test
+    from nemo_tpu_torch.models.llm.train import GPTTrainModule
+
+    cfg = tiny_test(hidden_size=512, num_attention_heads=8, num_query_groups=2, seq_length=256,
+                    compute_dtype="bfloat16", attention_backend="flash", remat="full",
+                    share_embeddings_and_output_weights=True, rope_scaling="llama3")
+    mod = GPTTrainModule(cfg, device=cuda, seed=0)
+    rng = np.random.RandomState(0)
+    batch = {k: rng.randint(0, cfg.vocab_size, (2, 256)) for k in ("tokens", "labels")}
+    launches = flash_attention.launches, flash_dq.launches, flash_dkv.launches
+    m = mod.train_step(batch)
+    torch.cuda.synchronize()
+    got = (flash_attention.launches - launches[0], flash_dq.launches - launches[1],
+           flash_dkv.launches - launches[2])
+    assert got == (2 * cfg.num_layers, cfg.num_layers, cfg.num_layers)
+    assert math.isfinite(float(m["loss"])) and math.isfinite(float(m["grad_norm"]))
