@@ -2,11 +2,14 @@
 """On-card check of the PyTorch port (`nemo_tpu_torch`) on one NVIDIA card:
 Conformer-Large CTC tone calibration (training) and then transcription,
 through the four hand-written kernels K1-K4, as bench.py's primary line runs
-them; then Llama-3.2-1B training through the causal GQA flash kernels K5-K7.
+them; then Llama-3.2-1B training through the causal GQA flash kernels K5-K7;
+then packed full-parameter SFT of Llama-3.2-1B through the segment-masked
+flash kernels K8-K10.
 
     python3 chip_smoke.py            # from the repository root; needs one CUDA card
     python3 chip_smoke.py --profile  # and torch.profiler breakdowns of one batch,
-                                     # of calibration steps and of LLM training steps
+                                     # of calibration steps, of LLM training steps
+                                     # and of SFT steps
 
 Phases, each printing a line; any failure raises and exits non-zero:
 
@@ -50,12 +53,34 @@ Phases, each printing a line; any failure raises and exits non-zero:
    Llama-3.2-1B (full width and depth, bf16, flash, full remat, AdamW) at
    B=8 x S=2048 from seed 0, 2 warm-up steps and 20 timed ones over distinct
    random batches: tokens/s, ms/step, MFU, peak memory; K5 32, K6 16 and K7
-   16 launches a step, none of K1-K4.
+   16 launches a step, none of K1-K4;
+13. K8, K9 and K10, the packed (segment-masked) flash forward and backward,
+   against their plain versions at B=2, S=2048 (the shapes of phase 9) on
+   three segment layouts (two rows of the SFT data; ids 1, 2, 1, 3 with
+   padding inside and a row of padding only; one segment a row): padding
+   rows and keys exactly 0, and with one segment a row K5-K7's bits; then
+   the same checks at B=8, S=2048, 32 over 8, dh 64 on the whole of the SFT
+   run's first batch, of a batch from the middle of the epoch and of one
+   segment a row, and at each the kernels' times beside K5-K7's (what
+   skipping saves, and at one segment a row what the segment policy costs);
+   at the first batch also the plain versions' and SDPA's (a dense boolean
+   mask);
+14. packed SFT, this slice's path: `finetune_recipe("llama32_1b",
+   peft_scheme="none", global_batch_size=8).run(params, data)` (the recipe
+   says a global batch of 128: the one cut) → `llm.finetune` → `Trainer.fit`
+   → `GPTTrainModule.train_step`, on Llama-3.2-1B at full width and depth,
+   S=2048, seed-0 weights handed in as a JAX-layout tree of tensors on the
+   card, over a jsonl of 2,048 synthetic examples written from seed 0 and a
+   byte tokenizer; 2 warm-up and 20 timed steps: ms/step, tokens/s over all
+   and over non-padding tokens, MFU, peak memory, the step-0 loss in [ln V,
+   ln V + 1]; K8 32, K9 16 and K10 16 launches a step, none of K1-K7; then
+   5 more steps timed on batches from the middle of the epoch (packing puts
+   the longest examples first, so the run's batches hold fewer segments).
 
 With --profile, one more batch of the transcription path, 6 more calibration
-steps and 2 more LLM training steps run under torch.profiler, and their
-device time by kernel and the card's busy share of the wall time are
-printed. It ends with a JSON line of the kernels and then
+steps, 2 more LLM training steps and 2 more SFT steps run under
+torch.profiler, and their device time by kernel and the card's busy share of
+the wall time are printed. It ends with a JSON line of the kernels and then
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 TF32 is off for the comparisons. Nothing of JAX or `nemo_tpu` is imported.
 """
@@ -64,9 +89,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -84,11 +112,17 @@ TIMED_BATCHES = 5
 FIT_BATCH, FIT_STEPS, UTT_TOKENS, DENSITY_FLOOR = 4, 250, 60, 50.0
 # LLM training at bench.py:325's shape (bench_llm_1b): batch, sequence, steps
 LLM_B, LLM_S, LLM_WARMUP, LLM_STEPS = 8, 2048, 2, 20
+# packed SFT: synthetic examples in the jsonl (the batch and steps are the LLM's)
+SFT_EXAMPLES = 2048
+SFT_MID = 6  # SFT steps timed again at the middle of the epoch, the first a warm-up
 # the step-0 loss of random weights: ln V plus half the logits' variance
 # (std 0.02 * sqrt(2048) = 0.9 → +0.41); the band allows [ln V, ln V + 1]
 LLM_LOSS_BAND = (0.0, 1.0)
 # kinds of device kernels in an LLM training step, by a piece of their names
 LLM_KERNEL_KINDS = (
+    ("K8 packed flash forward", ("fwd_kernel<64, true>",)),
+    ("K9 packed flash dq", ("dq_kernel<64, true>",)),
+    ("K10 packed flash dk/dv", ("dkv_kernel<64, true>",)),
     ("K5 flash forward", ("fwd_kernel<",)), ("K6 flash dq", ("dq_kernel<",)),
     ("K7 flash dk/dv", ("dkv_kernel<",)), ("cuBLAS GEMM", ("nvjet", "gemm", "cutlass", "sm90_")),
     ("optimizer (foreach)", ("multi_tensor",)), ("reductions", ("reduce_kernel",)),
@@ -820,10 +854,10 @@ def phase_llm_training(counters: dict, profile: bool) -> dict:
     return launches
 
 
-def profile_llm(mod, batches) -> None:
-    """Two more LLM training steps under torch.profiler (device activity
-    only): device time by kernel, the step's wall and kernel time, and the
-    card's idle share."""
+def profile_llm(mod, batches, what: str = "LLM training") -> None:
+    """Two more training steps under torch.profiler (device activity only):
+    device time by kernel, the step's wall and kernel time, and the card's
+    idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -841,11 +875,373 @@ def profile_llm(mod, batches) -> None:
         name = e.name
         kind = next((k for k, keys in LLM_KERNEL_KINDS if any(x in name for x in keys)), "other")
         groups[kind] = groups.get(kind, 0.0) + e.self_device_time_total / 1e3 / len(batches)
-    log("profile, LLM training step by kind: " + ", ".join(
+    log(f"profile, {what} step by kind: " + ", ".join(
         f"{k} {v:.2f} ms" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
-    log(f"profile, LLM training step (Llama-3.2-1B, B={LLM_B} x S={LLM_S}): wall {wall_ms:.2f} "
+    log(f"profile, {what} step (Llama-3.2-1B, B={LLM_B} x S={LLM_S}): wall {wall_ms:.2f} "
         f"ms, kernels {busy_ms:.2f} ms in {len(kernels) / len(batches):.0f} device operations, "
         f"card idle {100 - 100 * busy_ms / wall_ms:.1f} % of the wall time")
+
+
+class ByteTokenizer:
+    """One token per byte of UTF-8 text, and an eos id past the bytes (the
+    data module's duck-typed tokenizer: `text_to_ids`, `eos_id`)."""
+    eos_id = 256
+
+    def text_to_ids(self, text: str):
+        return list(text.encode())
+
+
+def write_sft_jsonl(path: str, n: int = SFT_EXAMPLES, seed: int = 0) -> None:
+    """n {"input", "output"} examples of random lowercase words from the
+    seed: inputs of 64-1024 bytes, outputs of 8-128 (uniform)."""
+    rng = np.random.RandomState(seed)
+
+    def words(length: int) -> str:
+        text = (97 + rng.randint(0, 26, length)).astype(np.uint8)
+        text[rng.rand(length) < 1 / 6] = 32  # spaces between words
+        text[0] = text[-1] = 97
+        return text.tobytes().decode()
+
+    with open(path, "w") as f:
+        for _ in range(n):
+            f.write(json.dumps({"input": words(rng.randint(64, 1025)),
+                                "output": words(rng.randint(8, 129))}) + "\n")
+
+
+def segment_pairs(seg: torch.Tensor) -> float:
+    """The causal (query, key) pairs of equal nonzero segment ids in [B, S]
+    rows: sum over segments of L (L + 1) / 2."""
+    lengths = torch.stack([torch.bincount(row.long(), minlength=int(seg.max()) + 1)[1:]
+                           for row in seg.cpu()]).double()
+    return float((lengths * (lengths + 1) / 2).sum())
+
+
+def packed_layout(layout: str, T: int, sft_seg: torch.Tensor) -> torch.Tensor:
+    """[2, T] segment ids: "sft", two rows of the SFT batch (pack_batch over
+    the synthetic lengths); "mixed", ids 1, 2, 1, 3 with a run of padding in
+    the middle and a padding tail, then a row of padding only; "one", one
+    segment over each row."""
+    seg = torch.zeros(2, T, dtype=torch.int32)
+    if layout == "sft":
+        seg = sft_seg[:2].clone()
+    elif layout == "mixed":
+        cuts = [0, 3 * T // 20, 7 * T // 20, 9 * T // 20, 13 * T // 20, 19 * T // 20 - 5]
+        for sid, (lo, hi) in zip((1, 2, 0, 1, 3), zip(cuts, cuts[1:])):
+            seg[0, lo:hi] = sid
+    else:
+        seg[:] = 1
+    return seg
+
+
+def check_k8_k10(what: str, q, k, v, do, seg, scale: float, window):
+    """K8 (through the model's wrapper, its lse from a launch of its own), K9
+    and K10 on one input against their plain versions, held row by row as
+    K5-K7 are; a padding row must give o = 0, lse = -1e30, and padding rows
+    and keys exactly 0 in dq, dk and dv. Returns o [B, H, T, dh], lse, (dq,
+    dk, dv) and the max abs errors of K8, K9, K10."""
+    from nemo_tpu_torch.ops.flash_attention import (
+        _k8_launch, flash_attention_packed, flash_attention_packed_backward_plain,
+        flash_attention_packed_plain, flash_seg_dkv, flash_seg_dq, row_delta, seg_tile_ranges)
+
+    tol, gtol, ntol = ((1e-4, 1e-4, 1e-5) if q.dtype == torch.float32 else (2e-2, 3e-2, 1e-2))
+    o = flash_attention_packed(q, k, v, seg, scale, True, window)
+    _, lse = _k8_launch(q, k, v, seg, seg_tile_ranges(seg), scale, True, window)
+    o_ref, lse_ref = flash_attention_packed_plain(q, k, v, seg, scale, True, window)
+    err8 = compare_rows(f"K8 {what}", o, o_ref, tol, ntol)
+    pad = seg == 0
+    live = ~pad[:, None, :].expand_as(lse)
+    compare(f"K8 {what} lse", lse[live], lse_ref[live], 1e-3, 1e-4)
+    if not (bool((lse[~live] == -1e30).all()) and bool((o.transpose(1, 2)[pad] == 0).all())):
+        raise AssertionError(f"K8 {what}: a padding row is not o = 0, lse = -1e30")
+    del o_ref, lse_ref
+    args = (q, k, v, seg, scale, True, window, lse, row_delta(o, do), do)
+    out = (flash_seg_dq(*args), *flash_seg_dkv(*args))
+    ref = flash_attention_packed_backward_plain(q, k, v, seg, scale, True, window, o, lse, do)
+    torch.cuda.synchronize()
+    grad_errs = []
+    for name, x, r in zip(("dq", "dk", "dv"), out, ref):
+        grad_errs.append(compare_rows(f"K{9 if name == 'dq' else 10} {what} {name}", x, r,
+                                      gtol, ntol))
+        if not bool((x.transpose(1, 2)[pad] == 0).all()):
+            raise AssertionError(f"{what} {name}: padding is not exactly 0")
+    return o, lse, out, [err8, grad_errs[0], max(grad_errs[1:])]
+
+
+def phase_k8_k10(gen: torch.Generator, layouts: dict):
+    """K8, K9 and K10 against their plain versions at B=2, S=2048 (32 heads
+    over 8 at dh 64, no window and a window of 512; 12 over 12 at dh 128) on
+    three segment layouts; with one segment per row K8-K10 must give K5-K7's
+    bits. Then, at B=8 (32 over 8, dh 64) on `layouts` (the [B, S] segment
+    ids of the SFT run's first batch, "sft", and of a batch from the middle
+    of the epoch, "mid") and on one segment a row ("one": nothing to skip,
+    so the segment policy's own cost), the same checks, and their times
+    beside K5-K7's at the same shape; at "sft" also the plain versions' and
+    SDPA's given a dense boolean mask."""
+    from nemo_tpu_torch.ops.flash_attention import (
+        _k5_launch, _k8_launch, flash_attention_packed, flash_attention_packed_backward_plain,
+        flash_attention_packed_plain, flash_dkv, flash_dq, flash_seg_dkv, flash_seg_dq,
+        row_delta, seg_tile_ranges)
+
+    rows = [{"name": name, "route": "cuda", "source": f"nemo_tpu_torch/csrc/{src}.cu",
+             "replaces": f"nemo_tpu/ops/flash_attention.py:{line}"}
+            for name, src, line in (("flash_attention_packed", "flash_fwd", 817),
+                                    ("flash_seg_dq", "flash_bwd", 871),
+                                    ("flash_seg_dkv", "flash_bwd", 914))]
+    errs = [0.0, 0.0, 0.0]  # K8, K9, K10: worst bf16 max abs error
+    for (H, G, dh, window), dtype, layout in (
+            (c, d, lay) for c in ((32, 8, 64, None), (32, 8, 64, 512), (12, 12, 128, None))
+            for d in (torch.float32, torch.bfloat16) for lay in ("sft", "mixed", "one")):
+        q, k, v, do = _gqa_inputs(gen, 2, H, G, LLM_S, dh, dtype)
+        seg = packed_layout(layout, LLM_S, layouts["sft"]).cuda()
+        scale = 1.0 / math.sqrt(dh)
+        what = f"{str(dtype)[6:]} B=2 H={H} G={G} dh={dh} window={window} segments={layout}"
+        o, lse, out, err = check_k8_k10(what, q, k, v, do, seg, scale, window)
+        if layout == "one":  # one segment a row: K5-K7's kernels step for step
+            o5, lse5 = _k5_launch(q, k, v, scale, True, window)
+            args5 = (q, k, v, scale, True, window, lse5, row_delta(o, do), do)
+            same = [torch.equal(o.transpose(1, 2), o5), torch.equal(lse, lse5)] + [
+                torch.equal(x, y) for x, y in zip(out, (flash_dq(*args5), *flash_dkv(*args5)))]
+            log(f"K8-K10 {what}: equal to K5-K7 bit for bit: {all(same)}")
+            if not all(same):
+                raise AssertionError(f"K8-K10 {what}: not K5-K7's bits ({same})")
+        if dtype == torch.bfloat16:
+            errs = [max(a, b) for a, b in zip(errs, err)]
+        del q, k, v, do, o, lse, out
+
+    H, G, dh, scale = 32, 8, 64, 0.125
+    layouts = {name: seg.cuda() for name, seg in layouts.items()}
+    layouts["one"] = torch.ones_like(layouts["sft"])
+    causal = H * LLM_B * LLM_S * (LLM_S + 1) / 2
+    pairs = {}  # layout → this batch's valid (query, key) pairs, every head
+    for lay_name, seg in layouts.items():
+        pairs[lay_name] = H * segment_pairs(seg)
+        log(f"K8-K10 batch {lay_name}: B={LLM_B} x S={LLM_S}, H={H} over G={G}, dh={dh}: "
+            f"{pairs[lay_name] / causal:.4f} of the causal pairs are of one segment")
+    # SDPA's dense mask: causal pairs of one segment; a padding row sees its
+    # own key only, since SDPA gives NaN on a row that sees none
+    seg = layouts["sft"]
+    pos = torch.arange(LLM_S, device="cuda")
+    dense = (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0) & (
+        pos[None, None, :] <= pos[None, :, None])
+    dense |= torch.eye(LLM_S, dtype=torch.bool, device="cuda")[None] & (seg == 0)[:, :, None]
+    dense = dense[:, None]  # [B, 1, S, S]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = _gqa_inputs(gen, LLM_B, H, G, LLM_S, dh, dtype)
+        fast = dtype == torch.bfloat16
+        n = 20 if fast else 3
+        name = str(dtype)[6:]
+        o5, lse5 = _k5_launch(q, k, v, scale, True, None)
+        args5 = (q, k, v, scale, True, None, lse5, row_delta(o5.transpose(1, 2), do), do)
+        ms5 = [cuda_ms(lambda: _k5_launch(q, k, v, scale, True, None), iters=n),
+               cuda_ms(lambda: flash_dq(*args5), iters=n),
+               cuda_ms(lambda: flash_dkv(*args5), iters=n)]
+        del o5, lse5, args5
+        elt = q.element_size()
+        bq, bk = LLM_B * LLM_S * H * dh, LLM_B * LLM_S * G * dh
+        rows_bytes, seg_bytes = 4 * LLM_B * H * LLM_S, 4 * LLM_B * LLM_S
+        for lay_name, seg in layouts.items():
+            what = f"{name} B={LLM_B} H={H} G={G} dh={dh} segments={lay_name}"
+            o, lse, _, err = check_k8_k10(what, q, k, v, do, seg, scale, None)
+            if fast:
+                errs = [max(a, b) for a, b in zip(errs, err)]
+            ranges = seg_tile_ranges(seg)  # the kernels alone are timed: the ranges given
+            args = (q, k, v, seg, scale, True, None, lse, row_delta(o, do), do)
+            ms = [cuda_ms(lambda: _k8_launch(q, k, v, seg, ranges, scale, True, None), iters=n),
+                  cuda_ms(lambda: flash_seg_dq(*args, ranges=ranges), iters=n),
+                  cuda_ms(lambda: flash_seg_dkv(*args, ranges=ranges), iters=n)]
+            p = pairs[lay_name]
+            bounds = [
+                bound(elt * (2 * bq + 2 * bk) + rows_bytes + seg_bytes, 4 * dh * p, dtype),
+                bound(elt * (3 * bq + 2 * bk) + 2 * rows_bytes + seg_bytes, 6 * dh * p, dtype),
+                bound(elt * (2 * bq + 4 * bk) + 2 * rows_bytes + seg_bytes, 8 * dh * p, dtype)]
+            for i in range(3):
+                log(f"K{8 + i} {what}: kernel_ms={ms[i]:.4f} (K{5 + i} at the same shape "
+                    f"{ms5[i]:.4f}, {ms[i] / ms5[i]:.3f} of it) bound_ms={bounds[i][0]:.4f} "
+                    f"({bounds[i][1]})")
+            if lay_name != "sft":
+                continue
+            wrapper_ms = cuda_ms(lambda: flash_attention_packed(q, k, v, seg, scale), iters=n)
+            prepass_ms = cuda_ms(lambda: seg_tile_ranges(seg), iters=n)
+            plain_fwd = cuda_ms(lambda: flash_attention_packed_plain(q, k, v, seg, scale), iters=3)
+            plain_bwd = cuda_ms(lambda: flash_attention_packed_backward_plain(
+                q, k, v, seg, scale, True, None, o, lse, do), iters=3)
+            ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                ql, kl, vl, attn_mask=dense, scale=scale, enable_gqa=True)
+            lib_fwd = cuda_ms(sdpa, iters=n)
+            o_lib = sdpa()
+            lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do,
+                                                          retain_graph=True),
+                              iters=10 if fast else 3)
+            del o_lib, ql, kl, vl
+            log(f"SDPA {name} B={LLM_B} GQA with a dense [B, 1, S, S] boolean mask: forward "
+                f"{lib_fwd:.4f} ms, backward {lib_bwd:.4f} ms; the tile-range pre-pass "
+                f"{prepass_ms:.4f} ms, K8 through its autograd wrapper (pre-pass included) "
+                f"{wrapper_ms:.4f} ms; plain forward {plain_fwd:.4f} ms, plain backward (dq, dk "
+                f"and dv) {plain_bwd:.4f} ms")
+            for i, (row, plain_ms, lib_ms) in enumerate(zip(
+                    rows, (plain_fwd, plain_bwd, plain_bwd), (lib_fwd, lib_bwd, lib_bwd))):
+                row.update(ms=ms[i], plain_ms=plain_ms, bound_ms=bounds[i][0],
+                           bound_by=bounds[i][1], library_ms=lib_ms)  # bf16 last
+        del q, k, v, do, o, lse, args
+    del dense
+    for row, err in zip(rows, errs):
+        row["max_abs_err"] = err
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sft_data(path: str):
+    """The SFT data module over the synthetic jsonl, the batches of a run
+    (each run of the module yields the same) and SFT_MID batches from the
+    middle of the epoch, and the shape of each: segments per row, shares of
+    padding, of tokens that bear loss, and of causal pairs within one
+    segment."""
+    from nemo_tpu_torch.data.fine_tuning import FineTuningDataModule
+    from nemo_tpu_torch.data.packed_sequence import pack_batch
+
+    def describe(seg, loss_mask):
+        return {"segments_per_row": float(seg.amax(-1).double().mean()),
+                "pad_share": float((seg == 0).double().mean()),
+                "loss_share": float(loss_mask.double().mean()),
+                "pair_share": segment_pairs(seg) / (seg.shape[0] * LLM_S * (LLM_S + 1) / 2)}
+
+    dm = FineTuningDataModule(path, ByteTokenizer(), seq_length=LLM_S, global_batch_size=LLM_B,
+                              packed=True)
+    batches = [b for _, b in zip(range(LLM_WARMUP + LLM_STEPS), dm.train_batches())]
+    shape = describe(torch.cat([b["segment_ids"] for b in batches]),
+                     torch.cat([b["loss_mask"] for b in batches]))
+    encs = [e for e in map(dm._encode, dm.examples) if e is not None]
+    epoch = pack_batch([e["tokens"] for e in encs], [e["labels"] for e in encs],
+                       [e["loss_mask"] for e in encs], LLM_S)
+    whole = describe(torch.from_numpy(epoch["segment_ids"]), torch.from_numpy(epoch["loss_mask"]))
+    mid_step = epoch["tokens"].shape[0] // LLM_B // 2
+    mid = [b for _, b in zip(range(SFT_MID), dm.train_batches(mid_step))]
+    mid_shape = describe(torch.cat([b["segment_ids"] for b in mid]),
+                         torch.cat([b["loss_mask"] for b in mid]))
+    for what, d in ((f"the {len(batches)} batches of the run", shape),
+                    (f"a whole epoch ({epoch['tokens'].shape[0]} rows; first-fit puts the "
+                     f"longest examples in the first rows)", whole),
+                    (f"the {SFT_MID} batches from step {mid_step} on, the middle of the epoch",
+                     mid_shape)):
+        log(f"SFT data: {SFT_EXAMPLES} synthetic examples (inputs of 64-1024 bytes, outputs of "
+            f"8-128, one token a byte) packed into rows of {LLM_S}; over {what}: "
+            f"{d['segments_per_row']:.2f} segments a row, {100 * d['pad_share']:.2f} % padding, "
+            f"{100 * d['loss_share']:.2f} % of the tokens bear loss, "
+            f"{100 * d['pair_share']:.2f} % of the causal pairs are of one segment")
+    return dm, batches, shape, mid, mid_shape
+
+
+def phase_sft(counters: dict, dm, batches, shape: dict, mid, mid_shape: dict,
+              profile: bool) -> dict:
+    """This slice's path: packed full-parameter SFT of Llama-3.2-1B through
+    finetune_recipe(...).run → llm.finetune → Trainer.fit →
+    GPTTrainModule.train_step on the data module `dm`, 2 warm-up steps then
+    20 timed ones, from seed-0 weights handed in as a JAX-layout tree of
+    tensors on the card; returns the launch counts of the whole run. Then
+    the trained module's steps on `mid`, batches from the middle of the
+    epoch, are timed too."""
+    from nemo_tpu_torch.core.callbacks import Callback, ProgressPrinter, TimingCallback
+    from nemo_tpu_torch.core.trainer import Trainer
+    from nemo_tpu_torch.interop.jax_params import export_jax_variables
+    from nemo_tpu_torch.llm.auto_configurator import model_flops_per_token
+    from nemo_tpu_torch.llm.recipes import finetune_recipe
+    from nemo_tpu_torch.models.llm.gpt import build_model
+
+    fr = finetune_recipe("llama32_1b", peft_scheme="none", global_batch_size=LLM_B)
+    cfg = fr.model
+    log(f"SFT recipe llama32_1b_finetune: seq_length {cfg.seq_length}, lr {fr.lr:g} "
+        f"CosineAnnealing (warmup {fr.warmup_steps}, max_steps {fr.max_steps}), packed "
+        f"{fr.packed}; the one cut: global batch {LLM_B} where the recipe says "
+        f"{finetune_recipe('llama32_1b', peft_scheme='none').global_batch_size}")
+    t0 = time.perf_counter()
+    params = export_jax_variables(build_model(cfg, torch.device("cuda"), seed=0),
+                                  as_tensors=True)["params"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    leaves = lambda tree: [x for v in tree.values() for x in (  # noqa: E731
+        leaves(v) if isinstance(v, dict) else [v])]
+    tree_gib = sum(x.numel() * x.element_size() for x in leaves(params)) / 2**30
+    log(f"SFT: seed-0 weights as the JAX parameter tree of fp32 tensors on the card "
+        f"({tree_gib:.2f} GiB, held by the caller through the run) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    class Window(Callback):
+        """CUDA-synchronised wall time of the steps after warm-up, their
+        losses, and the peak memory from the first timed step."""
+
+        def __init__(self):
+            self.losses, self.norms, self.t0, self.wall = [], [], None, None
+
+        def on_step_start(self, trainer, step):
+            if step == LLM_WARMUP:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                self.t0 = time.perf_counter()
+
+        def on_step_end(self, trainer, step, metrics):
+            self.losses.append(metrics["loss"])
+            self.norms.append(metrics["grad_norm"])
+            if step == trainer.max_steps - 1:
+                torch.cuda.synchronize()
+                self.wall = time.perf_counter() - self.t0
+
+    window = Window()
+    trainer = Trainer(max_steps=LLM_WARMUP + LLM_STEPS,
+                      callbacks=[TimingCallback(), ProgressPrinter(), window])
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    module, _ = fr.run(params, dm, trainer=trainer)
+    run_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    del params
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in window.losses]
+    norms = [float(x) for x in window.norms]
+    wall = window.wall
+    tok_s = LLM_STEPS * LLM_B * LLM_S / wall
+    real_tok_s = tok_s * (1 - shape["pad_share"])
+    mfu = model_flops_per_token(cfg) * tok_s / PEAK_FLOPS[torch.bfloat16]
+    steps = LLM_WARMUP + LLM_STEPS
+    log(f"main path, packed SFT: finetune_recipe('llama32_1b', peft_scheme='none', "
+        f"global_batch_size={LLM_B}).run: Llama-3.2-1B bf16, flash, remat full, AdamW, "
+        f"B={LLM_B} x S={LLM_S}, {LLM_STEPS} timed steps after {LLM_WARMUP} "
+        f"({run_s:.1f} s for the whole run, the weights' load included): "
+        f"{1e3 * wall / LLM_STEPS:.2f} ms/step, {tok_s:.1f} tokens/s over all B*S tokens, "
+        f"{real_tok_s:.1f} over non-padding tokens, MFU {100 * mfu:.2f} % of 989 TFLOP/s "
+        f"(over B*S tokens), peak_mem={peak:.2f} GiB ({peak - tree_gib:.2f} without the "
+        f"caller's parameter tree), loss {losses[0]:.4f} (step 0) → "
+        f"{losses[-1]:.4f} (step {steps - 1}), grad_norm {norms[0]:.4f} → {norms[-1]:.4f}, "
+        f"lr {fr.lr_schedule()(0):.4g} → {fr.lr_schedule()(steps - 1):.4g}, launches {launches}")
+    if module.step != steps or not all(map(math.isfinite, losses + norms)):
+        raise AssertionError(f"SFT: {module.step} steps, losses {losses}, norms {norms}")
+    lo, hi = (math.log(cfg.vocab_size) + d for d in LLM_LOSS_BAND)
+    if not lo <= losses[0] <= hi:
+        raise AssertionError(f"SFT step-0 loss {losses[0]:.4f} outside [{lo:.3f}, {hi:.3f}]")
+    L = cfg.num_layers
+    want = {key: 0 for key in counters}
+    want.update(k8=2 * L * steps, k9=L * steps, k10=L * steps)
+    if launches != want:
+        raise AssertionError(f"SFT launch counts {launches}, expected {want}")
+    module.train_step(mid[0])  # warm-up at the new layout
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mid_losses = [module.train_step(b)["loss"] for b in mid[1:]]
+    torch.cuda.synchronize()
+    mid_ms = 1e3 * (time.perf_counter() - t0) / len(mid_losses)
+    mid_tok_s = LLM_B * LLM_S / mid_ms * 1e3
+    log(f"packed SFT at the middle of the epoch ({mid_shape['segments_per_row']:.2f} segments a "
+        f"row, {100 * mid_shape['pad_share']:.2f} % padding, "
+        f"{100 * mid_shape['pair_share']:.2f} % of the causal pairs of one segment): "
+        f"{mid_ms:.2f} ms/step over {len(mid_losses)} steps after 1, {mid_tok_s:.1f} tokens/s "
+        f"over all B*S tokens, {mid_tok_s * (1 - mid_shape['pad_share']):.1f} over non-padding "
+        f"tokens, losses {[round(float(x), 4) for x in mid_losses]}")
+    if not all(math.isfinite(float(x)) for x in mid_losses):
+        raise AssertionError(f"SFT at the middle of the epoch: losses {mid_losses}")
+    if profile:
+        profile_llm(module, batches[:2], "packed SFT")
+    return launches
 
 
 def main() -> int:
@@ -858,6 +1254,9 @@ def main() -> int:
         print("chip_smoke: no CUDA card; this check runs on the GPU only", file=sys.stderr)
         return 1
     from nemo_tpu_torch.ops.flash_attention import flash_attention as k5
+    from nemo_tpu_torch.ops.flash_attention import flash_attention_packed as k8
+    from nemo_tpu_torch.ops.flash_attention import flash_seg_dkv as k10
+    from nemo_tpu_torch.ops.flash_attention import flash_seg_dq as k9
     from nemo_tpu_torch.ops.flash_attention import flash_dkv as k7
     from nemo_tpu_torch.ops.flash_attention import flash_dq as k6
     from nemo_tpu_torch.ops.flash_attention import relpos_flash_attention as k1
@@ -867,6 +1266,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    logging.basicConfig(level=logging.INFO, format="%(message)s", stream=sys.stdout)
     t0 = time.perf_counter()
     phase_build()
     gen = torch.Generator().manual_seed(0)
@@ -882,11 +1282,23 @@ def main() -> int:
     llm_rows = phase_k5_k7(gen)
     phase_llm_grad_exactness()
     phase_ce_grad_rounding()
-    llm_launches = phase_llm_training(
-        {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k5": k5, "k6": k6, "k7": k7}, args.profile)
+    counters = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k5": k5, "k6": k6, "k7": k7}
+    llm_launches = phase_llm_training(counters, args.profile)
     for row, key in zip(llm_rows, ("k5", "k6", "k7")):
         row["launches"] = llm_launches[key]
     rows += llm_rows
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sft.jsonl")
+        write_sft_jsonl(path)
+        dm, batches, shape, mid, mid_shape = sft_data(path)
+        sft_rows = phase_k8_k10(gen, {"sft": batches[0]["segment_ids"],
+                                      "mid": mid[0]["segment_ids"]})
+        counters.update(k8=k8, k9=k9, k10=k10)
+        sft_launches = phase_sft(counters, dm, batches, shape, mid, mid_shape, args.profile)
+    for row, key in zip(sft_rows, ("k8", "k9", "k10")):
+        row["launches"] = sft_launches[key]
+    rows += sft_rows
     log(f"total: {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

@@ -6,9 +6,10 @@ Two chains of the JAX package run through `ClippedAdamW`:
   `optax.chain(optax.clip_by_global_norm(5.0), optax.adamw(schedule))` with
   optax's `warmup_cosine_decay_schedule` (the class defaults);
 - GPT training (nemo_tpu/models/llm/train.py:105-110):
-  `optax.chain(optax.clip_by_global_norm(1.0), optax.adamw(3e-4, b1=0.9,
-  b2=0.95, eps=1e-8, weight_decay=0.1))`, a constant schedule, weight decay
-  on every leaf (`gpt_optimizer`).
+  `optax.chain(optax.clip_by_global_norm(1.0), optax.adamw(schedule,
+  b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1))`, weight decay on every leaf,
+  a constant 3e-4 unless the module is given a schedule (SFT recipes pass
+  `core/lr_schedulers.py`'s CosineAnnealing) (`gpt_optimizer`).
 
 Where torch's own differ: torch's `clip_grad_norm_` adds 1e-6 to the norm
 and `torch.optim.AdamW` decays by lr·wd·p before the Adam step with a
@@ -25,7 +26,7 @@ fp32 leaf is its own master.
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -111,9 +112,10 @@ class ClippedAdamW:
         return norm
 
 
-def gpt_optimizer(leaves: Sequence[torch.Tensor]) -> ClippedAdamW:
-    """GPTTrainModule's default chain (nemo_tpu/models/llm/train.py:105-110):
-    clip 1.0, then AdamW(b1 0.9, b2 0.95, eps 1e-8, weight decay 0.1 on every
-    leaf) at a constant learning rate of 3e-4."""
-    return ClippedAdamW(leaves, constant_schedule(3e-4), b1=0.9, b2=0.95, eps=1e-8,
+def gpt_optimizer(leaves: Sequence[torch.Tensor],
+                  schedule: Optional[Callable[[int], float]] = None) -> ClippedAdamW:
+    """GPTTrainModule's chain (nemo_tpu/models/llm/train.py:105-110): clip
+    1.0, then AdamW(b1 0.9, b2 0.95, eps 1e-8, weight decay 0.1 on every
+    leaf) at the learning rate `schedule(step)`, by default a constant 3e-4."""
+    return ClippedAdamW(leaves, schedule or constant_schedule(3e-4), b1=0.9, b2=0.95, eps=1e-8,
                         weight_decay=0.1, max_norm=1.0)

@@ -1,6 +1,7 @@
 // Causal / sliding-window GQA flash attention backward for Hopper (sm_90a),
 // fp32 or bf16 inputs, head width D in {64, 128}: K6 (dq) and K7 (dk, dv
-// summed over the query heads of each kv group).
+// summed over the query heads of each kv group), and K9 and K10, their forms
+// over packed rows with segment ids.
 //
 // Replace the TPU kernels nemo_tpu/ops/flash_attention.py:_dq_kernel
 // (pallas_call at 326) and _dkv_kernel (pallas_call at 370) in the form that
@@ -33,13 +34,28 @@
 // kernels round them to the input dtype (flash_attention.py:248,291,299).
 // fp32 (the exactness check): scalar FMAs from shared-memory tiles.
 //
+// K9 and K10 replace nemo_tpu/ops/flash_attention.py:_dq_seg_kernel
+// (pallas_call at 1044) and _dkv_seg_kernel (pallas_call at 1090), the
+// backward of flash_attention_packed: the same kernels with segments on
+// (flash_tiles.cuh:Segments). A tile pair is visited only where the [min,
+// max] segment ids of its two tiles overlap; on pairs that mix segments,
+// P = 0 on pairs of unequal or zero ids. The kernels set P = 0 on every
+// masked pair directly, never as exp(s - lse): a padding row (lse = -1e30)
+// keeps no pair, so the guard P = where(lse > -5e29, exp(s - lse), 0) of
+// flash_attention.py:899,945 holds by construction, and padding rows get
+// dq = 0 and padding keys dk = dv = 0 exactly. Every output tile is written,
+// with zeros where nothing was visited (a key tile no query of its segment
+// reaches). With one segment per row they take K6's and K7's steps and give
+// their bits.
+//
 // Bound on the H100: per valid (query, key) pair K6 does 3 products of 2 D
 // operations (q.k, dO.v, dS.k) and K7 4 (q.k, dO.v, P.dO, dS.q), against ~5
 // (K6) and ~7 (K7) x B T H D x 2 bytes of inputs and outputs, so operations
 // bound both at the training shape. wgmma, TMA and pipelining come later.
 //
 // Layouts: q, dO, dq [B, T, H, D]; k, v, dk, dv [B, T, G, D]; lse and delta
-// [B, H, T] fp32.
+// [B, H, T] fp32; segment ids [B, T] int32 and their tile ranges
+// [B, ceil(T / 64), 2] int32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -51,6 +67,7 @@ namespace {
 using flash::BKV;
 using flash::BQ;
 using flash::Mask;
+using flash::Segments;
 
 // ---------------------------------------------------------------- fp32 path
 
@@ -72,15 +89,17 @@ __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
 }
 
 // P and dS of the scores (il = ty + 16a, jl = tx + 16c) of the tile pair at
-// (i0, j0): P into `pr` (if given) and dS into `ds`, both [BQ][LDT]
-template <int D>
+// (i0, j0): P into `pr` (if given) and dS into `ds`, both [BQ][LDT]; qs, ks
+// the segment ids of the tile's rows and keys (unread without segments)
+template <int D, bool SEG>
 __device__ __forceinline__ void scores(const float* sQ, const float* sO, const float* sK,
                                        const float* sV, const float* lse, const float* del,
-                                       int i0, int j0, const Mask& mask, float scale, float* pr,
-                                       float* ds) {
+                                       const int* qs, const int* ks, int i0, int j0,
+                                       const Mask& mask, const Segments<SEG>& sg, float scale,
+                                       float* pr, float* ds) {
   constexpr int LD = D + 1;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const bool edge = mask.edge(i0, j0);
+  const bool edge = mask.edge(i0, j0) || !sg.uniform(i0, j0);
   for (int a = 0; a < 4; ++a) {
     const int il = ty + 16 * a;
     for (int c = 0; c < 4; ++c) {
@@ -91,7 +110,8 @@ __device__ __forceinline__ void scores(const float* sQ, const float* sO, const f
         s = fmaf(sQ[il * LD + d], sK[jl * LD + d], s);
         dp = fmaf(sO[il * LD + d], sV[jl * LD + d], dp);
       }
-      const bool ok = !edge || mask.allowed(i0 + il, j0 + jl);
+      const bool ok = !edge || (mask.allowed(i0 + il, j0 + jl) &&
+                                sg.same(SEG ? qs[il] : 1, SEG ? ks[jl] : 1));
       const float P = ok ? expf(s * scale - lse[il]) : 0.f;
       if (pr) pr[il * LDT + jl] = P;
       ds[il * LDT + jl] = P * (dp - del[il]) * scale;
@@ -108,12 +128,13 @@ constexpr size_t smem_dkv() {
   return (2 * BKV * (D + 1) + 2 * BQ * (D + 1) + 2 * BQ * LDT + 2 * BQ) * 4;
 }
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(NT) dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dq, int H, int G, int Tn, float scale,
-    int causal, int window) {
+    const float* __restrict__ delta, const int* __restrict__ seg,
+    const int* __restrict__ seg_range, float* __restrict__ dq, int H, int G, int Tn,
+    float scale, int causal, int window) {
   constexpr int LD = D + 1, NC = D / 16;
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);
@@ -122,6 +143,7 @@ __global__ void __launch_bounds__(NT) dq_kernel(
   float* sV = sK + BKV * LD;
   float* sDS = sV + BKV * LD;
   __shared__ float sL[BQ], sDl[BQ];
+  __shared__ int sQs[SEG ? BQ : 1], sKs[SEG ? BKV : 1];  // segment ids of the rows, keys
 
   const Mask mask{Tn, causal, window};
   const int i0 = (gridDim.x - 1 - blockIdx.x) * BQ, h = blockIdx.y, b = blockIdx.z;
@@ -131,6 +153,7 @@ __global__ void __launch_bounds__(NT) dq_kernel(
   const long long koff = (long long)b * Tn * rk + (long long)(h * G / H) * D;
   const long long lrow = ((long long)b * H + h) * Tn;
 
+  const Segments<SEG> sg = flash::segments_of<SEG>(seg, seg_range, b, Tn);
   stage<D>(sQ, q + qoff, i0, BQ, Tn, rq);
   stage<D>(sO, dout + qoff, i0, BQ, Tn, rq);
   for (int idx = tid; idx < BQ; idx += NT) {
@@ -138,6 +161,7 @@ __global__ void __launch_bounds__(NT) dq_kernel(
     sL[idx] = i < Tn ? lse[lrow + i] : 0.f;
     sDl[idx] = i < Tn ? delta[lrow + i] : 0.f;
   }
+  flash::stage_ids<SEG>(sQs, sg, i0);
 
   float aq[4][NC];  // rows ty + 16a, columns tx + 16c
   for (int a = 0; a < 4; ++a)
@@ -147,11 +171,14 @@ __global__ void __launch_bounds__(NT) dq_kernel(
   mask.kv_range(i0, lo, hi);
   for (int kt = lo; kt <= hi; ++kt) {
     const int j0 = kt * BKV;
+    if (!sg.active(i0, j0)) continue;  // the same for the whole block
     __syncthreads();  // the previous tile is no longer read
     stage<D>(sK, k + koff, j0, BKV, Tn, rk);
     stage<D>(sV, v + koff, j0, BKV, Tn, rk);
+    flash::stage_ids<SEG>(sKs, sg, j0);
     __syncthreads();
-    scores<D>(sQ, sO, sK, sV, sL, sDl, i0, j0, mask, scale, nullptr, sDS);
+    scores<D, SEG>(sQ, sO, sK, sV, sL, sDl, sQs, sKs, i0, j0, mask, sg, scale, nullptr,
+                   sDS);
     __syncthreads();
     for (int a = 0; a < 4; ++a) {
       const int il = ty + 16 * a;
@@ -169,11 +196,12 @@ __global__ void __launch_bounds__(NT) dq_kernel(
   }
 }
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(NT) dkv_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int H,
+    const float* __restrict__ delta, const int* __restrict__ seg,
+    const int* __restrict__ seg_range, float* __restrict__ dk, float* __restrict__ dv, int H,
     int G, int Tn, float scale, int causal, int window) {
   constexpr int LD = D + 1, NC = D / 16;
   extern __shared__ float4 smem4[];
@@ -185,10 +213,12 @@ __global__ void __launch_bounds__(NT) dkv_kernel(
   float* sPr = sDS + BQ * LDT;
   float* sL = sPr + BQ * LDT;
   float* sDl = sL + BQ;
+  __shared__ int sQs[SEG ? BQ : 1], sKs[SEG ? BKV : 1];  // segment ids of the rows, keys
 
   const Mask mask{Tn, causal, window};
   const int j0 = blockIdx.x * BKV, gk = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const Segments<SEG> sg = flash::segments_of<SEG>(seg, seg_range, b, Tn);
   const int rep = H / G;
   const long long rq = (long long)H * D, rk = (long long)G * D;
   const long long koff = (long long)b * Tn * rk + (long long)gk * D;
@@ -199,6 +229,7 @@ __global__ void __launch_bounds__(NT) dkv_kernel(
 
   stage<D>(sK, k + koff, j0, BKV, Tn, rk);
   stage<D>(sV, v + koff, j0, BKV, Tn, rk);
+  flash::stage_ids<SEG>(sKs, sg, j0);
   int lo, hi;
   mask.q_range(j0, lo, hi);
   for (int r = 0; r < rep; ++r) {
@@ -207,6 +238,7 @@ __global__ void __launch_bounds__(NT) dkv_kernel(
     const long long lrow = ((long long)b * H + h) * Tn;
     for (int qt = lo; qt <= hi; ++qt) {
       const int i0 = qt * BQ;
+      if (!sg.active(i0, j0)) continue;  // the same for the whole block
       __syncthreads();  // the previous tile is no longer read
       stage<D>(sQ, q + qoff, i0, BQ, Tn, rq);
       stage<D>(sO, dout + qoff, i0, BQ, Tn, rq);
@@ -215,8 +247,10 @@ __global__ void __launch_bounds__(NT) dkv_kernel(
         sL[idx] = i < Tn ? lse[lrow + i] : 0.f;
         sDl[idx] = i < Tn ? delta[lrow + i] : 0.f;
       }
+      flash::stage_ids<SEG>(sQs, sg, i0);
       __syncthreads();
-      scores<D>(sQ, sO, sK, sV, sL, sDl, i0, j0, mask, scale, sPr, sDS);
+      scores<D, SEG>(sQ, sO, sK, sV, sL, sDl, sQs, sKs, i0, j0, mask, sg, scale, sPr,
+                     sDS);
       __syncthreads();
       for (int a = 0; a < 4; ++a) {
         const int jl = ty + 16 * a;
@@ -256,16 +290,18 @@ constexpr size_t smem_dq() { return 2 * BKV * (D + 8) * sizeof(bf16); }
 template <int D>
 constexpr size_t smem_dkv() { return 4 * BQ * (D + 8) * sizeof(bf16) + 2 * BQ * sizeof(float); }
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(NT, 2) dq_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dq, int H, int G, int Tn, float scale,
-    int causal, int window) {
+    const float* __restrict__ delta, const int* __restrict__ seg,
+    const int* __restrict__ seg_range, bf16* __restrict__ dq, int H, int G, int Tn,
+    float scale, int causal, int window) {
   constexpr int LDS = D + 8, KS = D / 16, NDT = D / 8;
   extern __shared__ float4 smem4[];
   bf16* sK = reinterpret_cast<bf16*>(smem4);  // [BKV][LDS]: k_j
   bf16* sV = sK + BKV * LDS;                  // [BKV][LDS]: v_j
+  __shared__ int sKs[SEG ? BKV : 1];          // the key tile's segment ids
 
   const Mask mask{Tn, causal, window};
   const int i0 = (gridDim.x - 1 - blockIdx.x) * BQ, h = blockIdx.y, b = blockIdx.z;
@@ -283,6 +319,8 @@ __global__ void __launch_bounds__(NT, 2) dq_kernel(
   load_rows_a<KS>(fo, dout + qoff, ia, ib, Tn, rq, t);
   const float lse_r[2] = {ia < Tn ? lse[lrow + ia] : 0.f, ib < Tn ? lse[lrow + ib] : 0.f};
   const float del_r[2] = {ia < Tn ? delta[lrow + ia] : 0.f, ib < Tn ? delta[lrow + ib] : 0.f};
+  const Segments<SEG> sg = flash::segments_of<SEG>(seg, seg_range, b, Tn);
+  const int qs[2] = {sg.id(ia), sg.id(ib)};
 
   float aq[NDT][4];
   zero<NDT>(aq);
@@ -290,22 +328,25 @@ __global__ void __launch_bounds__(NT, 2) dq_kernel(
   mask.kv_range(i0, lo, hi);
   for (int kt = lo; kt <= hi; ++kt) {
     const int j0 = kt * BKV;
+    if (!sg.active(i0, j0)) continue;  // the same for the whole block
     __syncthreads();  // the previous tile is no longer read
     stage_rows<D>(sK, k + koff, j0, BKV, Tn, rk);
     stage_rows<D>(sV, v + koff, j0, BKV, Tn, rk);
+    flash::stage_ids<SEG>(sKs, sg, j0);
     __syncthreads();
 
     // P = exp(s scale - lse), 0 where masked
     float s[8][4];
     zero<8>(s);
     mma_nt<8, KS, LDS>(s, fq, sK, g, t);
-    const bool edge = mask.edge(i0, j0);
+    const bool edge = mask.edge(i0, j0) || !sg.uniform(i0, j0);
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = g + 8 * (e >> 1), jl = 8 * nt + 2 * t + (e & 1);
-        const bool ok = !edge || mask.allowed(i0 + 16 * warp + r, j0 + jl);
+        const bool ok = !edge || (mask.allowed(i0 + 16 * warp + r, j0 + jl) &&
+                                  sg.same(qs[e >> 1], SEG ? sKs[jl] : 1));
         s[nt][e] = ok ? __expf(s[nt][e] * scale - lse_r[e >> 1]) : 0.f;
       }
 
@@ -327,12 +368,13 @@ __global__ void __launch_bounds__(NT, 2) dq_kernel(
   store_rows<NDT>(dq + qoff, aq, ia, ib, Tn, rq, t, one);
 }
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(NT, 2) dkv_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int G,
-    int Tn, float scale, int causal, int window) {
+    const float* __restrict__ delta, const int* __restrict__ seg,
+    const int* __restrict__ seg_range, bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+    int G, int Tn, float scale, int causal, int window) {
   constexpr int LDS = D + 8, KS = D / 16, NDT = D / 8;
   extern __shared__ float4 smem4[];
   bf16* sK = reinterpret_cast<bf16*>(smem4);  // [BKV][LDS]: k_j
@@ -341,6 +383,7 @@ __global__ void __launch_bounds__(NT, 2) dkv_kernel(
   bf16* sO = sQ + BQ * LDS;                   // [BQ][LDS]: dO_i
   float* sL = reinterpret_cast<float*>(sO + BQ * LDS);  // [BQ] lse
   float* sDl = sL + BQ;                                 // [BQ] delta
+  __shared__ int sQs[SEG ? BQ : 1], sKs[SEG ? BKV : 1];  // segment ids of the rows, keys
 
   const Mask mask{Tn, causal, window};
   const int j0 = blockIdx.x * BKV, gk = blockIdx.y, b = blockIdx.z;
@@ -359,8 +402,10 @@ __global__ void __launch_bounds__(NT, 2) dkv_kernel(
   zero<NDT>(ak);
   zero<NDT>(avv);
 
+  const Segments<SEG> sg = flash::segments_of<SEG>(seg, seg_range, b, Tn);
   stage_rows<D>(sK, k + koff, j0, BKV, Tn, rk);
   stage_rows<D>(sV, v + koff, j0, BKV, Tn, rk);
+  flash::stage_ids<SEG>(sKs, sg, j0);
   int lo, hi;
   mask.q_range(j0, lo, hi);
   for (int r = 0; r < rep; ++r) {
@@ -369,6 +414,7 @@ __global__ void __launch_bounds__(NT, 2) dkv_kernel(
     const long long lrow = ((long long)b * H + h) * Tn;
     for (int qt = lo; qt <= hi; ++qt) {
       const int i0 = qt * BQ;
+      if (!sg.active(i0, j0)) continue;  // the same for the whole block
       __syncthreads();  // the previous tile is no longer read
       stage_rows<D>(sQ, q + qoff, i0, BQ, Tn, rq);
       stage_rows<D>(sO, dout + qoff, i0, BQ, Tn, rq);
@@ -377,19 +423,21 @@ __global__ void __launch_bounds__(NT, 2) dkv_kernel(
         sL[idx] = i < Tn ? lse[lrow + i] : 0.f;
         sDl[idx] = i < Tn ? delta[lrow + i] : 0.f;
       }
+      flash::stage_ids<SEG>(sQs, sg, i0);
       __syncthreads();
 
       // transposed scores: key row jl = 16 warp + (g, g + 8) x query il
       float s[8][4];
       zero<8>(s);
       mma_nt_s<8, KS, LDS>(s, sKw, sQ, g, t);
-      const bool edge = mask.edge(i0, j0);
+      const bool edge = mask.edge(i0, j0) || !sg.uniform(i0, j0);
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int jl = 16 * warp + g + 8 * (e >> 1), il = 8 * nt + 2 * t + (e & 1);
-          const bool ok = !edge || mask.allowed(i0 + il, j0 + jl);
+          const bool ok = !edge || (mask.allowed(i0 + il, j0 + jl) &&
+                                    sg.same(SEG ? sQs[il] : 1, SEG ? sKs[jl] : 1));
           s[nt][e] = ok ? __expf(s[nt][e] * scale - sL[il]) : 0.f;
         }
       uint32_t a[4][4];
@@ -418,18 +466,55 @@ __global__ void __launch_bounds__(NT, 2) dkv_kernel(
 
 }  // namespace tc
 
-template <int D>
+template <int D, bool SEG>
 int dq(int dtype, void** args, int n_q, int H, int B, cudaStream_t s) {
   if (dtype == 0)
-    return flash::launch(f32::dq_kernel<D>, f32::smem_dq<D>(), f32::NT, n_q, H, B, s, args);
-  return flash::launch(tc::dq_kernel<D>, tc::smem_dq<D>(), tc::NT, n_q, H, B, s, args);
+    return flash::launch(f32::dq_kernel<D, SEG>, f32::smem_dq<D>(), f32::NT, n_q, H, B, s, args);
+  return flash::launch(tc::dq_kernel<D, SEG>, tc::smem_dq<D>(), tc::NT, n_q, H, B, s, args);
 }
 
-template <int D>
+template <int D, bool SEG>
 int dkv(int dtype, void** args, int n_kv, int G, int B, cudaStream_t s) {
   if (dtype == 0)
-    return flash::launch(f32::dkv_kernel<D>, f32::smem_dkv<D>(), f32::NT, n_kv, G, B, s, args);
-  return flash::launch(tc::dkv_kernel<D>, tc::smem_dkv<D>(), tc::NT, n_kv, G, B, s, args);
+    return flash::launch(f32::dkv_kernel<D, SEG>, f32::smem_dkv<D>(), f32::NT, n_kv, G, B, s,
+                         args);
+  return flash::launch(tc::dkv_kernel<D, SEG>, tc::smem_dkv<D>(), tc::NT, n_kv, G, B, s, args);
+}
+
+template <bool SEG>
+int dq_entry(int dtype, void* q, void* k, void* v, void* dout, void* lse, void* delta, void* seg,
+             void* seg_range, void* dq_out, int B, int H, int G, int Tn, int head_dim,
+             float scale, int causal, int window, void* stream) {
+  if (!flash::valid_shape(B, H, G, Tn, head_dim, window) || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    const void* bf[] = {q, k, v, dout, dq_out};
+    if (!flash::aligned16(bf, 5)) return (int)cudaErrorMisalignedAddress;
+  }
+  void* args[] = {&q,   &k,      &v, &dout, &lse, &delta, &seg,   &seg_range,
+                  &dq_out, &H, &G, &Tn, &scale, &causal, &window};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_q = (Tn + BQ - 1) / BQ;
+  return head_dim == 64 ? dq<64, SEG>(dtype, args, n_q, H, B, s)
+                        : dq<128, SEG>(dtype, args, n_q, H, B, s);
+}
+
+template <bool SEG>
+int dkv_entry(int dtype, void* q, void* k, void* v, void* dout, void* lse, void* delta, void* seg,
+              void* seg_range, void* dk, void* dv, int B, int H, int G, int Tn, int head_dim,
+              float scale, int causal, int window, void* stream) {
+  if (!flash::valid_shape(B, H, G, Tn, head_dim, window) || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    const void* bf[] = {q, k, v, dout, dk, dv};
+    if (!flash::aligned16(bf, 6)) return (int)cudaErrorMisalignedAddress;
+  }
+  void* args[] = {&q,  &k,  &v, &dout, &lse, &delta, &seg,   &seg_range, &dk,
+                  &dv, &H,  &G, &Tn,   &scale, &causal, &window};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_kv = (Tn + BKV - 1) / BKV;
+  return head_dim == 64 ? dkv<64, SEG>(dtype, args, n_kv, G, B, s)
+                        : dkv<128, SEG>(dtype, args, n_kv, G, B, s);
 }
 
 }  // namespace
@@ -441,32 +526,35 @@ int dkv(int dtype, void** args, int n_kv, int G, int B, cudaStream_t s) {
 extern "C" int flash_bwd_dq(int dtype, void* q, void* k, void* v, void* dout, void* lse,
                             void* delta, void* dq_out, int B, int H, int G, int Tn, int head_dim,
                             float scale, int causal, int window, void* stream) {
-  if (!flash::valid_shape(B, H, G, Tn, head_dim, window) || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 1) {
-    const void* bf[] = {q, k, v, dout, dq_out};
-    if (!flash::aligned16(bf, 5)) return (int)cudaErrorMisalignedAddress;
-  }
-  void* args[] = {&q, &k, &v, &dout, &lse, &delta, &dq_out, &H, &G, &Tn, &scale, &causal, &window};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_q = (Tn + BQ - 1) / BQ;
-  return head_dim == 64 ? dq<64>(dtype, args, n_q, H, B, s) : dq<128>(dtype, args, n_q, H, B, s);
+  return dq_entry<false>(dtype, q, k, v, dout, lse, delta, nullptr, nullptr, dq_out, B, H, G, Tn,
+                         head_dim, scale, causal, window, stream);
 }
 
 // K7: dk, dv [B, T, G, D] in the input dtype.
 extern "C" int flash_bwd_dkv(int dtype, void* q, void* k, void* v, void* dout, void* lse,
                              void* delta, void* dk, void* dv, int B, int H, int G, int Tn,
                              int head_dim, float scale, int causal, int window, void* stream) {
-  if (!flash::valid_shape(B, H, G, Tn, head_dim, window) || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 1) {
-    const void* bf[] = {q, k, v, dout, dk, dv};
-    if (!flash::aligned16(bf, 6)) return (int)cudaErrorMisalignedAddress;
-  }
-  void* args[] = {&q, &k, &v, &dout, &lse, &delta, &dk, &dv, &H, &G, &Tn, &scale, &causal,
-                  &window};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_kv = (Tn + BKV - 1) / BKV;
-  return head_dim == 64 ? dkv<64>(dtype, args, n_kv, G, B, s)
-                        : dkv<128>(dtype, args, n_kv, G, B, s);
+  return dkv_entry<false>(dtype, q, k, v, dout, lse, delta, nullptr, nullptr, dk, dv, B, H, G,
+                          Tn, head_dim, scale, causal, window, stream);
+}
+
+// K9 and K10: K6 and K7 over packed rows. seg [B, T] int32 segment ids (0 =
+// padding) and seg_range [B, ceil(T / 64), 2] int32, the [min, max] id of
+// each 64-row tile; lse as K8 writes it (-1e30 on padding rows).
+extern "C" int flash_seg_bwd_dq(int dtype, void* q, void* k, void* v, void* dout, void* lse,
+                                void* delta, void* seg, void* seg_range, void* dq_out, int B,
+                                int H, int G, int Tn, int head_dim, float scale, int causal,
+                                int window, void* stream) {
+  if (seg == nullptr || seg_range == nullptr) return (int)cudaErrorInvalidValue;
+  return dq_entry<true>(dtype, q, k, v, dout, lse, delta, seg, seg_range, dq_out, B, H, G, Tn,
+                        head_dim, scale, causal, window, stream);
+}
+
+extern "C" int flash_seg_bwd_dkv(int dtype, void* q, void* k, void* v, void* dout, void* lse,
+                                 void* delta, void* seg, void* seg_range, void* dk, void* dv,
+                                 int B, int H, int G, int Tn, int head_dim, float scale,
+                                 int causal, int window, void* stream) {
+  if (seg == nullptr || seg_range == nullptr) return (int)cudaErrorInvalidValue;
+  return dkv_entry<true>(dtype, q, k, v, dout, lse, delta, seg, seg_range, dk, dv, B, H, G, Tn,
+                         head_dim, scale, causal, window, stream);
 }

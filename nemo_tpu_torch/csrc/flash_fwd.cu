@@ -1,5 +1,6 @@
-// Causal / sliding-window GQA flash attention forward (K5) for Hopper
-// (sm_90a), fp32 or bf16 inputs, head width D in {64, 128}.
+// Causal / sliding-window GQA flash attention forward for Hopper (sm_90a),
+// fp32 or bf16 inputs, head width D in {64, 128}: K5, and K8, its form over
+// packed rows with segment ids.
 //
 // Replaces the TPU kernel nemo_tpu/ops/flash_attention.py:_fwd_kernel
 // (pallas_call in _flash_forward) as nemo_tpu/models/llm/gpt.py:642 calls
@@ -14,7 +15,20 @@
 // diagonal), with an online softmax; only boundary tiles (_needs_mask) are
 // masked element by element. Causal, that is half the tiles at T = 2048.
 // Blocks of later query tiles have more tiles to visit and are launched
-// first. Every row keeps its own key (j = i), so no row is all masked.
+// first.
+//
+// K8 replaces nemo_tpu/ops/flash_attention.py:_fwd_seg_kernel (pallas_call in
+// _flash_forward_seg) as gpt.py:648 calls it for packed SFT batches: the same
+// function restricted to pairs whose segment ids are equal and nonzero. It
+// is the same kernel with segments on (flash_tiles.cuh:Segments): a key tile
+// is visited only where the [min, max] ids of the two tiles overlap, and the
+// segment test joins the element mask on tiles that are not one nonzero
+// segment on both sides. A row of padding (id 0) keeps no key: o = 0, lse =
+// -1e30; a row whose segment starts mid-tile meets a tile with no kept key.
+// The running max is therefore floored at -5e29 where it enters exp (m_safe,
+// flash_attention.py:849-867), so that a row with nothing kept yet adds
+// exp(-1e30 + 5e29) = 0 and not exp(0) = 1. With one segment per row K8
+// takes K5's arithmetic step for step and gives K5's bits.
 //
 // Bound on the H100: 4 * B * H * D * (valid pairs) operations against ~4 x
 // B T H D x 2 bytes of q, k, v and o, so the operations bound it at the
@@ -29,7 +43,8 @@
 //   threads with 4 x 4 scores each.
 // wgmma, TMA and double buffering come later.
 //
-// Layouts: q, o [B, T, H, D]; k, v [B, T, G, D]; lse [B, H, T] fp32.
+// Layouts: q, o [B, T, H, D]; k, v [B, T, G, D]; lse [B, H, T] fp32; segment
+// ids [B, T] int32 and their tile ranges [B, ceil(T / 64), 2] int32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -42,6 +57,8 @@ using flash::BKV;
 using flash::BQ;
 using flash::Mask;
 using flash::NEG;
+using flash::NEG_HALF;
+using flash::Segments;
 
 // ---------------------------------------------------------------- fp32 path
 
@@ -54,20 +71,25 @@ constexpr int LDT = BQ + 4;  // stride of the transposed [D][rows] tiles
 template <int D>
 constexpr size_t smem() { return (2 * D * LDT + BKV * D) * sizeof(float); }
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(NT) fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, float* __restrict__ lse, int H, int G, int Tn, float scale, int causal,
-    int window) {
+    const int* __restrict__ seg, const int* __restrict__ seg_range, float* __restrict__ o,
+    float* __restrict__ lse, int H, int G, int Tn, float scale, int causal, int window) {
   constexpr int NC = D / 64;  // column groups of 64 per thread
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);  // [D][LDT]
   float* sK = sQ + D * LDT;                      // [D][LDT]; then probabilities [BKV][LDT]
   float* sV = sK + D * LDT;                      // [BKV][D]
+  __shared__ int sKs[SEG ? BKV : 1];             // the key tile's segment ids
 
   const Mask mask{Tn, causal, window};
   const int i0 = (gridDim.x - 1 - blockIdx.x) * BQ, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const Segments<SEG> sg = flash::segments_of<SEG>(seg, seg_range, b, Tn);
+  int qs[4];  // the segment ids of this thread's rows
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) qs[ii] = sg.id(i0 + 4 * ty + ii);
   const long long rq = (long long)H * D, rk = (long long)G * D;
   const long long qoff = (long long)b * Tn * rq + (long long)h * D;
   const long long koff = (long long)b * Tn * rk + (long long)(h * G / H) * D;
@@ -90,6 +112,7 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
   mask.kv_range(i0, lo, hi);
   for (int kt = lo; kt <= hi; ++kt) {
     const int j0 = kt * BKV;
+    if (!sg.active(i0, j0)) continue;  // the same for the whole block
     __syncthreads();  // the previous tile is no longer read
     for (int idx = tid; idx < BKV * D; idx += NT) {
       const int r = idx / D, d = idx % D, j = j0 + r;
@@ -101,6 +124,7 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
       sK[d * LDT + r] = a;
       sV[r * D + d] = c;
     }
+    flash::stage_ids<SEG>(sKs, sg, j0);
     __syncthreads();
 
     float s[4][4];
@@ -121,14 +145,17 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
     }
 
     // online softmax; the 16 threads of a row group are 16 lanes of one warp
-    const bool edge = mask.edge(i0, j0);
+    const bool edge = mask.edge(i0, j0) || !sg.uniform(i0, j0);
 #pragma unroll
     for (int ii = 0; ii < 4; ++ii) {
       float mx = NEG;
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
+        const int jl = 4 * tx + jj;
         float val = s[ii][jj] * scale;
-        if (edge && !mask.allowed(i0 + 4 * ty + ii, j0 + 4 * tx + jj)) val = NEG;
+        if (edge && !(mask.allowed(i0 + 4 * ty + ii, j0 + jl) &&
+                      sg.same(qs[ii], SEG ? sKs[jl] : 1)))
+          val = NEG;
         s[ii][jj] = val;
         mx = fmaxf(mx, val);
       }
@@ -136,11 +163,12 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
       for (int off = 8; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m[ii], mx);
-      const float alpha = expf(m[ii] - m_new);
+      const float m_safe = fmaxf(m_new, NEG_HALF);
+      const float alpha = expf(fmaxf(m[ii], NEG_HALF) - m_safe);
       float ps = 0.f;
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        s[ii][jj] = expf(s[ii][jj] - m_new);
+        s[ii][jj] = expf(s[ii][jj] - m_safe);
         ps += s[ii][jj];
       }
 #pragma unroll
@@ -174,18 +202,20 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
     }
   }
 
+  // a row that kept no key (padding): o = 0 and lse = -1e30
 #pragma unroll
   for (int ii = 0; ii < 4; ++ii) {
     const int i = i0 + 4 * ty + ii;
     if (i >= Tn) continue;
+    const bool dead = m[ii] <= NEG_HALF;
     const float lv = fmaxf(l[ii], 1e-30f);
-    const float inv = 1.f / lv;
+    const float inv = dead ? 0.f : 1.f / lv;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
 #pragma unroll
       for (int dd = 0; dd < 4; ++dd)
         o[qoff + i * rq + 64 * c + 4 * tx + dd] = acc[ii][4 * c + dd] * inv;
-    if (tx == 0) lse[((long long)b * H + h) * Tn + i] = m[ii] + logf(lv);
+    if (tx == 0) lse[((long long)b * H + h) * Tn + i] = dead ? NEG : m[ii] + logf(lv);
   }
 }
 
@@ -201,15 +231,16 @@ using namespace flash::tc;
 template <int D>
 constexpr size_t smem() { return 2 * BKV * (D + 8) * sizeof(bf16); }
 
-template <int D>
+template <int D, bool SEG>
 __global__ void __launch_bounds__(NT, 2) fwd_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, float* __restrict__ lse, int H, int G, int Tn, float scale, int causal,
-    int window) {
+    const int* __restrict__ seg, const int* __restrict__ seg_range, bf16* __restrict__ o,
+    float* __restrict__ lse, int H, int G, int Tn, float scale, int causal, int window) {
   constexpr int LDS = D + 8, KS = D / 16, NDT = D / 8;
   extern __shared__ float4 smem4[];
   bf16* sK = reinterpret_cast<bf16*>(smem4);  // [BKV][LDS]: k_j, d contiguous
   bf16* sV = sK + BKV * LDS;                  // [BKV][LDS]: v_j, d contiguous
+  __shared__ int sKs[SEG ? BKV : 1];          // the key tile's segment ids
 
   const Mask mask{Tn, causal, window};
   const int i0 = (gridDim.x - 1 - blockIdx.x) * BQ, h = blockIdx.y, b = blockIdx.z;
@@ -219,10 +250,12 @@ __global__ void __launch_bounds__(NT, 2) fwd_kernel(
   const long long qoff = (long long)b * Tn * rq + (long long)h * D;
   const long long koff = (long long)b * Tn * rk + (long long)(h * G / H) * D;
 
-  // this warp's query rows ia, ib as A fragments
+  // this warp's query rows ia, ib as A fragments, and their segment ids
   const int ia = i0 + 16 * warp + g, ib = ia + 8;
   uint32_t fq[KS][4];
   load_rows_a<KS>(fq, q + qoff, ia, ib, Tn, rq, t);
+  const Segments<SEG> sg = flash::segments_of<SEG>(seg, seg_range, b, Tn);
+  const int qs[2] = {sg.id(ia), sg.id(ib)};
 
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, acc[NDT][4];
   zero<NDT>(acc);
@@ -231,17 +264,20 @@ __global__ void __launch_bounds__(NT, 2) fwd_kernel(
   mask.kv_range(i0, lo, hi);
   for (int kt = lo; kt <= hi; ++kt) {
     const int j0 = kt * BKV;
+    if (!sg.active(i0, j0)) continue;  // the same for the whole block
     __syncthreads();  // the previous tile is no longer read
     stage_rows<D>(sK, k + koff, j0, BKV, Tn, rk);
     stage_rows<D>(sV, v + koff, j0, BKV, Tn, rk);
+    flash::stage_ids<SEG>(sKs, sg, j0);
     __syncthreads();
 
     float s[8][4];
     zero<8>(s);
     mma_nt<8, KS, LDS>(s, fq, sK, g, t);
 
-    // scaled scores, masked on a boundary tile; row r of the warp, key jl of the tile
-    const bool edge = mask.edge(i0, j0);
+    // scaled scores, masked on a boundary tile or one that mixes segments;
+    // row r of the warp, key jl of the tile
+    const bool edge = mask.edge(i0, j0) || !sg.uniform(i0, j0);
     float mx[2] = {NEG, NEG};
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
@@ -249,26 +285,30 @@ __global__ void __launch_bounds__(NT, 2) fwd_kernel(
       for (int e = 0; e < 4; ++e) {
         const int r = g + 8 * (e >> 1), jl = 8 * nt + 2 * t + (e & 1);
         float val = s[nt][e] * scale;
-        if (edge && !mask.allowed(i0 + 16 * warp + r, j0 + jl)) val = NEG;
+        if (edge && !(mask.allowed(i0 + 16 * warp + r, j0 + jl) &&
+                      sg.same(qs[e >> 1], SEG ? sKs[jl] : 1)))
+          val = NEG;
         s[nt][e] = val;
         mx[e >> 1] = fmaxf(mx[e >> 1], val);
       }
 
-    // online softmax over the 4 lanes that share a row
-    float alpha[2], ps[2] = {0.f, 0.f};
+    // online softmax over the 4 lanes that share a row; m_safe keeps a row
+    // with no kept key yet at p = 0
+    float alpha[2], m_safe[2], ps[2] = {0.f, 0.f};
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
       mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
       const float m_new = fmaxf(m[hh], mx[hh]);
-      alpha[hh] = __expf(m[hh] - m_new);
+      m_safe[hh] = fmaxf(m_new, NEG_HALF);
+      alpha[hh] = __expf(fmaxf(m[hh], NEG_HALF) - m_safe[hh]);
       m[hh] = m_new;
     }
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[nt][e] = __expf(s[nt][e] - m[e >> 1]);
+        s[nt][e] = __expf(s[nt][e] - m_safe[e >> 1]);
         ps[e >> 1] += s[nt][e];
       }
 #pragma unroll
@@ -287,27 +327,46 @@ __global__ void __launch_bounds__(NT, 2) fwd_kernel(
     mma_nn<4, NDT, LDS>(acc, a, sV, lane);
   }
 
+  // a row that kept no key (padding): o = 0 and lse = -1e30
   float inv[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     float lt = l[hh];
     lt += __shfl_xor_sync(0xffffffffu, lt, 1);
     lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const bool dead = m[hh] <= NEG_HALF;
     const float lv = fmaxf(lt, 1e-30f);
-    inv[hh] = 1.f / lv;
+    inv[hh] = dead ? 0.f : 1.f / lv;
     const int i = hh ? ib : ia;
-    if (t == 0 && i < Tn) lse[((long long)b * H + h) * Tn + i] = m[hh] + logf(lv);
+    if (t == 0 && i < Tn) lse[((long long)b * H + h) * Tn + i] = dead ? NEG : m[hh] + logf(lv);
   }
   store_rows<NDT>(o + qoff, acc, ia, ib, Tn, rq, t, inv);
 }
 
 }  // namespace tc
 
-template <int D>
+template <int D, bool SEG>
 int fwd(int dtype, void** args, int n_q, int H, int B, cudaStream_t s) {
   if (dtype == 0)
-    return flash::launch(f32::fwd_kernel<D>, f32::smem<D>(), f32::NT, n_q, H, B, s, args);
-  return flash::launch(tc::fwd_kernel<D>, tc::smem<D>(), tc::NT, n_q, H, B, s, args);
+    return flash::launch(f32::fwd_kernel<D, SEG>, f32::smem<D>(), f32::NT, n_q, H, B, s, args);
+  return flash::launch(tc::fwd_kernel<D, SEG>, tc::smem<D>(), tc::NT, n_q, H, B, s, args);
+}
+
+template <bool SEG>
+int fwd_entry(int dtype, void* q, void* k, void* v, void* seg, void* seg_range, void* o,
+              void* lse, int B, int H, int G, int Tn, int head_dim, float scale, int causal,
+              int window, void* stream) {
+  if (!flash::valid_shape(B, H, G, Tn, head_dim, window) || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    const void* bf[] = {q, k, v, o};
+    if (!flash::aligned16(bf, 4)) return (int)cudaErrorMisalignedAddress;
+  }
+  void* args[] = {&q, &k, &v, &seg, &seg_range, &o, &lse, &H, &G, &Tn, &scale, &causal, &window};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_q = (Tn + BQ - 1) / BQ;
+  return head_dim == 64 ? fwd<64, SEG>(dtype, args, n_q, H, B, s)
+                        : fwd<128, SEG>(dtype, args, n_q, H, B, s);
 }
 
 }  // namespace
@@ -318,14 +377,17 @@ int fwd(int dtype, void** args, int n_q, int H, int B, cudaStream_t s) {
 extern "C" int flash_fwd(int dtype, void* q, void* k, void* v, void* o, void* lse, int B, int H,
                          int G, int Tn, int head_dim, float scale, int causal, int window,
                          void* stream) {
-  if (!flash::valid_shape(B, H, G, Tn, head_dim, window) || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 1) {
-    const void* bf[] = {q, k, v, o};
-    if (!flash::aligned16(bf, 4)) return (int)cudaErrorMisalignedAddress;
-  }
-  void* args[] = {&q, &k, &v, &o, &lse, &H, &G, &Tn, &scale, &causal, &window};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_q = (Tn + BQ - 1) / BQ;
-  return head_dim == 64 ? fwd<64>(dtype, args, n_q, H, B, s) : fwd<128>(dtype, args, n_q, H, B, s);
+  return fwd_entry<false>(dtype, q, k, v, nullptr, nullptr, o, lse, B, H, G, Tn, head_dim, scale,
+                          causal, window, stream);
+}
+
+// K8: K5 over packed rows. seg [B, T] int32 segment ids (0 = padding) and
+// seg_range [B, ceil(T / 64), 2] int32, the [min, max] id of each 64-row
+// tile. A padding row gets o = 0 and lse = -1e30.
+extern "C" int flash_seg_fwd(int dtype, void* q, void* k, void* v, void* seg, void* seg_range,
+                             void* o, void* lse, int B, int H, int G, int Tn, int head_dim,
+                             float scale, int causal, int window, void* stream) {
+  if (seg == nullptr || seg_range == nullptr) return (int)cudaErrorInvalidValue;
+  return fwd_entry<true>(dtype, q, k, v, seg, seg_range, o, lse, B, H, G, Tn, head_dim, scale,
+                         causal, window, stream);
 }

@@ -1,9 +1,10 @@
 // Tiles, masks and warp-level products shared by the causal GQA flash
-// attention kernels (flash_fwd.cu: K5; flash_bwd.cu: K6, K7).
+// attention kernels (flash_fwd.cu: K5, and K8 with segments; flash_bwd.cu:
+// K6, K7, and K9, K10 with segments).
 //
 // Layouts: q, o, dO, dq are [B, T, H, D] and k, v, dk, dv [B, T, G, D] (the
 // Linear outputs viewed per head; row stride H*D or G*D); query head h reads
-// kv head h*G/H. Tiles are 64 query rows by 64 keys.
+// kv head h*G/H; segment ids [B, T] int32. Tiles are 64 query rows by 64 keys.
 
 #pragma once
 
@@ -46,6 +47,66 @@ struct Mask {
            j0 + BKV > Tn || i0 + BQ > Tn;
   }
 };
+
+constexpr float NEG_HALF = NEG / 2;  // a running max at or below it: no key seen yet
+
+// Segments of packed rows (K8-K10): a pair (i, j) is kept only where both
+// tokens carry the same nonzero id (nemo_tpu/ops/flash_attention.py:
+// _seg_mask); id 0 is padding and sees nothing. `range` holds the [min, max]
+// id of each 64-row tile of the batch row (a pre-pass): a tile pair whose
+// ranges do not overlap holds no kept pair and is skipped (_seg_overlap,
+// sound for ids in any order), and one whose rows and keys are all of one
+// nonzero id needs no element mask for the segments. With SEG false (K5-K7)
+// every test folds to a constant and the kernels are those of K5-K7.
+template <bool SEG>
+struct Segments {
+  const int* ids;    // [T] of this batch row
+  const int* range;  // [ceil(T / 64)][2] of this batch row
+  int Tn;
+
+  __device__ __forceinline__ int id(int t) const {
+    if constexpr (SEG) return t < Tn ? ids[t] : 0;
+    return 1;
+  }
+  __device__ __forceinline__ bool same(int qs, int ks) const {
+    if constexpr (SEG) return qs == ks && ks > 0;
+    return true;
+  }
+  // the tile pair at (i0, j0) may hold a kept pair
+  __device__ __forceinline__ bool active(int i0, int j0) const {
+    if constexpr (SEG) {
+      const int *a = range + 2 * (i0 / BQ), *b = range + 2 * (j0 / BKV);
+      return b[0] <= a[1] && b[1] >= a[0];
+    }
+    return true;
+  }
+  // every pair of the tile pair at (i0, j0) is of one nonzero segment
+  __device__ __forceinline__ bool uniform(int i0, int j0) const {
+    if constexpr (SEG) {
+      const int *a = range + 2 * (i0 / BQ), *b = range + 2 * (j0 / BKV);
+      return a[0] > 0 && a[0] == a[1] && b[0] == b[1] && a[0] == b[0];
+    }
+    return true;
+  }
+};
+
+// the segments of batch row b (seg [B, T], range [B, ceil(T / 64), 2]; both
+// null without segments)
+template <bool SEG>
+__device__ __forceinline__ Segments<SEG> segments_of(const int* seg, const int* range, int b,
+                                                     int Tn) {
+  if constexpr (SEG)
+    return {seg + (long long)b * Tn, range + 2LL * b * ((Tn + BQ - 1) / BQ), Tn};
+  return {nullptr, nullptr, Tn};
+}
+
+// keys [j0, j0 + BKV) of a batch row's segment ids into shared memory
+// (0 past the end); nothing without segments
+template <bool SEG>
+__device__ __forceinline__ void stage_ids(int* dst, const Segments<SEG>& sg, int j0) {
+  if constexpr (SEG)
+    for (int idx = threadIdx.x; idx < BKV; idx += blockDim.x) dst[idx] = sg.id(j0 + idx);
+}
 
 // --------------------------------------------------------- bf16 tensor-core tiles
 

@@ -1,9 +1,9 @@
 """Carry the JAX model's variables into the port's modules.
 
 `load_jax_variables(model, variables)` takes `{"params": …, "batch_stats": …}`
-as nested dicts of numpy arrays (what `jax.device_get(m.variables)` gives) and
-fills the port's parameters, whose names mirror the JAX tree. Only layouts
-change:
+as nested dicts of numpy arrays (what `jax.device_get(m.variables)` gives) or
+of tensors (copied on their device, never through the host) and fills the
+port's parameters, whose names mirror the JAX tree. Only layouts change:
 
 - Dense kernel [in, out] → Linear weight [out, in]; a 1×1 conv kernel
   [1, in, out] (the CTC head's `proj`) and a DenseGeneral kernel with
@@ -30,6 +30,7 @@ lists those variables by state name.
 
 from __future__ import annotations
 
+import math
 import re
 from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
@@ -42,13 +43,14 @@ from nemo_tpu_torch.models.llm.config import GPTConfig
 Path_ = Tuple[str, ...]
 
 
-def _flatten(tree: Mapping[str, Any], prefix: Path_ = ()) -> Dict[Path_, np.ndarray]:
-    out: Dict[Path_, np.ndarray] = {}
+def _flatten(tree: Mapping[str, Any], prefix: Path_ = ()) -> Dict[Path_, Any]:
+    """Leaves by path: tensors as they are, anything else as a numpy array."""
+    out: Dict[Path_, Any] = {}
     for k, v in tree.items():
         if isinstance(v, Mapping):
             out.update(_flatten(v, prefix + (str(k),)))
         else:
-            out[prefix + (str(k),)] = np.asarray(v)
+            out[prefix + (str(k),)] = v if isinstance(v, torch.Tensor) else np.asarray(v)
     return out
 
 
@@ -62,16 +64,20 @@ def _gpt_layers(model: nn.Module) -> Optional[str]:
     return "stacked" if cfg.scan_layers and cfg.moe_first_k_dense == 0 else "unrolled"
 
 
-def _conv_layout(kernel: np.ndarray, mod: nn.Module) -> np.ndarray:
+def _conv_layout(kernel, mod: nn.Module):
+    """A JAX kernel (numpy array or tensor) in the port's layout."""
+    axes = None
     if isinstance(mod, nn.Linear):
-        if kernel.size != mod.in_features * mod.out_features:
+        if math.prod(kernel.shape) != mod.in_features * mod.out_features:
             return kernel  # the shape check below names it
         return kernel.reshape(mod.in_features, mod.out_features).T
     if isinstance(mod, nn.Conv2d):
-        return kernel.transpose(3, 2, 0, 1)
-    if isinstance(mod, nn.Conv1d):
-        return kernel.transpose(2, 1, 0)
-    return kernel
+        axes = (3, 2, 0, 1)
+    elif isinstance(mod, nn.Conv1d):
+        axes = (2, 1, 0)
+    if axes is None:
+        return kernel
+    return kernel.permute(axes) if isinstance(kernel, torch.Tensor) else kernel.transpose(axes)
 
 
 _NORM_NAMES = {"weight": "scale", "bias": "bias"}
@@ -124,7 +130,10 @@ def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Mod
             raise ValueError(f"load_jax_variables: {'/'.join(path)} has shape "
                              f"{value.shape}, the port expects {tuple(target.shape)}")
         with torch.no_grad():
-            target.copy_(torch.from_numpy(np.array(value)))  # a writable copy
+            if isinstance(value, torch.Tensor):
+                target.copy_(value)
+            else:
+                target.copy_(torch.from_numpy(np.array(value)))  # a writable copy
     if missing:
         raise KeyError(f"load_jax_variables: missing from the JAX tree: {missing}")
     left = [f"{c}/" + "/".join(k) for c, tree in trees.items() for k in tree]
@@ -155,27 +164,32 @@ def _per_layer(tree: Dict[Path_, np.ndarray], n_layers: int) -> Dict[Path_, np.n
 def _stack(trees: List[Dict[str, Any]]) -> Dict[str, Any]:
     """Nested dicts of one structure → one nested dict of stacked leaves."""
     return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
-            else np.stack([t[k] for t in trees]) for k, v in trees[0].items()}
+            else (torch.stack if isinstance(v, torch.Tensor) else np.stack)([t[k] for t in trees])
+            for k, v in trees[0].items()}
 
 
-def _jax_layout(value: np.ndarray, mod: nn.Module) -> np.ndarray:
-    """The inverse of `_conv_layout`."""
+def _jax_layout(value, mod: nn.Module):
+    """The inverse of `_conv_layout` (numpy array or tensor)."""
+    axes = None
     if isinstance(mod, nn.Linear):
         if getattr(mod, "jax_conv1x1", False):
             return value.T[None]
         return value.T.reshape(getattr(mod, "jax_kernel_shape", value.T.shape))
     if isinstance(mod, nn.Conv2d):
-        return value.transpose(2, 3, 1, 0)
-    if isinstance(mod, nn.Conv1d):
-        return value.transpose(2, 1, 0)
-    return value
+        axes = (2, 3, 1, 0)
+    elif isinstance(mod, nn.Conv1d):
+        axes = (2, 1, 0)
+    if axes is None:
+        return value
+    return value.permute(axes) if isinstance(value, torch.Tensor) else value.transpose(axes)
 
 
-def export_jax_variables(model: nn.Module, values: Optional[Mapping[str, torch.Tensor]] = None
-                         ) -> Dict[str, Any]:
+def export_jax_variables(model: nn.Module, values: Optional[Mapping[str, torch.Tensor]] = None,
+                         as_tensors: bool = False) -> Dict[str, Any]:
     """The inverse of `load_jax_variables`: {"params": …, "batch_stats": …} as
-    nested dicts of fp32 numpy arrays in the JAX layout. `values` maps the
-    state names of `model_variables` (e.g.
+    nested dicts of fp32 numpy arrays in the JAX layout, or with `as_tensors`
+    of fp32 tensors on the values' device (no copy through the host). `values`
+    maps the state names of `model_variables` (e.g.
     `encoder.layer0.conv.norm.running_mean`) to tensors of their shapes, such
     as gradients; by default the model's own. Strict: a name of `values`
     that is no such variable, or a variable missing from `values`, raises."""
@@ -193,13 +207,14 @@ def export_jax_variables(model: nn.Module, values: Optional[Mapping[str, torch.T
         if tuple(value.shape) != tuple(target.shape):
             raise ValueError(f"export_jax_variables: {key} has shape {tuple(value.shape)}, "
                              f"the model's is {tuple(target.shape)}")
-        arr = value.detach().to("cpu", torch.float32).numpy()
+        arr = value.detach().float() if as_tensors else value.detach().to(
+            "cpu", torch.float32).numpy()
         if path[-1] == "kernel":
             arr = _jax_layout(arr, mod)
         node = tree[collection]
         for part in path[:-1]:
             node = node.setdefault(part, {})
-        node[path[-1]] = np.ascontiguousarray(arr)
+        node[path[-1]] = arr.contiguous() if as_tensors else np.ascontiguousarray(arr)
     if not tree["batch_stats"]:
         del tree["batch_stats"]
     layout = _gpt_layers(model)

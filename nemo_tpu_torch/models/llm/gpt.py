@@ -10,8 +10,11 @@ RoPE rotation are fp32 islands. The layers are a ModuleList (no scan
 stacking); `remat="full"` wraps each layer in `torch.utils.checkpoint`, the
 counterpart of `nn.remat` at gpt.py:1195. Attention takes the hand-written
 flash kernels (K5 forward, K6/K7 backward, `ops/flash_attention.py`) where
-the JAX model takes its Pallas kernel (gpt.py:627-633: backend "flash", no
-KV cache, S a multiple of 128), and the einsum path otherwise.
+the JAX model takes its Pallas kernel (gpt.py:627-652: backend "flash", no
+KV cache, S a multiple of 128), and the einsum path otherwise. Packed batches
+(SFT) carry per-token `positions` for RoPE and `segment_ids` (0 = padding):
+the flash branch then takes the packed kernels (K8 forward, K9/K10
+backward), the einsum path masks to pairs of one segment (gpt.py:408-410).
 
 Parameter names mirror the JAX tree (`layers.3.attention.q_proj`,
 `final_norm.scale`, `embedding`), so `interop/jax_params.py` carries JAX
@@ -30,7 +33,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from nemo_tpu_torch.models.llm.config import GPTConfig
-from nemo_tpu_torch.ops.flash_attention import flash_attention
+from nemo_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_packed, seg_tile_ranges)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -147,12 +151,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
-                     window: Optional[int] = None, softmax_fp32: bool = True) -> torch.Tensor:
+                     window: Optional[int] = None, softmax_fp32: bool = True,
+                     segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Grouped-query causal attention as einsums (gpt.py:341, the
-    `attention_backend="xla"` path without caches, segments or sinks):
+    `attention_backend="xla"` path without caches or sinks):
     q [B, S, H, D], k and v [B, S, G, D] → [B, S, H, D]; fp32 scores, the
-    causal and window mask at -1e30, softmax, then the value product in v's
-    dtype."""
+    causal and window mask (and with `segment_ids` [B, S] the mask to pairs
+    of one nonzero id, gpt.py:408-410) at -1e30, softmax, then the value
+    product in v's dtype. A padding row (id 0) keeps no key and, as in JAX,
+    gets the mean of v, which reaches no other row and no loss."""
     B, S, H, D = q.shape
     G = k.shape[2]
     qg = q.reshape(B, S, G, H // G, D)
@@ -162,6 +169,9 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale
     mask = kpos <= qpos
     if window is not None:
         mask = mask & (kpos > qpos - window)
+    if segment_ids is not None:
+        qs = segment_ids[:, :, None]
+        mask = (mask & (qs == segment_ids[:, None, :]) & (qs > 0))[:, None, None]
     scores = scores.masked_fill(~mask, -1e30)
     if not softmax_fp32:
         scores = scores.to(q.dtype)
@@ -208,7 +218,9 @@ class Attention(nn.Module):
             self._inv_freq = torch.from_numpy(self.inv_freq_np).to(device)
         return self._inv_freq
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                segment_ids: Optional[torch.Tensor] = None,
+                seg_ranges: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         B, S, _ = x.shape
         H, G, D = cfg.num_attention_heads, cfg.n_kv_heads, cfg.head_dim
@@ -217,11 +229,17 @@ class Attention(nn.Module):
         k = apply_rope(self.k_proj(x).view(B, S, G, D), positions, inv)
         v = self.v_proj(x).view(B, S, G, D)
         if cfg.attention_backend == "flash" and S % 128 == 0:
-            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                  self.scale, True, self.window).transpose(1, 2)
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            if segment_ids is None:
+                out = flash_attention(qt, kt, vt, self.scale, True, self.window)
+            else:
+                out = flash_attention_packed(qt, kt, vt, segment_ids, self.scale, True,
+                                             self.window, seg_ranges)
+            out = out.transpose(1, 2)
         else:
             out = causal_attention(q, k, v, scale=self.scale, window=self.window,
-                                   softmax_fp32=cfg.attention_softmax_in_fp32)
+                                   softmax_fp32=cfg.attention_softmax_in_fp32,
+                                   segment_ids=segment_ids)
         return self.o_proj(out.reshape(B, S, H * D))
 
 
@@ -255,16 +273,19 @@ class TransformerLayer(nn.Module):
         self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.layernorm_epsilon, pdt)
         self.mlp = MLP(cfg)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        x = x + self.attention(self.input_norm(x), positions)
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                segment_ids: Optional[torch.Tensor] = None,
+                seg_ranges: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attention(self.input_norm(x), positions, segment_ids, seg_ranges)
         return x + self.mlp(self.post_attn_norm(x))
 
 
 class GPTModel(nn.Module):
-    """The model (gpt.py:1131). forward(tokens [B, S]) → logits [B, S, V]
-    fp32, or with output_hidden=True the final-norm hidden states [B, S, D]
-    in the compute dtype (the fused-CE training path applies the head inside
-    the loss)."""
+    """The model (gpt.py:1131). forward(tokens [B, S], positions, segment_ids)
+    → logits [B, S, V] fp32, or with output_hidden=True the final-norm hidden
+    states [B, S, D] in the compute dtype (the fused-CE training path applies
+    the head inside the loss). `positions` [B, S] (default 0 .. S-1) and
+    `segment_ids` [B, S] (0 = padding) are a packed batch's."""
 
     def __init__(self, cfg: GPTConfig):
         super().__init__()
@@ -283,19 +304,28 @@ class GPTModel(nn.Module):
             return self.embedding
         return self.lm_head.weight
 
-    def forward(self, tokens: torch.Tensor, output_hidden: bool = False) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None,
+                output_hidden: bool = False) -> torch.Tensor:
         cfg = self.cfg
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        S = tokens.shape[1]
+        if positions is None:
+            positions = torch.arange(S, device=tokens.device)
+        seg_ranges = None
+        if segment_ids is not None:
+            segment_ids = segment_ids.to(torch.int32).contiguous()
+            if cfg.attention_backend == "flash" and S % 128 == 0 and segment_ids.is_cuda:
+                seg_ranges = seg_tile_ranges(segment_ids)  # once for every layer's K8-K10
         # the gather runs in the parameter dtype, so the embedding's gradient
         # is an fp32 scatter-add, as in JAX (gpt.py:1177)
         x = F.embedding(tokens, self.embedding).to(DTYPES[cfg.compute_dtype])
         remat = cfg.remat == "full" and torch.is_grad_enabled()
         for layer in self.layers:
             if remat:
-                x = checkpoint(layer, x, positions, use_reentrant=False,
-                               preserve_rng_state=False)
+                x = checkpoint(layer, x, positions, segment_ids, seg_ranges,
+                               use_reentrant=False, preserve_rng_state=False)
             else:
-                x = layer(x, positions)
+                x = layer(x, positions, segment_ids, seg_ranges)
         x = self.final_norm(x)
         if output_hidden:
             return x

@@ -8,14 +8,17 @@ One step is the model's hidden states (`output_hidden=True`), the fused
 linear + CE loss over the tied or untied head, `torch.autograd.grad` of
 every parameter, and `core/optim.py:gpt_optimizer` (clip 1.0, AdamW with
 weight decay 0.1 on every leaf; the parameters are fp32 and are their own
-masters). It returns {"loss", "grad_norm", "step"} as tensors on the
-device, without waiting for it. The module runs on the card unless
-`device="cpu"` is passed.
+masters) at the learning rate of `lr_schedule(step)`, 3e-4 by default
+(train.py:105-110). A packed batch (SFT, `data/fine_tuning.py`) also
+carries "loss_mask", "positions" and "segment_ids", which reach the model
+as train.py:loss_fn passes them. It returns {"loss", "grad_norm", "step"}
+as tensors on the device, without waiting for it, and the step's "lr" as a
+float. The module runs on the card unless `device="cpu"` is passed.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Union
+from typing import Callable, Dict, Mapping, Optional, Union
 
 import torch
 
@@ -28,14 +31,16 @@ from nemo_tpu_torch.models.llm.loss import fused_linear_cross_entropy, masked_to
 
 class GPTTrainModule:
     """Owns the model and its optimizer. `train_step(batch)` takes
-    {"tokens": [B, S], "labels": [B, S], "loss_mask": [B, S] (optional)} as
-    numpy arrays or tensors."""
+    {"tokens": [B, S], "labels": [B, S]} and optionally "loss_mask",
+    "positions" and "segment_ids" [B, S], as numpy arrays or tensors.
+    `lr_schedule` maps the step (from 0) to the learning rate."""
 
     def __init__(self, cfg: GPTConfig, device: Union[str, torch.device, None] = None,
-                 seed: int = 0):
+                 seed: int = 0, lr_schedule: Optional[Callable[[int], float]] = None):
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.lr_schedule = lr_schedule
         self.model = build_model(cfg, self.device, seed)
         self._start()
 
@@ -48,18 +53,20 @@ class GPTTrainModule:
 
     def _start(self) -> None:
         self.params = list(self.model.parameters())
-        self.optimizer = gpt_optimizer(self.params)
+        self.optimizer = gpt_optimizer(self.params, self.lr_schedule)
         self.step = 0
 
     def loss(self, tokens: torch.Tensor, labels: torch.Tensor,
-             loss_mask: Union[torch.Tensor, None] = None) -> torch.Tensor:
+             loss_mask: Optional[torch.Tensor] = None, positions: Optional[torch.Tensor] = None,
+             segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The training loss of one [B, S] batch (train.py:loss_fn)."""
         if self.cfg.fused_ce:
-            hidden = self.model(tokens, output_hidden=True)
+            hidden = self.model(tokens, positions, segment_ids, output_hidden=True)
             loss, _ = fused_linear_cross_entropy(hidden, self.model.head_weight(), labels,
                                                  loss_mask, chunk=self.cfg.fused_ce_chunk)
         else:
-            loss, _ = masked_token_loss(self.model(tokens), labels, loss_mask)
+            loss, _ = masked_token_loss(self.model(tokens, positions, segment_ids), labels,
+                                        loss_mask)
         return loss
 
     def _tensor(self, x) -> torch.Tensor:
@@ -72,12 +79,14 @@ class GPTTrainModule:
                 "GPTTrainModule.train_step: only [B, S] batches are ported; in-step "
                 "microbatching over [A, B, S] is not")
         labels = self._tensor(batch["labels"])
-        mask = batch.get("loss_mask")
-        mask = None if mask is None else self._tensor(mask)
-        loss = self.loss(tokens, labels, mask)
+        mask, positions, segment_ids = (
+            None if batch.get(key) is None else self._tensor(batch[key])
+            for key in ("loss_mask", "positions", "segment_ids"))
+        loss = self.loss(tokens, labels, mask, positions, segment_ids)
         grads = torch.autograd.grad(loss, self.params)
+        lr = float(self.optimizer.schedule(self.optimizer.count))
         norm = self.optimizer.step(grads)
         metrics = {"loss": loss.detach(), "grad_norm": norm,
-                   "step": torch.tensor(self.step, device=self.device)}
+                   "step": torch.tensor(self.step, device=self.device), "lr": lr}
         self.step += 1
         return metrics

@@ -1,6 +1,6 @@
 """Flash attention on the card: the rel-pos form of the Conformer (K1, K3,
-K4) and the causal GQA form of the LLM (K5, K6, K7), each with its plain
-version.
+K4), the causal GQA form of the LLM (K5, K6, K7) and its form over packed
+rows with segment ids (K8, K9, K10), each with its plain version.
 
 **Rel-pos form.** Counterpart of nemo_tpu/ops/flash_attention.py:flash_attention
 (`_fwd_kernel`, and through its custom_vjp `_dq_kernel` and `_dkv_kernel`) as
@@ -27,6 +27,17 @@ differentiable (`FlashAttention`): the forward is K5 (`csrc/flash_fwd.cu`),
 the backward K6 (dq) and K7 (dk, dv summed over each group's heads;
 `csrc/flash_bwd.cu`); CPU tensors take `flash_attention_plain` and
 `flash_attention_backward_plain`.
+
+**Packed form.** `flash_attention_packed(q, k, v, segments, scale, causal,
+window)` is the counterpart of nemo_tpu/ops/flash_attention.py:
+flash_attention_packed (1123) as gpt.py:648 calls it for packed SFT batches:
+the causal GQA form restricted to (query, key) pairs whose segment ids
+(`segments` [B, T], 0 = padding) are equal and nonzero. A padding row keeps
+no key: o = 0 and lse = -1e30. It is differentiable
+(`FlashAttentionPacked`): the forward is K8 (`csrc/flash_fwd.cu`, K5's kernel
+with segments on), the backward K9 (`flash_seg_dq`) and K10 (`flash_seg_dkv`,
+`csrc/flash_bwd.cu`); CPU tensors take `flash_attention_packed_plain` and
+`flash_attention_packed_backward_plain`.
 
 Every wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain version only for CPU tensors; each counts its launches in `.launches`.
@@ -328,9 +339,11 @@ def _lib(name: str = "relpos_flash") -> ctypes.CDLL:
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor, scale: float, causal: bool,
-                window) -> torch.Tensor:
+                window, segments=None) -> torch.Tensor:
     """Masked fp32 scores [B, G, H/G, Tq, Tk] of q [B, H, Tq, dh] against k
-    [B, G, Tk, dh], as nemo_tpu/ops/flash_attention.py:_xla_reference builds them."""
+    [B, G, Tk, dh], as nemo_tpu/ops/flash_attention.py:_xla_reference builds
+    them; with `segments` [B, T] also masked to pairs of equal nonzero ids
+    (_seg_mask)."""
     B, H, Tq, dh = q.shape
     G, Tk = k.shape[1], k.shape[2]
     qg = q.reshape(B, G, H // G, Tq, dh).float()
@@ -342,6 +355,9 @@ def _gqa_scores(q: torch.Tensor, k: torch.Tensor, scale: float, causal: bool,
         keep &= kpos <= qpos
     if window is not None:
         keep &= kpos > qpos - window
+    if segments is not None:
+        seg = segments.to(q.device)
+        keep = (keep & (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0))[:, None, None]
     return s.masked_fill(~keep, NEG_INF)
 
 
@@ -360,12 +376,15 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sca
     return o.reshape(B, H, T, dh).to(q.dtype), lse.reshape(B, H, T)
 
 
-def _flash_backward_plain(q, k, v, scale, causal, window, lse, delta, do):
+def _flash_backward_plain(q, k, v, scale, causal, window, lse, delta, do, segments=None):
     B, H, T, dh = q.shape
     G = k.shape[1]
     rows = (B, G, H // G, T)
-    probs = torch.exp(_gqa_scores(q, k, scale, causal, window)
-                      - lse.reshape(rows)[..., None])  # 0 on masked pairs
+    lse_r = lse.reshape(rows)[..., None]
+    # 0 on masked pairs
+    probs = torch.exp(_gqa_scores(q, k, scale, causal, window, segments) - lse_r)
+    if segments is not None:  # a padding row (lse = -1e30) keeps no pair, not exp(0)
+        probs = probs.masked_fill(lse_r <= NEG_INF / 2, 0.0)
     dog = do.reshape(*rows, dh).float()
     dprobs = torch.einsum("bgrid,bgjd->bgrij", dog, v.float())
     ds = probs * (dprobs - delta.reshape(rows)[..., None]) * scale
@@ -508,8 +527,11 @@ def flash_dkv(q, k, v, scale, causal, window, lse, delta, do):
 flash_dkv.launches = 0
 
 
-def _flash_bwd_launch(fn: str, q, k, v, scale, causal, window, lse, delta, do):
-    """Launch K6 (→ dq [B, T, H, dh]) or K7 (→ dk, dv [B, T, G, dh])."""
+def _flash_bwd_launch(fn: str, q, k, v, scale, causal, window, lse, delta, do, segments=None,
+                      ranges=None):
+    """Launch K6 or K9 (→ dq [B, T, H, dh]), K7 or K10 (→ dk, dv [B, T, G,
+    dh]); K9 and K10 (`flash_seg_bwd_*`) take the segments and their tile
+    ranges (computed here where not given)."""
     _flash_check(fn, q, k, v, window)
     B, H, T, dh = q.shape
     G = k.shape[1]
@@ -520,13 +542,18 @@ def _flash_bwd_launch(fn: str, q, k, v, scale, causal, window, lse, delta, do):
             raise ValueError(f"{fn}: {name} must be [B, H, T] float32")
     qt, kt, vt, dot = _bthd(fn, (q, k, v, do))
     lse_c, delta_c = lse.contiguous(), delta.contiguous()
-    heads = H if fn == "flash_bwd_dq" else G
-    outs = [torch.empty((B, T, heads, dh), dtype=q.dtype, device=q.device)
-            for _ in range(1 if fn == "flash_bwd_dq" else 2)]
+    seg_ptrs = []
+    if fn.startswith("flash_seg"):
+        seg = _seg_check(fn, q, segments)
+        ranges = _ranges_check(fn, q, seg_tile_ranges(seg) if ranges is None else ranges)
+        seg_ptrs = [seg.data_ptr(), ranges.data_ptr()]
+    dq_side = fn.endswith("_dq")
+    outs = [torch.empty((B, T, H if dq_side else G, dh), dtype=q.dtype, device=q.device)
+            for _ in range(1 if dq_side else 2)]
     err = getattr(_flash_lib("flash_bwd"), fn)(
         _DTYPES[q.dtype], qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), dot.data_ptr(),
-        lse_c.data_ptr(), delta_c.data_ptr(), *(t.data_ptr() for t in outs), B, H, G, T, dh,
-        float(scale), int(causal), int(window or 0),
+        lse_c.data_ptr(), delta_c.data_ptr(), *seg_ptrs, *(t.data_ptr() for t in outs), B, H, G,
+        T, dh, float(scale), int(causal), int(window or 0),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err} at launch")
@@ -546,18 +573,210 @@ def flash_attention_backward(
 
 
 def _flash_lib(name: str) -> ctypes.CDLL:
-    """The K5 (`flash_fwd`) or K6 + K7 (`flash_bwd`) kernel library, with its
-    C signatures set."""
+    """The K5 + K8 (`flash_fwd`) or K6, K7, K9 + K10 (`flash_bwd`) kernel
+    library, with its C signatures set."""
     from nemo_tpu_torch.csrc.loader import library
 
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib = library(name)
     # dtype, tensors, B, H, G, T, head_dim, scale, causal, window, stream
-    n_ptrs = {"flash_fwd": 5, "flash_bwd_dq": 7, "flash_bwd_dkv": 8}
-    for fn_name in (("flash_fwd",) if name == "flash_fwd" else ("flash_bwd_dq", "flash_bwd_dkv")):
+    n_ptrs = {"flash_fwd": 5, "flash_bwd_dq": 7, "flash_bwd_dkv": 8,
+              "flash_seg_fwd": 7, "flash_seg_bwd_dq": 9, "flash_seg_bwd_dkv": 10}
+    fns = {"flash_fwd": ("flash_fwd", "flash_seg_fwd"),
+           "flash_bwd": ("flash_bwd_dq", "flash_bwd_dkv", "flash_seg_bwd_dq", "flash_seg_bwd_dkv")}
+    for fn_name in fns[name]:
         fn = getattr(lib, fn_name)
         if fn.argtypes is None:
             fn.argtypes = ([ci] + [vp] * n_ptrs[fn_name] + [ci] * 5
                            + [ctypes.c_float, ci, ci, vp])
             fn.restype = ci
     return lib
+
+
+# --------------------------------------------------------------------------
+# packed rows: K8 (forward), K9 (dq), K10 (dk, dv)
+# --------------------------------------------------------------------------
+
+
+def flash_attention_packed_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 segments: torch.Tensor, scale: float, causal: bool = True,
+                                 window=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K8 (the function of
+    flash_attention.py:_fwd_seg_kernel): dense fp32 GQA scores masked to
+    causal (window) pairs of equal nonzero segment ids, a softmax whose max is
+    floored at -5e29, then (o [B, H, T, dh] in q's dtype, lse [B, H, T] fp32).
+    A padding row gets o = 0 and lse = -1e30. Shapes as
+    `flash_attention_packed`."""
+    B, H, T, dh = q.shape
+    s = _gqa_scores(q, k, scale, causal, window, segments)
+    m = s.amax(-1, keepdim=True)
+    m_safe = m.clamp_min(NEG_INF / 2)
+    probs = torch.exp(s - m_safe)
+    denom = probs.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bgrij,bgjd->bgrid", probs / denom, v.float())
+    lse = torch.where(m <= NEG_INF / 2, torch.full_like(m, NEG_INF), m_safe + denom.log())
+    return o.reshape(B, H, T, dh).to(q.dtype), lse.reshape(B, H, T)
+
+
+def flash_attention_packed_backward_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, segments: torch.Tensor, scale: float,
+    causal: bool, window, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K9 and K10: `flash_attention_backward_plain`
+    with the segment mask and P = where(lse > -5e29, exp(s - lse), 0)
+    (flash_attention.py:899,945), so padding rows and keys get zero
+    gradients."""
+    return _flash_backward_plain(q, k, v, scale, causal, window, lse, row_delta(o, do), do,
+                                 segments)
+
+
+def _seg_check(what: str, q, segments) -> torch.Tensor:
+    """segments [B, T] of integers on q's device → contiguous int32."""
+    B, _, T, _ = q.shape
+    if segments.shape != (B, T) or segments.dtype.is_floating_point or segments.is_complex():
+        raise ValueError(f"{what}: segments must be [{B}, {T}] integers")
+    if segments.device != q.device:
+        raise ValueError(f"{what}: segments must be on {q.device}")
+    return segments.to(torch.int32).contiguous()
+
+
+def _ranges_check(what: str, q, ranges) -> torch.Tensor:
+    """Tile ranges [B, ceil(T / 64), 2] int32 on q's device → contiguous."""
+    B, _, T, _ = q.shape
+    if (ranges.shape != (B, -(-T // 64), 2) or ranges.dtype != torch.int32
+            or ranges.device != q.device):
+        raise ValueError(f"{what}: ranges must be [{B}, ceil({T} / 64), 2] int32 on {q.device}")
+    return ranges.contiguous()
+
+
+def seg_tile_ranges(segments: torch.Tensor) -> torch.Tensor:
+    """[B, T] int32 segment ids → [B, ceil(T / 64), 2] int32, the [min, max]
+    id of each 64-row tile: the pre-pass from which K8-K10 skip tile pairs
+    whose ranges do not overlap (_seg_overlap)."""
+    B, T = segments.shape
+    n = -(-T // 64)
+    pad = n * 64 - T
+    lo = torch.nn.functional.pad(segments, (0, pad), value=2**31 - 1).view(B, n, 64).amin(-1)
+    hi = torch.nn.functional.pad(segments, (0, pad), value=-2**31).view(B, n, 64).amax(-1)
+    return torch.stack((lo, hi), -1).to(torch.int32).contiguous()
+
+
+def _k8_launch(q, k, v, seg, ranges, scale, causal, window):
+    """K8 → (o [B, T, H, dh], lse [B, H, T] fp32); seg [B, T] int32 and its
+    tile ranges on the card."""
+    what = "flash_attention_packed"
+    _flash_check(what, q, k, v, window)
+    B, H, T, dh = q.shape
+    qt, kt, vt = _bthd(what, (q, k, v))
+    ranges = _ranges_check(what, q, ranges)
+    o = torch.empty((B, T, H, dh), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    err = _flash_lib("flash_fwd").flash_seg_fwd(
+        _DTYPES[q.dtype], qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), seg.data_ptr(),
+        ranges.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, k.shape[1], T, dh, float(scale),
+        int(causal), int(window or 0), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+    flash_attention_packed.launches += 1
+    return o, lse
+
+
+class FlashAttentionPacked(torch.autograd.Function):
+    """K8 with its backward. Forward: o [B, T, H, dh] and lse (not
+    differentiable); backward: `flash_attention_packed_backward` (K9 + K10 on
+    the card, the plain backward on the CPU). The segment ids and their tile
+    ranges are computed once (where the caller has not) and kept for the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segments, scale, causal, window, ranges):
+        what = "flash_attention_packed"
+        seg = _seg_check(what, q, segments)
+        if _device(what, q) == "cpu":
+            o, lse = flash_attention_packed_plain(q, k, v, seg, scale, causal, window)
+            o, ranges = o.transpose(1, 2).contiguous(), None
+        else:
+            ranges = seg_tile_ranges(seg) if ranges is None else ranges
+            o, lse = _k8_launch(q, k, v, seg, ranges, scale, causal, window)
+        ctx.save_for_backward(q, k, v, o, lse, seg, ranges)
+        ctx.args = (scale, causal, window)
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse, seg, ranges = ctx.saved_tensors
+        grads = flash_attention_packed_backward(q, k, v, seg, *ctx.args, o.transpose(1, 2), lse,
+                                                do.to(q.dtype).transpose(1, 2), ranges=ranges)
+        return (*grads, None, None, None, None, None)
+
+
+def flash_attention_packed(
+    q: torch.Tensor,  # [B, H, T, dh]
+    k: torch.Tensor,  # [B, G, T, dh], G dividing H
+    v: torch.Tensor,  # [B, G, T, dh]
+    segments: torch.Tensor,  # [B, T] integer segment ids, 0 = padding
+    scale: float,
+    causal: bool = True,
+    window=None,  # sliding window: key j is seen by query i only if j > i - window
+    ranges=None,  # seg_tile_ranges(segments), for callers that reuse one batch's ids
+) -> torch.Tensor:
+    """→ o [B, H, T, dh] in q's dtype, differentiable in q, k and v: the
+    counterpart of nemo_tpu/ops/flash_attention.py:flash_attention_packed
+    (1123). Query i sees key j only where segments[b, i] == segments[b, j] > 0
+    (and the causal and window masks allow it); a padding row gives 0.
+
+    CPU tensors take the plain version; CUDA tensors launch K8 (fp32, or bf16
+    at 16-byte aligned addresses; dh 64 or 128) or raise. Layouts as
+    `flash_attention`."""
+    o, _ = FlashAttentionPacked.apply(q, k, v, segments, float(scale), bool(causal), window,
+                                      ranges)
+    return o.transpose(1, 2)
+
+
+flash_attention_packed.launches = 0
+
+
+def flash_seg_dq(q, k, v, segments, scale, causal, window, lse, delta, do, ranges=None):
+    """K9 → dq [B, H, T, dh]; `delta` is `row_delta(o, do)`. Inputs as
+    `flash_attention_packed`, plus lse and delta [B, H, T] fp32, do [B, H, T,
+    dh] in q's dtype and optionally the tile ranges of the segments
+    (`seg_tile_ranges`). CPU tensors take the plain backward."""
+    if _device("flash_seg_dq", q) == "cpu":
+        return _flash_backward_plain(q, k, v, scale, causal, window, lse, delta, do, segments)[0]
+    (dq,) = _flash_bwd_launch("flash_seg_bwd_dq", q, k, v, scale, causal, window, lse, delta, do,
+                              segments, ranges)
+    flash_seg_dq.launches += 1
+    return dq.transpose(1, 2)
+
+
+flash_seg_dq.launches = 0
+
+
+def flash_seg_dkv(q, k, v, segments, scale, causal, window, lse, delta, do, ranges=None):
+    """K10 → (dk, dv) [B, G, T, dh], each summed over the H/G query heads of
+    its kv head; arguments as `flash_seg_dq`. CPU tensors take the plain
+    backward."""
+    if _device("flash_seg_dkv", q) == "cpu":
+        return _flash_backward_plain(q, k, v, scale, causal, window, lse, delta, do,
+                                     segments)[1:]
+    dk, dv = _flash_bwd_launch("flash_seg_bwd_dkv", q, k, v, scale, causal, window, lse, delta,
+                               do, segments, ranges)
+    flash_seg_dkv.launches += 1
+    return dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+flash_seg_dkv.launches = 0
+
+
+def flash_attention_packed_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, segments: torch.Tensor, scale: float,
+    causal: bool, window, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, ranges=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of `flash_attention_packed` for the output cotangent do:
+    K9 and K10 for CUDA tensors, the plain backward for CPU tensors."""
+    if _device("flash_attention_packed_backward", q) == "cpu":
+        return flash_attention_packed_backward_plain(q, k, v, segments, scale, causal, window,
+                                                     o, lse, do)
+    args = (q, k, v, segments, scale, causal, window, lse, row_delta(o, do), do)
+    return (flash_seg_dq(*args, ranges=ranges), *flash_seg_dkv(*args, ranges=ranges))

@@ -21,9 +21,11 @@ from nemo_tpu_torch.models.asr.ctc_models import EncDecCTCModel  # noqa: E402
 from nemo_tpu_torch.models.asr.modules.conformer import RelPositionalEncoding  # noqa: E402
 from nemo_tpu_torch.interop.jax_params import model_variables  # noqa: E402
 from nemo_tpu_torch.ops.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_backward_plain, flash_attention_plain, flash_dkv, flash_dq,
-    relpos_flash_attention, relpos_flash_attention_backward_plain, relpos_flash_attention_plain,
-    relpos_flash_dkv, relpos_flash_dq, row_delta)
+    flash_attention, flash_attention_backward_plain, flash_attention_packed,
+    flash_attention_packed_backward_plain, flash_attention_packed_plain, flash_attention_plain,
+    flash_dkv, flash_dq, flash_seg_dkv, flash_seg_dq, relpos_flash_attention,
+    relpos_flash_attention_backward_plain, relpos_flash_attention_plain, relpos_flash_dkv,
+    relpos_flash_dq, row_delta, seg_tile_ranges)
 from nemo_tpu_torch.ops.subsampling_kernel import (  # noqa: E402
     fused_subsampling_x4, fused_subsampling_x4_plain)
 
@@ -318,4 +320,169 @@ def test_llm_train_step_launch_counts(cuda):
     got = (flash_attention.launches - launches[0], flash_dq.launches - launches[1],
            flash_dkv.launches - launches[2])
     assert got == (2 * cfg.num_layers, cfg.num_layers, cfg.num_layers)
+    assert math.isfinite(float(m["loss"])) and math.isfinite(float(m["grad_norm"]))
+
+
+# packed rows: K8 (forward), K9 (dq), K10 (dk, dv)
+def packed_segments(layout: str, T: int) -> torch.Tensor:
+    """[2, T] int32 segment ids: "packed", two rows of `pack_batch` over
+    lengths of the SFT data (a prompt of 64-1024 tokens and an answer of
+    8-128, and one eos); "mixed", a row with ids 1, 2, 1, 3 and a run of
+    padding in the middle and at the end, then a row of padding only;
+    "one", one segment over each whole row."""
+    from nemo_tpu_torch.data.packed_sequence import pack_batch
+
+    seg = torch.zeros(2, T, dtype=torch.int32)
+    if layout == "packed":
+        rng = np.random.RandomState(T)
+        lengths = rng.randint(64, 1025, 40) + rng.randint(8, 129, 40) + 1
+        seqs = [np.zeros(n, np.int32) for n in lengths]
+        rows = pack_batch(seqs, seqs, [np.ones(n, np.float32) for n in lengths], T)
+        seg = torch.from_numpy(rows["segment_ids"][:2].copy())
+    elif layout == "mixed":
+        cuts = [0, 3 * T // 20, 7 * T // 20, 9 * T // 20, 13 * T // 20, 19 * T // 20 - 5]
+        for sid, (lo, hi) in zip((1, 2, 0, 1, 3), zip(cuts, cuts[1:])):
+            seg[0, lo:hi] = sid
+    else:
+        seg[:] = 1
+    return seg
+
+
+PACKED_CASES = [(32, 8, 64, None), (32, 8, 64, 512), (12, 12, 128, None)]  # H, G, dh, window
+
+
+@pytest.mark.parametrize("dtype,tol,gtol,ntol", [(torch.float32, 2e-5, 1e-4, 1e-5),
+                                                 (torch.bfloat16, 2e-2, 3e-2, 1e-2)])
+@pytest.mark.parametrize("H,G,dh,window", PACKED_CASES)
+@pytest.mark.parametrize("layout", ["packed", "mixed", "one"])
+def test_packed_flash_kernels_match_plain(cuda, layout, H, G, dh, window, dtype, tol, gtol, ntol):
+    """K8 against the plain packed forward and K9, K10 against the plain
+    packed backward at B=2, S=2048, held row by row as K5-K7 are: padding
+    rows give exactly 0 in o and dq, padding keys exactly 0 in dk and dv;
+    with one segment per row K8, K9 and K10 give K5's, K6's and K7's bits."""
+    B, T, scale = 2, 2048, 1.0 / math.sqrt(dh)
+    g = torch.Generator().manual_seed(dh + (window or 0))
+    q, do = (torch.randn(B, T, H, dh, generator=g).to(cuda, dtype).transpose(1, 2)
+             for _ in range(2))
+    k, v = (torch.randn(B, T, G, dh, generator=g).to(cuda, dtype).transpose(1, 2)
+            for _ in range(2))
+    seg = packed_segments(layout, T).to(cuda)
+    launches = flash_attention_packed.launches, flash_seg_dq.launches, flash_seg_dkv.launches
+    o = flash_attention_packed(q, k, v, seg, scale, True, window)
+    o_ref, lse_ref = flash_attention_packed_plain(q, k, v, seg, scale, True, window)
+    _assert_rows_close(o, o_ref, tol, ntol, "o")
+    from nemo_tpu_torch.ops.flash_attention import _k8_launch
+    _, lse = _k8_launch(q, k, v, seg, seg_tile_ranges(seg), scale, True, window)
+    pad = seg == 0  # [B, T]
+    live = ~pad[:, None, :].expand(B, H, T)
+    torch.testing.assert_close(lse[live], lse_ref[live], atol=1e-4, rtol=1e-5)
+    assert bool((lse[~live] == -1e30).all()) and bool((o.transpose(1, 2)[pad] == 0).all())
+    args = (q, k, v, seg, scale, True, window, lse, row_delta(o, do), do)
+    out = (flash_seg_dq(*args), *flash_seg_dkv(*args))
+    torch.cuda.synchronize()
+    assert (flash_attention_packed.launches, flash_seg_dq.launches, flash_seg_dkv.launches) == (
+        launches[0] + 2, launches[1] + 1, launches[2] + 1)
+    ref = flash_attention_packed_backward_plain(q, k, v, seg, scale, True, window, o, lse, do)
+    for name, x, r in zip(("dq", "dk", "dv"), out, ref):
+        assert x.shape == r.shape and x.dtype == dtype, name
+        _assert_rows_close(x, r, gtol, ntol, name)
+        assert bool((x.transpose(1, 2)[pad] == 0).all()), f"{name}: padding is not exactly 0"
+    if layout == "one":  # the same kernels as K5-K7, bit for bit
+        from nemo_tpu_torch.ops.flash_attention import _k5_launch
+        o5, lse5 = _k5_launch(q, k, v, scale, True, window)
+        assert torch.equal(o.transpose(1, 2), o5) and torch.equal(lse, lse5)
+        args5 = (q, k, v, scale, True, window, lse5, row_delta(o, do), do)
+        for name, x, y in zip(("dq", "dk", "dv"), out, (flash_dq(*args5), *flash_dkv(*args5))):
+            assert torch.equal(x, y), name
+
+
+def test_packed_flash_output_is_differentiable_on_cuda(cuda):
+    """K8's output carries the autograd Function, and its backward launches
+    K9 and K10 once each."""
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 8, 256, 64, generator=g).to(cuda).requires_grad_()
+    k, v = (torch.randn(2, 2, 256, 64, generator=g).to(cuda).requires_grad_() for _ in range(2))
+    seg = packed_segments("mixed", 256).to(cuda)
+    o = flash_attention_packed(q, k, v, seg, 0.125)
+    assert type(o.grad_fn.next_functions[0][0]).__name__ == "FlashAttentionPackedBackward"
+    launches = flash_seg_dq.launches, flash_seg_dkv.launches
+    grads = torch.autograd.grad(o.square().sum(), (q, k, v))
+    assert all(torch.isfinite(x).all() and x.abs().sum() > 0 for x in grads)
+    assert (flash_seg_dq.launches, flash_seg_dkv.launches) == (launches[0] + 1, launches[1] + 1)
+
+
+def _packed_llm_batch(B, S, vocab, seed):
+    """A packed batch of random tokens: segments from `packed_segments`'s
+    "packed" rows cut to S, positions from 0 in each segment, loss on the
+    second half of each segment."""
+    from nemo_tpu_torch.data.packed_sequence import pack_batch
+
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(S // 8, S // 2, 6 * B)
+    seqs = [rng.randint(0, vocab, n).astype(np.int32) for n in lengths]
+    masks = [np.r_[np.zeros(n // 2), np.ones(n - n // 2)].astype(np.float32) for n in lengths]
+    rows = pack_batch(seqs, [rng.randint(0, vocab, n).astype(np.int32) for n in lengths], masks,
+                      S)
+    return {key: torch.from_numpy(val[:B].copy()) for key, val in rows.items()}
+
+
+def test_packed_llm_gradients_on_cuda_match_cpu(cuda):
+    """The packed SFT loss of a 2-layer model at Llama-3.2-1B's width (32
+    heads over 8, hidden 2048, FFN 8192, llama3 RoPE; the vocab cut to 8192),
+    fp32, B=2 x S=256, flash backend and full remat: on the card (K8-K10)
+    against the CPU (plain versions), the loss within 1e-5 relative and every
+    gradient within 1e-4 of its leaf's max-abs plus 1e-6."""
+    from nemo_tpu_torch.models.llm.config import llama32_1b
+    from nemo_tpu_torch.models.llm.train import GPTTrainModule
+
+    cfg = llama32_1b(num_layers=2, vocab_size=8192, seq_length=256, compute_dtype="float32",
+                     attention_backend="flash", remat="full")
+    batch = _packed_llm_batch(2, 256, cfg.vocab_size, seed=5)
+    cpu = GPTTrainModule(cfg, device="cpu", seed=0)
+    card = GPTTrainModule(cfg, device=cuda, seed=0)
+    card.model.load_state_dict(cpu.model.state_dict())
+    launches = flash_attention_packed.launches, flash_seg_dq.launches, flash_seg_dkv.launches
+    out = {}
+    for name, mod in (("cpu", cpu), ("cuda", card)):
+        b = {key: val.to(mod.device) for key, val in batch.items()}
+        loss = mod.loss(b["tokens"], b["labels"], b["loss_mask"], positions=b["positions"],
+                        segment_ids=b["segment_ids"])
+        grads = torch.autograd.grad(loss, mod.params)
+        out[name] = (float(loss.detach()), [x.cpu() for x in grads])
+    assert (flash_attention_packed.launches - launches[0], flash_seg_dq.launches - launches[1],
+            flash_seg_dkv.launches - launches[2]) == (4, 2, 2)
+    (loss, grads), (ref_loss, ref_grads) = out["cuda"], out["cpu"]
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    for (name, _), x, r in zip(cpu.model.named_parameters(), grads, ref_grads):
+        torch.testing.assert_close(x, r, rtol=0, atol=1e-4 * float(r.abs().max()) + 1e-6,
+                                   msg=name)
+
+
+def test_packed_llm_train_step_launch_counts(cuda, monkeypatch):
+    """One packed train step of a tiny Llama-style model (2 layers, 8 heads
+    of 64 over 2 kv heads, bf16, flash, full remat) on the card: K8 launches
+    twice a layer, K9 and K10 once, K5-K7 never; the segments' tile ranges
+    are computed once for the step; the loss is finite."""
+    from nemo_tpu_torch.models.llm import gpt
+    from nemo_tpu_torch.models.llm.config import tiny_test
+    from nemo_tpu_torch.models.llm.train import GPTTrainModule
+
+    calls = []
+    monkeypatch.setattr(gpt, "seg_tile_ranges",
+                        lambda seg: calls.append(seg) or seg_tile_ranges(seg))
+
+    cfg = tiny_test(hidden_size=512, num_attention_heads=8, num_query_groups=2, seq_length=256,
+                    compute_dtype="bfloat16", attention_backend="flash", remat="full",
+                    share_embeddings_and_output_weights=True, rope_scaling="llama3")
+    mod = GPTTrainModule(cfg, device=cuda, seed=0)
+    batch = _packed_llm_batch(2, 256, cfg.vocab_size, seed=1)
+    counters = (flash_attention_packed, flash_seg_dq, flash_seg_dkv, flash_attention, flash_dq,
+                flash_dkv)
+    launches = [fn.launches for fn in counters]
+    m = mod.train_step(batch)
+    torch.cuda.synchronize()
+    got = tuple(fn.launches - n for fn, n in zip(counters, launches))
+    L = cfg.num_layers
+    assert got == (2 * L, L, L, 0, 0, 0)
+    assert len(calls) == 1
     assert math.isfinite(float(m["loss"])) and math.isfinite(float(m["grad_norm"]))
