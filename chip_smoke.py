@@ -4,12 +4,16 @@ Conformer-Large CTC tone calibration (training) and then transcription,
 through the four hand-written kernels K1-K4, as bench.py's primary line runs
 them; then Llama-3.2-1B training through the causal GQA flash kernels K5-K7;
 then packed full-parameter SFT of Llama-3.2-1B through the segment-masked
-flash kernels K8-K10.
+flash kernels K8-K10; then context-parallel (ring) training of Llama-3.2-1B
+at 16,384 tokens through the position-masked flash kernels K11-K13.
 
     python3 chip_smoke.py            # from the repository root; needs one CUDA card
     python3 chip_smoke.py --profile  # and torch.profiler breakdowns of one batch,
-                                     # of calibration steps, of LLM training steps
-                                     # and of SFT steps
+                                     # of calibration steps, of LLM training steps,
+                                     # of SFT steps and of CP training steps
+    torchrun --nproc-per-node 2 chip_smoke.py --cp-processes
+                                     # only CP training over processes, one a card
+                                     # (NCCL), against every rank in one process
 
 Phases, each printing a line; any failure raises and exits non-zero:
 
@@ -75,11 +79,32 @@ Phases, each printing a line; any failure raises and exits non-zero:
    and over non-padding tokens, MFU, peak memory, the step-0 loss in [ln V,
    ln V + 1]; K8 32, K9 16 and K10 16 launches a step, none of K1-K7; then
    5 more steps timed on batches from the middle of the epoch (packing puts
-   the longest examples first, so the run's batches hold fewer segments).
+   the longest examples first, so the run's batches hold fewer segments);
+15. K11, K12 and K13, the position-masked flash forward and backward,
+   against their plain versions (group by group of heads) at one rank's
+   shape of the CP path, B=1, Tl=8,192 (32 heads over 8 at dh 64; 12 over
+   12 at dh 128), fp32 and bf16, the backward given a nonzero lse
+   cotangent, on five layouts: positions 0 .. Tl-1 (K5-K7's bits), rank 0's
+   diagonal and off-diagonal ring steps of the zig-zag cp 2 layout (rows
+   that keep no key exactly o = 0, lse = -1e30, dq = 0), the diagonal with
+   a window of 512, and flash_attention(q_offset=Tl/2); then the times of
+   each ring step beside K5-K7 at S=Tl, the plain versions and SDPA given
+   the positions' boolean mask;
+16. ring attention (LocalRing, every rank in one process) at cp 2 and cp 4,
+   S=16,384, B=1, 32 heads over 8, fp32 and bf16, against causal attention
+   over the un-permuted sequence: K5-K7 on every head and the plain version
+   on the first kv group; o and the gradients row by row;
+17. CP training, this slice's path: the 2-layer fp32 check of phase 10 at
+   cp 2 (K11-K13, card against CPU); then `GPTTrainModule.train_step` on
+   Llama-3.2-1B (full width and depth, bf16, flash, full remat, AdamW) at
+   S=16,384, cp 2, every rank in one process, B=1, seed 0: the first
+   batch's loss within 2e-3 relative of cp 1 (K5-K7) on the same weights,
+   2 warm-up and 20 timed steps: tokens/s, ms/step, MFU, peak memory; K11
+   128, K12 and K13 64 launches a step, none of K1-K10.
 
 With --profile, one more batch of the transcription path, 6 more calibration
-steps, 2 more LLM training steps and 2 more SFT steps run under
-torch.profiler, and their device time by kernel and the card's busy share of
+steps, 2 more LLM training steps, 2 more SFT steps and 2 more CP training
+steps run under torch.profiler, and their device time by kernel and the card's busy share of
 the wall time are printed. It ends with a JSON line of the kernels and then
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 TF32 is off for the comparisons. Nothing of JAX or `nemo_tpu` is imported.
@@ -88,6 +113,7 @@ TF32 is off for the comparisons. Nothing of JAX or `nemo_tpu` is imported.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import math
@@ -120,9 +146,12 @@ SFT_MID = 6  # SFT steps timed again at the middle of the epoch, the first a war
 LLM_LOSS_BAND = (0.0, 1.0)
 # kinds of device kernels in an LLM training step, by a piece of their names
 LLM_KERNEL_KINDS = (
-    ("K8 packed flash forward", ("fwd_kernel<64, true>",)),
-    ("K9 packed flash dq", ("dq_kernel<64, true>",)),
-    ("K10 packed flash dk/dv", ("dkv_kernel<64, true>",)),
+    ("K8 packed flash forward", ("fwd_kernel<64, 1>",)),
+    ("K9 packed flash dq", ("dq_kernel<64, 1>",)),
+    ("K10 packed flash dk/dv", ("dkv_kernel<64, 1>",)),
+    ("K11 positions flash forward", ("fwd_kernel<64, 2>",)),
+    ("K12 positions flash dq", ("dq_kernel<64, 2>",)),
+    ("K13 positions flash dk/dv", ("dkv_kernel<64, 2>",)),
     ("K5 flash forward", ("fwd_kernel<",)), ("K6 flash dq", ("dq_kernel<",)),
     ("K7 flash dk/dv", ("dkv_kernel<",)), ("cuBLAS GEMM", ("nvjet", "gemm", "cutlass", "sm90_")),
     ("optimizer (foreach)", ("multi_tensor",)), ("reductions", ("reduce_kernel",)),
@@ -712,15 +741,17 @@ def _llm_cfg(**kw):
                          "attention_backend": "flash", "remat": "full", **kw})
 
 
-def phase_llm_grad_exactness() -> None:
+def phase_llm_grad_exactness(cp_size: int = 1) -> None:
     """fp32 loss and gradients of a 2-layer model at Llama-3.2-1B's width
     (hidden 2048, 32 heads over 8, FFN 8192, llama3 RoPE; the vocab cut to
     8192 to keep the CPU side cheap), B=1 x S=256, on the card (K5-K7 under
-    full remat) against the CPU (plain versions): the loss within 1e-5
+    full remat; with cp_size 2 the ring over K11-K13, every rank in one
+    process) against the CPU (plain versions): the loss within 1e-5
     relative, every gradient within 1e-4 of its leaf's max-abs plus 1e-6."""
     from nemo_tpu_torch.models.llm.train import GPTTrainModule
 
-    cfg = _llm_cfg(num_layers=2, vocab_size=8192, seq_length=256, compute_dtype="float32")
+    cfg = _llm_cfg(num_layers=2, vocab_size=8192, seq_length=256, compute_dtype="float32",
+                   cp_size=cp_size)
     rng = np.random.RandomState(3)
     tokens, labels = (torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, 256)))
                       for _ in range(2))
@@ -741,8 +772,9 @@ def phase_llm_grad_exactness() -> None:
         if not torch.isfinite(g).all() or err > tol:
             bad.append(pname)
     rel = abs(loss - ref_loss) / abs(ref_loss)
+    kernels = "K5-K7" if cp_size == 1 else f"cp {cp_size}, K11-K13"
     log(f"LLM fp32, 2 layers at Llama-3.2-1B width, vocab cut to {cfg.vocab_size}, B=1 x S=256, "
-        f"cuda (K5-K7, remat full) vs cpu (plain): loss {loss:.6f} vs {ref_loss:.6f} "
+        f"cuda ({kernels}, remat full) vs cpu (plain): loss {loss:.6f} vs {ref_loss:.6f} "
         f"(rel {rel:.2e}, tolerance 1e-5); {len(ref_grads)} gradients, worst max_abs_err = "
         f"{worst:.3f} of its tolerance (1e-4 of the leaf's max-abs + 1e-6)")
     if rel > 1e-5 or bad:
@@ -854,7 +886,8 @@ def phase_llm_training(counters: dict, profile: bool) -> dict:
     return launches
 
 
-def profile_llm(mod, batches, what: str = "LLM training") -> None:
+def profile_llm(mod, batches, what: str = "LLM training",
+                shape: str = f"B={LLM_B} x S={LLM_S}") -> None:
     """Two more training steps under torch.profiler (device activity only):
     device time by kernel, the step's wall and kernel time, and the card's
     idle share."""
@@ -877,7 +910,7 @@ def profile_llm(mod, batches, what: str = "LLM training") -> None:
         groups[kind] = groups.get(kind, 0.0) + e.self_device_time_total / 1e3 / len(batches)
     log(f"profile, {what} step by kind: " + ", ".join(
         f"{k} {v:.2f} ms" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
-    log(f"profile, {what} step (Llama-3.2-1B, B={LLM_B} x S={LLM_S}): wall {wall_ms:.2f} "
+    log(f"profile, {what} step (Llama-3.2-1B, {shape}): wall {wall_ms:.2f} "
         f"ms, kernels {busy_ms:.2f} ms in {len(kernels) / len(batches):.0f} device operations, "
         f"card idle {100 - 100 * busy_ms / wall_ms:.1f} % of the wall time")
 
@@ -1244,16 +1277,410 @@ def phase_sft(counters: dict, dm, batches, shape: dict, mid, mid_shape: dict,
     return launches
 
 
+# ------------------------------------------------------------ context parallelism
+CP_S, CP_B = 16384, 1  # the long-context recipes' 16k with cp 2 (recipes.py:334,345,470)
+
+
+def position_layouts(Tl: int) -> dict:
+    """One ring step's (qpos, kpos, window, q_offset) at Tl rows a rank, on
+    the card: "arange" (0 .. Tl-1 both sides: K5-K7's function), "diagonal"
+    (rank 0 of the zig-zag cp 2 layout of 2 Tl tokens against its own keys),
+    "off_diagonal" (rank 0's rows against rank 1's keys: the rows of chunk 0
+    keep no key, those of chunk 3 every key), "window" (the diagonal with a
+    window of 512), "offset" (flash_attention(q_offset=Tl/2): Tl/2 rows
+    after Tl/2 keys, the same Tl keys)."""
+    from nemo_tpu_torch.ops.ring_attention import zigzag_order
+
+    z = torch.from_numpy(zigzag_order(2 * Tl, 2).astype(np.int32)).cuda()
+    pos = torch.arange(Tl, dtype=torch.int32, device="cuda")
+    return {"arange": (pos, pos, None, 0), "diagonal": (z[:Tl], z[:Tl], None, 0),
+            "off_diagonal": (z[:Tl], z[Tl:], None, 0), "window": (z[:Tl], z[:Tl], 512, 0),
+            "offset": (pos[Tl // 2:], pos, None, Tl // 2)}
+
+
+def kept_pairs(qpos: torch.Tensor, kpos: torch.Tensor, window) -> float:
+    """The (query, key) pairs the position mask keeps: this input's work."""
+    keep = kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        keep &= kpos[None, :] > qpos[:, None] - window
+    return float(keep.sum())
+
+
+def plain_positions_by_group(q, k, v, qpos, kpos, scale, window, o, lse, do, dlse):
+    """The plain forward (o, lse) and backward (dq, dk, dv) of the positions
+    kernels, one kv group of heads at a time (the fp32 scores of every head
+    at Tl = 8,192 would take 8.6 GB), joined over the groups."""
+    from nemo_tpu_torch.ops.flash_attention import (flash_attention_positions_backward_plain,
+                                                    flash_attention_positions_plain)
+
+    G = k.shape[1]
+    rep = q.shape[1] // G
+    outs = []
+    for g in range(G):
+        hq, hk = slice(g * rep, (g + 1) * rep), slice(g, g + 1)
+        fwd = flash_attention_positions_plain(q[:, hq], k[:, hk], v[:, hk], qpos, kpos, scale,
+                                              True, window)
+        bwd = flash_attention_positions_backward_plain(
+            q[:, hq], k[:, hk], v[:, hk], qpos, kpos, scale, True, window, o[:, hq], lse[:, hq],
+            do[:, hq], dlse[:, hq])
+        outs.append((*fwd, *bwd))
+    return [torch.cat(parts, 1) for parts in zip(*outs)]
+
+
+def check_k11_k13(what: str, q, k, v, do, dlse, qpos, kpos, window, q_offset: int):
+    """K11 (through flash_attention_positions, or flash_attention with
+    q_offset where it is given), K12 and K13 given the lse cotangent `dlse`
+    on one input against the plain versions, held row by row as K5-K7 are;
+    rows that keep no key must give o = 0, lse = -1e30 and dq = 0 exactly.
+    Returns o, lse, (dq, dk, dv) and the max abs errors of K11, K12, K13."""
+    from nemo_tpu_torch.ops.flash_attention import (_k11_launch, flash_attention,
+                                                    flash_attention_positions, flash_pos_dkv,
+                                                    flash_pos_dq, pos_delta)
+
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    tol, gtol, ntol = ((1e-4, 1e-4, 1e-5) if q.dtype == torch.float32 else (2e-2, 3e-2, 1e-2))
+    if q_offset:
+        o = flash_attention(q, k, v, scale, True, window, q_offset=q_offset)
+    else:
+        o, _ = flash_attention_positions(q, k, v, qpos, kpos, scale, True, window)
+    _, lse = _k11_launch(q, k, v, qpos, kpos, scale, True, window)
+    args = (q, k, v, qpos, kpos, scale, True, window, lse, pos_delta(o, do, dlse), do)
+    out = (flash_pos_dq(*args), *flash_pos_dkv(*args))
+    o_ref, lse_ref, *ref = plain_positions_by_group(q, k, v, qpos, kpos, scale, window, o, lse,
+                                                    do, dlse)
+    torch.cuda.synchronize()
+    err11 = compare_rows(f"K11 {what}", o, o_ref, tol, ntol)
+    dead = (kpos[None, :] > qpos[:, None]).all(-1)  # rows that keep no key
+    compare(f"K11 {what} lse", lse[:, :, ~dead], lse_ref[:, :, ~dead], 1e-3, 1e-4)
+    if not (bool((o[:, :, dead] == 0).all()) and bool((lse[:, :, dead] == -1e30).all())
+            and bool((out[0][:, :, dead] == 0).all())):
+        raise AssertionError(f"K11-K13 {what}: a row with no key is not o = 0, lse = -1e30, "
+                             f"dq = 0")
+    errs = [compare_rows(f"K{12 if name == 'dq' else 13} {what} {name}", x, r, gtol, ntol)
+            for name, x, r in zip(("dq", "dk", "dv"), out, ref)]
+    return o, lse, out, [err11, errs[0], max(errs[1:])], int(dead.sum())
+
+
+def phase_k11_k13(gen: torch.Generator):
+    """K11, K12 and K13 against their plain versions at one rank's shape of
+    the CP path, B=1 and Tl=8,192 rows (32 heads over 8 at dh 64; 12 over 12
+    at dh 128, GPT-551M's head), fp32 and bf16, on the layouts of
+    `position_layouts`, the backward given a nonzero lse cotangent; at
+    "arange" K5-K7's bits. Then the times at 32 over 8, dh 64 of each ring
+    step of rank 0 (diagonal, off-diagonal) beside K5-K7 at S = Tl, the plain
+    versions (group by group) and SDPA given the boolean mask the positions
+    make."""
+    from nemo_tpu_torch.ops.flash_attention import (
+        _k11_launch, _k5_launch, flash_attention_positions_backward_plain,
+        flash_attention_positions_plain, flash_dkv, flash_dq, flash_pos_dkv, flash_pos_dq,
+        pos_delta, pos_tile_ranges)
+
+    Tl = CP_S // 2
+    layouts = position_layouts(Tl)
+    rows = [{"name": name, "route": "cuda", "source": f"nemo_tpu_torch/csrc/{src}.cu",
+             "replaces": f"nemo_tpu/ops/flash_attention.py:{line}"}
+            for name, src, line in (("flash_attention_positions", "flash_fwd", 489),
+                                    ("flash_pos_dq", "flash_bwd", 532),
+                                    ("flash_pos_dkv", "flash_bwd", 569))]
+    errs = [0.0, 0.0, 0.0]  # K11, K12, K13: worst bf16 max abs error
+    for (H, G, dh), dtype, name in ((c, d, n) for c in ((32, 8, 64), (12, 12, 128))
+                                    for d in (torch.float32, torch.bfloat16) for n in layouts):
+        qpos, kpos, window, q_offset = layouts[name]
+        q, k, v, do = _gqa_inputs(gen, CP_B, H, G, Tl, dh, dtype)
+        if q_offset:
+            q, do = q[:, :, q_offset:], do[:, :, q_offset:]
+        dlse = torch.randn(CP_B, H, len(qpos), generator=gen).cuda()
+        what = f"{str(dtype)[6:]} B={CP_B} H={H} G={G} dh={dh} Tl={Tl} {name}"
+        o, lse, out, err, n_dead = check_k11_k13(what, q, k, v, do, dlse, qpos, kpos, window,
+                                                 q_offset)
+        if name == "arange":  # K5-K7 step for step
+            o5, lse5 = _k5_launch(q, k, v, 1.0 / math.sqrt(dh), True, window)
+            args5 = (q, k, v, 1.0 / math.sqrt(dh), True, window, lse5, pos_delta(o, do, dlse), do)
+            same = [torch.equal(o.transpose(1, 2), o5), torch.equal(lse, lse5)] + [
+                torch.equal(x, y) for x, y in zip(out, (flash_dq(*args5), *flash_dkv(*args5)))]
+            log(f"K11-K13 {what}: equal to K5-K7 bit for bit: {all(same)}")
+            if not all(same):
+                raise AssertionError(f"K11-K13 {what}: not K5-K7's bits ({same})")
+        if name == "off_diagonal":
+            log(f"K11-K13 {what}: {n_dead} of {len(qpos)} rows keep no key: o, lse, dq exact")
+        if dtype == torch.bfloat16:
+            errs = [max(a, b) for a, b in zip(errs, err)]
+        del q, k, v, do, o, lse, out
+
+    H, G, dh = 32, 8, 64
+    scale = 1.0 / math.sqrt(dh)
+    steps = {name: layouts[name][:2] for name in ("diagonal", "off_diagonal")}
+    for name, (qpos, kpos) in steps.items():
+        qr, kr = pos_tile_ranges(qpos).cpu(), pos_tile_ranges(kpos).cpu()
+        n = Tl // 64
+        active = ((kr[None, :, 0] <= qr[:, None, 1])).sum()
+        whole = ((kr[None, :, 1] <= qr[:, None, 0])).sum()
+        log(f"K11-K13 ring step {name} (rank 0 of cp 2, Tl={Tl}): the pre-pass leaves "
+            f"{int(active)} of {n * n} tile pairs to visit, {int(whole)} of them without an "
+            f"element mask; {kept_pairs(qpos, kpos, None) / Tl ** 2:.4f} of the pairs kept")
+    results = {}  # (dtype, step) → [ms K11, K12, K13], [plain fwd, bwd], [lib fwd, bwd], bounds
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = _gqa_inputs(gen, CP_B, H, G, Tl, dh, dtype)
+        dlse = torch.randn(CP_B, H, Tl, generator=gen).cuda()
+        fast = dtype == torch.bfloat16
+        n_it = 20 if fast else 3
+        dname = str(dtype)[6:]
+        o5, lse5 = _k5_launch(q, k, v, scale, True, None)
+        args5 = (q, k, v, scale, True, None, lse5, pos_delta(o5.transpose(1, 2), do), do)
+        ms5 = [cuda_ms(lambda: _k5_launch(q, k, v, scale, True, None), iters=n_it),
+               cuda_ms(lambda: flash_dq(*args5), iters=n_it),
+               cuda_ms(lambda: flash_dkv(*args5), iters=n_it)]
+        del o5, lse5, args5
+        elt = q.element_size()
+        bq, bk = CP_B * Tl * H * dh, CP_B * Tl * G * dh
+        rows_bytes, pos_bytes = 4 * CP_B * H * Tl, 8 * Tl
+        for step, (qpos, kpos) in steps.items():
+            ranges = (pos_tile_ranges(qpos), pos_tile_ranges(kpos))
+            o, lse = _k11_launch(q, k, v, qpos, kpos, scale, True, None, ranges)
+            o = o.transpose(1, 2)
+            args = (q, k, v, qpos, kpos, scale, True, None, lse, pos_delta(o, do, dlse), do)
+            ms = [cuda_ms(lambda: _k11_launch(q, k, v, qpos, kpos, scale, True, None, ranges),
+                          iters=n_it),
+                  cuda_ms(lambda: flash_pos_dq(*args, ranges=ranges), iters=n_it),
+                  cuda_ms(lambda: flash_pos_dkv(*args, ranges=ranges), iters=n_it)]
+            hs = [slice(g * H // G, (g + 1) * H // G) for g in range(G)]
+            plain_fwd = cuda_ms(lambda: [flash_attention_positions_plain(
+                q[:, h], k[:, g:g + 1], v[:, g:g + 1], qpos, kpos, scale)
+                for g, h in enumerate(hs)], iters=2)
+            plain_bwd = cuda_ms(lambda: [flash_attention_positions_backward_plain(
+                q[:, h], k[:, g:g + 1], v[:, g:g + 1], qpos, kpos, scale, True, None, o[:, h],
+                lse[:, h], do[:, h], dlse[:, h]) for g, h in enumerate(hs)], iters=2)
+            # SDPA given the boolean mask of the positions; a row that keeps no key
+            # sees its own position's key index instead, since SDPA gives NaN there
+            mask = kpos[None, :] <= qpos[:, None]
+            mask |= torch.eye(Tl, dtype=torch.bool, device="cuda") & ~mask.any(-1, keepdim=True)
+            ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                ql, kl, vl, attn_mask=mask, scale=scale, enable_gqa=True)
+            lib_fwd = cuda_ms(sdpa, iters=n_it)
+            o_lib = sdpa()
+            lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do,
+                                                          retain_graph=True),
+                              iters=10 if fast else 3)
+            del o_lib, ql, kl, vl, mask
+            p = H * CP_B * kept_pairs(qpos, kpos, None)
+            bounds = [
+                bound(elt * (2 * bq + 2 * bk) + rows_bytes + pos_bytes, 4 * dh * p, dtype),
+                bound(elt * (3 * bq + 2 * bk) + 2 * rows_bytes + pos_bytes, 6 * dh * p, dtype),
+                bound(elt * (2 * bq + 4 * bk) + 2 * rows_bytes + pos_bytes, 8 * dh * p, dtype)]
+            what = f"{dname} B={CP_B} H={H} G={G} dh={dh} Tl={Tl} ring step {step}"
+            log(f"SDPA {what}, [Tl, Tl] boolean mask: forward {lib_fwd:.4f} ms, backward "
+                f"{lib_bwd:.4f} ms; plain (group by group) forward {plain_fwd:.4f} ms, "
+                f"backward (dq, dk and dv) {plain_bwd:.4f} ms")
+            for i in range(3):
+                log(f"K{11 + i} {what}: kernel_ms={ms[i]:.4f} (K{5 + i} causal at S={Tl} "
+                    f"{ms5[i]:.4f}, {ms[i] / ms5[i]:.3f} of it) bound_ms={bounds[i][0]:.4f} "
+                    f"({bounds[i][1]})")
+            results[(dname, step)] = (ms, (plain_fwd, plain_bwd, plain_bwd),
+                                      (lib_fwd, lib_bwd, lib_bwd), bounds)
+            del o, lse, args
+        del q, k, v, do, dlse
+    # the kernels' line: bf16, the mean of the two steps, one launch of each a step a rank
+    for i, row in enumerate(rows):
+        pair = [results[("bfloat16", step)] for step in steps]
+        b = [r[3][i] for r in pair]
+        row.update(max_abs_err=errs[i], ms=sum(r[0][i] for r in pair) / 2,
+                   plain_ms=sum(r[1][i] for r in pair) / 2,
+                   library_ms=sum(r[2][i] for r in pair) / 2,
+                   bound_ms=sum(x[0] for x in b) / 2, bound_by=b[0][1])
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_ring(gen: torch.Generator) -> None:
+    """ring_flash_attention with every rank in one process (LocalRing) at cp
+    2 and cp 4 on the card, S = 16,384, B=1, 32 heads over 8, dh 64, fp32 and
+    bf16, against causal attention over the un-permuted sequence: K5-K7 (held
+    against their plain versions in phase 9) over every head, and the plain
+    version over the first kv group of heads; o and the gradients row by
+    row."""
+    from nemo_tpu_torch.ops.flash_attention import (flash_attention,
+                                                    flash_attention_backward_plain,
+                                                    flash_attention_plain)
+    from nemo_tpu_torch.ops.ring_attention import (LocalRing, ring_flash_attention,
+                                                   zigzag_order, zigzag_shard, zigzag_unshard)
+
+    H, G, dh = 32, 8, 64
+    scale = 1.0 / math.sqrt(dh)
+    for dtype in (torch.float32, torch.bfloat16):
+        tol, gtol, ntol = ((1e-4, 1e-4, 1e-5) if dtype == torch.float32 else (2e-2, 3e-2, 1e-2))
+        q, k, v, do = _gqa_inputs(gen, CP_B, H, G, CP_S, dh, dtype)
+        xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        o5 = flash_attention(*xs, scale)
+        ref5 = [o5.detach(), *torch.autograd.grad(o5, xs, do)]
+        del o5, xs
+        o_p, lse_p = flash_attention_plain(q[:, :4], k[:, :1], v[:, :1], scale)
+        ref_p = [o_p, *flash_attention_backward_plain(q[:, :4], k[:, :1], v[:, :1], scale, True,
+                                                      None, o_p, lse_p, do[:, :4])]
+        del lse_p
+        for cp in (2, 4):
+            Tl = CP_S // cp
+            zs = [zigzag_shard(x, cp, 2).view(CP_B, x.shape[1], cp, Tl, dh)
+                  .permute(2, 0, 1, 3, 4).contiguous().requires_grad_() for x in (q, k, v)]
+            qpos = torch.from_numpy(zigzag_order(CP_S, cp).astype(np.int32)).cuda().view(cp, Tl)
+            t0 = time.perf_counter()
+            o = ring_flash_attention(*zs, qpos, LocalRing(cp), scale=scale)
+            dz = zigzag_shard(do, cp, 2).view(CP_B, H, cp, Tl, dh).permute(2, 0, 1, 3, 4)
+            got = [o.detach(), *torch.autograd.grad(o, zs, dz)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = [zigzag_unshard(t.permute(1, 2, 0, 3, 4).reshape(CP_B, t.shape[2], CP_S, dh),
+                                  cp, 2) for t in got]
+            what = f"ring cp={cp} (LocalRing) {str(dtype)[6:]} B={CP_B} H={H} G={G} S={CP_S}"
+            log(f"{what}: forward and backward in {1e3 * wall:.1f} ms (first call)")
+            for name, x, r5, rp in zip(("o", "dq", "dk", "dv"), got, ref5, ref_p):
+                t = tol if name == "o" else gtol
+                compare_rows(f"{what} {name} vs K5-K7", x, r5, t, ntol)
+                compare_rows(f"{what} {name} vs plain (kv group 0)",
+                             x[:, :4] if name in ("o", "dq") else x[:, :1], rp, t, ntol)
+            del zs, o, got, dz
+        del q, k, v, do, ref5, ref_p
+    torch.cuda.empty_cache()
+
+
+def phase_cp_training(counters: dict, profile: bool) -> dict:
+    """This slice's path: context-parallel training of Llama-3.2-1B at S =
+    16,384, cp 2, every rank in one process (LocalRing), B=1: the loss of
+    the first batch against the same step without cp (K5-K7) on the same
+    weights, then 2 warm-up and 20 timed train steps; returns the launch
+    counts of the timed steps."""
+    from nemo_tpu_torch.llm.auto_configurator import model_flops_per_token
+    from nemo_tpu_torch.models.llm.train import GPTTrainModule
+
+    cfg = _llm_cfg(seq_length=CP_S, cp_size=2)
+    rng = np.random.RandomState(0)
+    batches = [{key: torch.from_numpy(rng.randint(0, cfg.vocab_size, (CP_B, CP_S))).cuda()
+                for key in ("tokens", "labels")} for _ in range(LLM_WARMUP + LLM_STEPS)]
+    first = (batches[0]["tokens"], batches[0]["labels"])
+    with torch.no_grad():
+        ref = float(GPTTrainModule(dataclasses.replace(cfg, cp_size=1), device="cuda",
+                                   seed=0).loss(*first))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mod = GPTTrainModule(cfg, device="cuda", seed=0)
+        loss0 = float(mod.loss(*first))
+    rel = abs(loss0 - ref) / abs(ref)
+    log(f"CP: Llama-3.2-1B built on the card from seed 0 at cp 2 (LocalRing) in "
+        f"{time.perf_counter() - t0:.1f} s; first batch's loss {loss0:.6f} at cp 2, {ref:.6f} at "
+        f"cp 1 (K5-K7) on the same weights: rel {rel:.2e} (tolerance 2e-3)")
+    if rel > 2e-3:
+        raise AssertionError(f"CP loss {loss0} against {ref} without cp")
+    metrics = [mod.train_step(b) for b in batches[:LLM_WARMUP]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    metrics += [mod.train_step(b) for b in batches[LLM_WARMUP:]]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    tok_s = LLM_STEPS * CP_B * CP_S / wall
+    mfu = model_flops_per_token(cfg) * tok_s / PEAK_FLOPS[torch.bfloat16]
+    log(f"main path, CP training: Llama-3.2-1B bf16, flash, remat full, AdamW, cp 2 (LocalRing, "
+        f"one card), B={CP_B} x S={CP_S}, {LLM_STEPS} timed steps after {LLM_WARMUP}: "
+        f"{tok_s:.1f} tokens/s, {1e3 * wall / LLM_STEPS:.2f} ms/step, MFU {100 * mfu:.2f} % of "
+        f"989 TFLOP/s ({model_flops_per_token(cfg):.4e} FLOPs/token), peak_mem={peak:.2f} GiB, "
+        f"loss {losses[0]:.4f} (step 0) → {losses[-1]:.4f} (step {len(losses) - 1}), grad_norm "
+        f"{norms[0]:.4f} → {norms[-1]:.4f}, launches {launches}")
+    if not all(map(math.isfinite, losses + norms)):
+        raise AssertionError(f"non-finite loss or grad norm: {losses} {norms}")
+    lo, hi = (math.log(cfg.vocab_size) + d for d in LLM_LOSS_BAND)
+    if not lo <= losses[0] <= hi:
+        raise AssertionError(f"step-0 loss {losses[0]:.4f} outside [{lo:.3f}, {hi:.3f}]")
+    L, cp = cfg.num_layers, cfg.cp_size
+    want = {key: 0 for key in counters}  # a launch a held rank a ring step; remat runs it twice
+    want.update(k11=2 * L * cp * cp * LLM_STEPS, k12=L * cp * cp * LLM_STEPS,
+                k13=L * cp * cp * LLM_STEPS)
+    if launches != want:
+        raise AssertionError(f"CP launch counts {launches}, expected {want}")
+    if profile:
+        profile_llm(mod, batches[:2], "CP training", f"cp 2, B={CP_B} x S={CP_S}")
+    return launches
+
+
+def cp_processes() -> int:
+    """The process-group form under torchrun (one process a card, NCCL):
+    Llama-3.2-1B at S = 16,384, cp = the number of processes, B=1, every rank
+    given the whole batch; 2 warm-up and 20 timed steps. Rank 0 first takes
+    the loss of the first batch with every rank in its own process
+    (LocalRing) on the same weights, and prints both."""
+    import torch.distributed as dist
+
+    from nemo_tpu_torch.llm.auto_configurator import model_flops_per_token
+    from nemo_tpu_torch.models.llm.train import GPTTrainModule
+    from nemo_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    dist.init_process_group("nccl", init_method="env://", world_size=world, rank=rank)
+    cfg = _llm_cfg(seq_length=CP_S, cp_size=world)
+    rng = np.random.RandomState(0)
+    batches = [{key: torch.from_numpy(rng.randint(0, cfg.vocab_size, (CP_B, CP_S))).cuda()
+                for key in ("tokens", "labels")} for _ in range(LLM_WARMUP + LLM_STEPS)]
+    local = None
+    if rank == 0:
+        with torch.no_grad():
+            local = float(GPTTrainModule(cfg, device="cuda", seed=0).loss(
+                batches[0]["tokens"], batches[0]["labels"]))
+        torch.cuda.empty_cache()
+    mod = GPTTrainModule(cfg, device="cuda", seed=0, mesh=make_mesh(MeshConfig(cp=world)))
+    metrics = [mod.train_step(b) for b in batches[:LLM_WARMUP]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    t0 = time.perf_counter()
+    metrics += [mod.train_step(b) for b in batches[LLM_WARMUP:]]
+    torch.cuda.synchronize()
+    dist.barrier()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(m["loss"]) for m in metrics]
+    tok_s = LLM_STEPS * CP_B * CP_S / wall
+    mfu = model_flops_per_token(cfg) * tok_s / (world * PEAK_FLOPS[torch.bfloat16])
+    if rank == 0:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             check=True).stdout.strip()
+        log(smi)
+        log(f"CP over processes: Llama-3.2-1B bf16, flash, remat full, AdamW, cp {world} "
+            f"(ProcessGroupRing, NCCL, {world} cards), B={CP_B} x S={CP_S}, {LLM_STEPS} timed "
+            f"steps after {LLM_WARMUP}: {1e3 * wall / LLM_STEPS:.2f} ms/step, {tok_s:.1f} "
+            f"tokens/s, MFU {100 * mfu:.2f} % of {world} x 989 TFLOP/s, peak_mem={peak:.2f} GiB "
+            f"on rank 0, loss {losses[0]:.6f} (step 0; {local:.6f} with every rank in one "
+            f"process, rel {abs(losses[0] - local) / abs(local):.2e}) → {losses[-1]:.4f}")
+        if abs(losses[0] - local) > 1e-4 * abs(local) or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"CP over processes: losses {losses}, one process {local}")
+    dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also profile one transcription batch, calibration steps and "
-                             "LLM training steps")
+                             "LLM, SFT and CP training steps")
+    parser.add_argument("--cp-processes", action="store_true",
+                        help="only the process-group form of CP training, one process a card: "
+                             "torchrun --nproc-per-node N chip_smoke.py --cp-processes")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this check runs on the GPU only", file=sys.stderr)
         return 1
+    if args.cp_processes:
+        return cp_processes()
     from nemo_tpu_torch.ops.flash_attention import flash_attention as k5
+    from nemo_tpu_torch.ops.flash_attention import flash_attention_positions as k11
+    from nemo_tpu_torch.ops.flash_attention import flash_pos_dkv as k13
+    from nemo_tpu_torch.ops.flash_attention import flash_pos_dq as k12
     from nemo_tpu_torch.ops.flash_attention import flash_attention_packed as k8
     from nemo_tpu_torch.ops.flash_attention import flash_seg_dkv as k10
     from nemo_tpu_torch.ops.flash_attention import flash_seg_dq as k9
@@ -1299,6 +1726,15 @@ def main() -> int:
     for row, key in zip(sft_rows, ("k8", "k9", "k10")):
         row["launches"] = sft_launches[key]
     rows += sft_rows
+    torch.cuda.empty_cache()
+    cp_rows = phase_k11_k13(gen)
+    phase_ring(gen)
+    phase_llm_grad_exactness(cp_size=2)
+    counters.update(k11=k11, k12=k12, k13=k13)
+    cp_launches = phase_cp_training(counters, args.profile)
+    for row, key in zip(cp_rows, ("k11", "k12", "k13")):
+        row["launches"] = cp_launches[key]
+    rows += cp_rows
     log(f"total: {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

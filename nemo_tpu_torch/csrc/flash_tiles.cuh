@@ -1,10 +1,12 @@
 // Tiles, masks and warp-level products shared by the causal GQA flash
-// attention kernels (flash_fwd.cu: K5, and K8 with segments; flash_bwd.cu:
-// K6, K7, and K9, K10 with segments).
+// attention kernels (flash_fwd.cu: K5, K8 with segments and K11 with
+// positions; flash_bwd.cu: K6, K7, their segment forms K9, K10 and their
+// position forms K12, K13).
 //
-// Layouts: q, o, dO, dq are [B, T, H, D] and k, v, dk, dv [B, T, G, D] (the
-// Linear outputs viewed per head; row stride H*D or G*D); query head h reads
-// kv head h*G/H; segment ids [B, T] int32. Tiles are 64 query rows by 64 keys.
+// Layouts: q, o, dO, dq are [B, Tq, H, D] and k, v, dk, dv [B, Tkv, G, D]
+// (the Linear outputs viewed per head; row stride H*D or G*D); query head h
+// reads kv head h*G/H; segment ids [B, T] int32; positions [Tq] and [Tkv]
+// int32, shared by the batch. Tiles are 64 query rows by 64 keys.
 
 #pragma once
 
@@ -20,92 +22,129 @@ constexpr int BQ = 64;
 constexpr int BKV = 64;
 constexpr float NEG = -1e30f;
 
-// The causal / sliding-window mask (window 0 = none) over T rows and keys:
-// nemo_tpu/ops/flash_attention.py:_mask_block, and the tile ranges of
-// _block_active and _needs_mask.
+// The causal / sliding-window mask (window 0 = none) over Tq rows and Tkv
+// keys, row i against key i: nemo_tpu/ops/flash_attention.py:_mask_block,
+// and the tile ranges of _block_active and _needs_mask. The position form
+// (K11-K13) builds it with causal = window = 0, so that it only bounds the
+// rows and keys, and masks by positions instead (Pairs<POS>).
 struct Mask {
-  int Tn, causal, window;
+  int Tq, Tkv, causal, window;
 
   __device__ __forceinline__ bool allowed(int i, int j) const {
-    return i < Tn && j < Tn && (!causal || j <= i) && (window <= 0 || j > i - window);
+    return i < Tq && j < Tkv && (!causal || j <= i) && (window <= 0 || j > i - window);
   }
   // the key tiles [lo, hi] that hold an unmasked pair for the query tile at i0
   __device__ __forceinline__ void kv_range(int i0, int& lo, int& hi) const {
-    const int n = (Tn + BKV - 1) / BKV;
+    const int n = (Tkv + BKV - 1) / BKV;
     hi = causal ? min((i0 + BQ - 1) / BKV, n - 1) : n - 1;
     lo = window > 0 ? max(i0 - window + 1, 0) / BKV : 0;
   }
   // the query tiles [lo, hi] that hold an unmasked pair for the key tile at j0
   __device__ __forceinline__ void q_range(int j0, int& lo, int& hi) const {
-    const int n = (Tn + BQ - 1) / BQ;
+    const int n = (Tq + BQ - 1) / BQ;
     lo = causal ? j0 / BQ : 0;
     hi = window > 0 ? min((j0 + BKV - 1 + window - 1) / BQ, n - 1) : n - 1;
   }
   // a tile pair with masked elements (a boundary tile, or one past the end)
   __device__ __forceinline__ bool edge(int i0, int j0) const {
     return (causal && j0 + BKV - 1 > i0) || (window > 0 && j0 <= i0 + BQ - 1 - window) ||
-           j0 + BKV > Tn || i0 + BQ > Tn;
+           j0 + BKV > Tkv || i0 + BQ > Tq;
   }
 };
 
 constexpr float NEG_HALF = NEG / 2;  // a running max at or below it: no key seen yet
 
-// Segments of packed rows (K8-K10): a pair (i, j) is kept only where both
-// tokens carry the same nonzero id (nemo_tpu/ops/flash_attention.py:
-// _seg_mask); id 0 is padding and sees nothing. `range` holds the [min, max]
-// id of each 64-row tile of the batch row (a pre-pass): a tile pair whose
-// ranges do not overlap holds no kept pair and is skipped (_seg_overlap,
-// sound for ids in any order), and one whose rows and keys are all of one
-// nonzero id needs no element mask for the segments. With SEG false (K5-K7)
-// every test folds to a constant and the kernels are those of K5-K7.
-template <bool SEG>
-struct Segments {
-  const int* ids;    // [T] of this batch row
-  const int* range;  // [ceil(T / 64)][2] of this batch row
-  int Tn;
+// What keeps a pair beyond Mask, the kernels' policy:
+// - PLAIN (K5-K7): nothing more; every test folds to a constant.
+// - SEG (K8-K10), packed rows: a pair (i, j) is kept only where both tokens
+//   carry the same nonzero id (nemo_tpu/ops/flash_attention.py:_seg_mask);
+//   id 0 is padding and sees nothing. The values are the batch row's ids,
+//   for the rows and the keys alike.
+// - POS (K11-K13), explicit positions: a pair is kept where kpos[j] <=
+//   qpos[i] (causal) and kpos[j] > qpos[i] - window (window > 0)
+//   (_pos_mask); the values are qpos [Tq] for the rows and kpos [Tkv] for
+//   the keys, in any order.
+// `qr` and `kr` hold the [min, max] value of each 64-row tile of the rows
+// and of the keys (a pre-pass). A tile pair is skipped where those ranges
+// show that it keeps no pair (_seg_overlap, _pos_active: sound for values
+// in any order), and needs no element mask where they show that it keeps
+// every pair.
+enum Mode { PLAIN = 0, SEG = 1, POS = 2 };
 
-  __device__ __forceinline__ int id(int t) const {
-    if constexpr (SEG) return t < Tn ? ids[t] : 0;
+template <int M>
+struct Pairs {
+  const int *qv, *kv;  // the rows' and the keys' values
+  const int *qr, *kr;  // [ceil(Tq / 64)][2], [ceil(Tkv / 64)][2]
+  int Tq, Tkv, causal, window;
+
+  __device__ __forceinline__ int qid(int t) const {
+    if constexpr (M != PLAIN) return t < Tq ? qv[t] : 0;
     return 1;
   }
+  __device__ __forceinline__ int kid(int t) const {
+    if constexpr (M != PLAIN) return t < Tkv ? kv[t] : 0;
+    return 1;
+  }
+  // the pair of a row with value qs and a key with value ks is kept
   __device__ __forceinline__ bool same(int qs, int ks) const {
-    if constexpr (SEG) return qs == ks && ks > 0;
+    if constexpr (M == SEG) return qs == ks && ks > 0;
+    if constexpr (M == POS) return (!causal || ks <= qs) && (window <= 0 || ks > qs - window);
     return true;
   }
   // the tile pair at (i0, j0) may hold a kept pair
   __device__ __forceinline__ bool active(int i0, int j0) const {
-    if constexpr (SEG) {
-      const int *a = range + 2 * (i0 / BQ), *b = range + 2 * (j0 / BKV);
-      return b[0] <= a[1] && b[1] >= a[0];
+    if constexpr (M != PLAIN) {
+      const int *a = qr + 2 * (i0 / BQ), *b = kr + 2 * (j0 / BKV);
+      if constexpr (M == SEG) return b[0] <= a[1] && b[1] >= a[0];
+      return (!causal || b[0] <= a[1]) && (window <= 0 || b[1] > a[0] - window);
     }
     return true;
   }
-  // every pair of the tile pair at (i0, j0) is of one nonzero segment
+  // every pair of the tile pair at (i0, j0) is kept
   __device__ __forceinline__ bool uniform(int i0, int j0) const {
-    if constexpr (SEG) {
-      const int *a = range + 2 * (i0 / BQ), *b = range + 2 * (j0 / BKV);
-      return a[0] > 0 && a[0] == a[1] && b[0] == b[1] && a[0] == b[0];
+    if constexpr (M != PLAIN) {
+      const int *a = qr + 2 * (i0 / BQ), *b = kr + 2 * (j0 / BKV);
+      if constexpr (M == SEG) return a[0] > 0 && a[0] == a[1] && b[0] == b[1] && a[0] == b[0];
+      return (!causal || b[1] <= a[0]) && (window <= 0 || b[0] > a[1] - window);
     }
     return true;
   }
 };
 
-// the segments of batch row b (seg [B, T], range [B, ceil(T / 64), 2]; both
-// null without segments)
-template <bool SEG>
-__device__ __forceinline__ Segments<SEG> segments_of(const int* seg, const int* range, int b,
-                                                     int Tn) {
-  if constexpr (SEG)
-    return {seg + (long long)b * Tn, range + 2LL * b * ((Tn + BQ - 1) / BQ), Tn};
-  return {nullptr, nullptr, Tn};
+// the policy of batch row b. SEG: vals = seg [B, Tq] (Tq = Tkv) and ranges
+// [B, ceil(T / 64), 2]; POS: vals = qpos, vals2 = kpos, ranges and ranges2
+// their tile ranges, shared by the batch; PLAIN: all null
+template <int M>
+__device__ __forceinline__ Pairs<M> pairs_of(const int* vals, const int* vals2,
+                                             const int* ranges, const int* ranges2, int b,
+                                             int Tq, int Tkv, int causal, int window) {
+  if constexpr (M == SEG) {
+    const int* ids = vals + (long long)b * Tq;
+    const int* range = ranges + 2LL * b * ((Tq + BQ - 1) / BQ);
+    return {ids, ids, range, range, Tq, Tkv, causal, window};
+  }
+  return {vals, vals2, ranges, ranges2, Tq, Tkv, causal, window};
 }
 
-// keys [j0, j0 + BKV) of a batch row's segment ids into shared memory
-// (0 past the end); nothing without segments
-template <bool SEG>
-__device__ __forceinline__ void stage_ids(int* dst, const Segments<SEG>& sg, int j0) {
-  if constexpr (SEG)
-    for (int idx = threadIdx.x; idx < BKV; idx += blockDim.x) dst[idx] = sg.id(j0 + idx);
+// the Mask a policy runs under: without its causal and window terms for
+// positions, which Pairs<POS> applies
+template <int M>
+__device__ __forceinline__ Mask mask_of(int Tq, int Tkv, int causal, int window) {
+  if constexpr (M == POS) return {Tq, Tkv, 0, 0};
+  return {Tq, Tkv, causal, window};
+}
+
+// keys [j0, j0 + BKV) (kid) or rows [i0, i0 + BQ) (qid) of a policy's values
+// into shared memory; nothing without one
+template <int M>
+__device__ __forceinline__ void stage_kids(int* dst, const Pairs<M>& pr, int j0) {
+  if constexpr (M != PLAIN)
+    for (int idx = threadIdx.x; idx < BKV; idx += blockDim.x) dst[idx] = pr.kid(j0 + idx);
+}
+template <int M>
+__device__ __forceinline__ void stage_qids(int* dst, const Pairs<M>& pr, int i0) {
+  if constexpr (M != PLAIN)
+    for (int idx = threadIdx.x; idx < BQ; idx += blockDim.x) dst[idx] = pr.qid(i0 + idx);
 }
 
 // --------------------------------------------------------- bf16 tensor-core tiles
@@ -249,10 +288,11 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float acc[][4], int 
 
 }  // namespace tc
 
-// head_dim in {64, 128}, B, H, G, T positive, H a multiple of G, window >= 0
-inline bool valid_shape(int B, int H, int G, int Tn, int head_dim, int window) {
-  return (head_dim == 64 || head_dim == 128) && B > 0 && H > 0 && G > 0 && Tn > 0 &&
-         H % G == 0 && window >= 0;
+// head_dim in {64, 128}, B, H, G, Tq, Tkv positive, H a multiple of G,
+// window >= 0
+inline bool valid_shape(int B, int H, int G, int Tq, int Tkv, int head_dim, int window) {
+  return (head_dim == 64 || head_dim == 128) && B > 0 && H > 0 && G > 0 && Tq > 0 &&
+         Tkv > 0 && H % G == 0 && window >= 0;
 }
 
 inline bool aligned16(const void* const* ptrs, int n) {

@@ -15,6 +15,13 @@ KV cache, S a multiple of 128), and the einsum path otherwise. Packed batches
 (SFT) carry per-token `positions` for RoPE and `segment_ids` (0 = padding):
 the flash branch then takes the packed kernels (K8 forward, K9/K10
 backward), the einsum path masks to pairs of one segment (gpt.py:408-410).
+With `cp_size > 1` attention takes ring attention over the context-parallel
+ranks (`ops/ring_attention.py`, the positions kernels K11-K13) under JAX's
+conditions (gpt.py:591-619) and refuses a batch that does not meet them
+(`GPTModel.uses_ring`); the ring holds every rank in this process
+(`LocalRing`, the default: the model sees the whole zig-zag-ordered
+sequence and cuts it into cp shards, as shard_map does) or one rank a
+process (`ProcessGroupRing`: the model sees its own shard).
 
 Parameter names mirror the JAX tree (`layers.3.attention.q_proj`,
 `final_norm.scale`, `embedding`), so `interop/jax_params.py` carries JAX
@@ -34,7 +41,8 @@ from torch.utils.checkpoint import checkpoint
 
 from nemo_tpu_torch.models.llm.config import GPTConfig
 from nemo_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_attention_packed, seg_tile_ranges)
+    flash_attention, flash_attention_packed, pos_tile_ranges, seg_tile_ranges)
+from nemo_tpu_torch.ops.ring_attention import LocalRing, ring_flash_attention
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -44,7 +52,7 @@ def check_supported(cfg: GPTConfig) -> None:
     selects a part of the JAX model that the port does not implement (MoE,
     MLA, MTP, softcapping, sinks, chunked or per-layer attention patterns,
     qk norms, sandwich norms, other position embeddings, dropout,
-    quantization, context parallelism, other remat policies, LayerNorm,
+    quantization, other remat policies, LayerNorm,
     biases, bidirectional attention, RoPE scalings other than llama3, MLPs
     other than SwiGLU)."""
     ok = {
@@ -68,7 +76,7 @@ def check_supported(cfg: GPTConfig) -> None:
         "hidden_dropout": not cfg.hidden_dropout,
         "attention_dropout": not cfg.attention_dropout,
         "quantization": cfg.quantization is None,
-        "cp_size": cfg.cp_size == 1,
+        "cp_size": cfg.cp_size >= 1,
         "remat": cfg.remat in ("full", "none"),
         "normalization": cfg.normalization == "RMSNorm",
         "layernorm_zero_centered_gamma": not cfg.layernorm_zero_centered_gamma,
@@ -197,11 +205,15 @@ class Dense(nn.Linear):
 
 class Attention(nn.Module):
     """q/k/v projections, RoPE, causal GQA attention (the flash kernels or the
-    einsum path), output projection (gpt.py:473)."""
+    einsum path), output projection (gpt.py:473). Ring attention over `ring`
+    is taken where the model hands in `pos_ranges`, the held ranks' tile
+    ranges of the positions, as it does exactly where it takes the ring
+    (`GPTModel.uses_ring`)."""
 
-    def __init__(self, cfg: GPTConfig):
+    def __init__(self, cfg: GPTConfig, ring=None):
         super().__init__()
         self.cfg = cfg
+        self.ring = ring  # the context-parallel ring (cp_size > 1), else None
         H, G, D, hidden = cfg.num_attention_heads, cfg.n_kv_heads, cfg.head_dim, cfg.hidden_size
         pdt = DTYPES[cfg.params_dtype]
         self.q_proj = Dense(hidden, H * D, (hidden, H, D), pdt)
@@ -220,7 +232,8 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 segment_ids: Optional[torch.Tensor] = None,
-                seg_ranges: Optional[torch.Tensor] = None) -> torch.Tensor:
+                seg_ranges: Optional[torch.Tensor] = None,
+                pos_ranges: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         B, S, _ = x.shape
         H, G, D = cfg.num_attention_heads, cfg.n_kv_heads, cfg.head_dim
@@ -228,7 +241,17 @@ class Attention(nn.Module):
         q = apply_rope(self.q_proj(x).view(B, S, H, D), positions, inv)
         k = apply_rope(self.k_proj(x).view(B, S, G, D), positions, inv)
         v = self.v_proj(x).view(B, S, G, D)
-        if cfg.attention_backend == "flash" and S % 128 == 0:
+        if pos_ranges is not None:  # the ring (GPTModel.uses_ring)
+            # the held ranks' shards [R, B, heads, Tl, D], as shard_map's split over "cp"
+            R = self.ring.held
+            Tl = S // R
+            qr, kr, vr = (t.view(B, R, Tl, t.shape[2], D).permute(1, 0, 3, 2, 4)
+                          for t in (q, k, v))
+            pos = positions[0] if positions.dim() == 2 else positions  # gpt.py:607
+            out = ring_flash_attention(qr, kr, vr, pos.view(R, Tl), self.ring, scale=self.scale,
+                                       causal=True, window=self.window, qranges=pos_ranges)
+            out = out.permute(1, 0, 3, 2, 4).reshape(B, S, H, D)
+        elif cfg.attention_backend == "flash" and S % 128 == 0:
             qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
             if segment_ids is None:
                 out = flash_attention(qt, kt, vt, self.scale, True, self.window)
@@ -265,18 +288,20 @@ class MLP(nn.Module):
 class TransformerLayer(nn.Module):
     """Pre-norm attention and MLP with residuals (gpt.py:1065)."""
 
-    def __init__(self, cfg: GPTConfig):
+    def __init__(self, cfg: GPTConfig, ring=None):
         super().__init__()
         pdt = DTYPES[cfg.params_dtype]
         self.input_norm = RMSNorm(cfg.hidden_size, cfg.layernorm_epsilon, pdt)
-        self.attention = Attention(cfg)
+        self.attention = Attention(cfg, ring)
         self.post_attn_norm = RMSNorm(cfg.hidden_size, cfg.layernorm_epsilon, pdt)
         self.mlp = MLP(cfg)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 segment_ids: Optional[torch.Tensor] = None,
-                seg_ranges: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attention(self.input_norm(x), positions, segment_ids, seg_ranges)
+                seg_ranges: Optional[torch.Tensor] = None,
+                pos_ranges: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = x + self.attention(self.input_norm(x), positions, segment_ids, seg_ranges,
+                               pos_ranges)
         return x + self.mlp(self.post_attn_norm(x))
 
 
@@ -285,18 +310,47 @@ class GPTModel(nn.Module):
     → logits [B, S, V] fp32, or with output_hidden=True the final-norm hidden
     states [B, S, D] in the compute dtype (the fused-CE training path applies
     the head inside the loss). `positions` [B, S] (default 0 .. S-1) and
-    `segment_ids` [B, S] (0 = padding) are a packed batch's."""
+    `segment_ids` [B, S] (0 = padding) are a packed batch's. With cp_size > 1
+    the model takes `ring` (`ops/ring_attention.py`: a `LocalRing(cp)`, the
+    default, where the model sees the whole sequence; a `ProcessGroupRing`
+    where it sees this rank's shard) and the positions of a zig-zag-ordered
+    sequence (GPTTrainModule reorders)."""
 
-    def __init__(self, cfg: GPTConfig):
+    def __init__(self, cfg: GPTConfig, ring=None):
         super().__init__()
         check_supported(cfg)
+        if cfg.cp_size > 1 and ring is None:
+            ring = LocalRing(cfg.cp_size)
+        if (ring.size if ring is not None else 1) != cfg.cp_size:
+            raise ValueError(f"a ring of {ring.size} ranks for cp_size {cfg.cp_size}")
         self.cfg = cfg
+        self.ring = ring
         pdt = DTYPES[cfg.params_dtype]
         self.embedding = nn.Parameter(torch.empty(cfg.vocab_size, cfg.hidden_size, dtype=pdt))
-        self.layers = nn.ModuleList(TransformerLayer(cfg) for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(TransformerLayer(cfg, ring) for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.layernorm_epsilon, pdt)
         if not cfg.share_embeddings_and_output_weights:
             self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, dtype=pdt)
+
+    def uses_ring(self, S: int, segment_ids) -> bool:
+        """Whether attention takes the ring, under JAX's conditions
+        (gpt.py:591-599): cp > 1, no segment ids, and shards (S // cp tokens
+        of the global sequence) a multiple of 128; no cache, softcapping,
+        sink or chunk reaches here (`check_supported`). S is what the model
+        sees: the whole sequence with every rank held here, a shard
+        otherwise. With cp > 1 any other batch raises where JAX would take
+        attention by index over the whole sequence: GPTTrainModule has
+        reordered it zig-zag (or cut it into shards), which that would mask
+        wrongly."""
+        ring = self.ring
+        if ring is None:
+            return False
+        if segment_ids is None and S % ring.held == 0 and (S // ring.held) % 128 == 0:
+            return True
+        raise NotImplementedError(
+            f"context parallelism needs the ring: no segment ids and shards of a multiple of "
+            f"128 tokens (got {S} tokens over {ring.held} held ranks, segment_ids "
+            f"{segment_ids is not None})")
 
     def head_weight(self) -> torch.Tensor:
         """The LM head as [V, D]: the tied embedding or lm_head's weight."""
@@ -311,21 +365,25 @@ class GPTModel(nn.Module):
         S = tokens.shape[1]
         if positions is None:
             positions = torch.arange(S, device=tokens.device)
-        seg_ranges = None
+        seg_ranges = pos_ranges = None
         if segment_ids is not None:
             segment_ids = segment_ids.to(torch.int32).contiguous()
             if cfg.attention_backend == "flash" and S % 128 == 0 and segment_ids.is_cuda:
                 seg_ranges = seg_tile_ranges(segment_ids)  # once for every layer's K8-K10
+        if self.uses_ring(S, segment_ids):
+            # once for every layer's K11-K13: the tile ranges of each held rank's positions
+            pos = (positions[0] if positions.dim() == 2 else positions).to(torch.int32)
+            pos_ranges = torch.stack([pos_tile_ranges(p) for p in pos.view(self.ring.held, -1)])
         # the gather runs in the parameter dtype, so the embedding's gradient
         # is an fp32 scatter-add, as in JAX (gpt.py:1177)
         x = F.embedding(tokens, self.embedding).to(DTYPES[cfg.compute_dtype])
         remat = cfg.remat == "full" and torch.is_grad_enabled()
         for layer in self.layers:
             if remat:
-                x = checkpoint(layer, x, positions, segment_ids, seg_ranges,
+                x = checkpoint(layer, x, positions, segment_ids, seg_ranges, pos_ranges,
                                use_reentrant=False, preserve_rng_state=False)
             else:
-                x = layer(x, positions, segment_ids, seg_ranges)
+                x = layer(x, positions, segment_ids, seg_ranges, pos_ranges)
         x = self.final_norm(x)
         if output_hidden:
             return x
@@ -344,11 +402,12 @@ def init_parameters(model: nn.Module, generator: torch.Generator, std: float) ->
                 p.normal_(0.0, std, generator=generator)
 
 
-def build_model(cfg: GPTConfig, device: torch.device, seed: int) -> GPTModel:
+def build_model(cfg: GPTConfig, device: torch.device, seed: int, ring=None) -> GPTModel:
     """A GPTModel on `device` (allocated there, never on the host first) with
-    parameters drawn from `seed` by a generator on that device."""
+    parameters drawn from `seed` by a generator on that device; `ring` as
+    GPTModel takes it."""
     with torch.device("meta"):
-        model = GPTModel(cfg)
+        model = GPTModel(cfg, ring)
     model.to_empty(device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     init_parameters(model, gen, cfg.init_method_std)

@@ -1,6 +1,7 @@
 """Flash attention on the card: the rel-pos form of the Conformer (K1, K3,
-K4), the causal GQA form of the LLM (K5, K6, K7) and its form over packed
-rows with segment ids (K8, K9, K10), each with its plain version.
+K4), the causal GQA form of the LLM (K5, K6, K7), its form over packed rows
+with segment ids (K8, K9, K10) and its form with explicit positions (K11,
+K12, K13), each with its plain version.
 
 **Rel-pos form.** Counterpart of nemo_tpu/ops/flash_attention.py:flash_attention
 (`_fwd_kernel`, and through its custom_vjp `_dq_kernel` and `_dkv_kernel`) as
@@ -38,6 +39,20 @@ no key: o = 0 and lse = -1e30. It is differentiable
 with segments on), the backward K9 (`flash_seg_dq`) and K10 (`flash_seg_dkv`,
 `csrc/flash_bwd.cu`); CPU tensors take `flash_attention_packed_plain` and
 `flash_attention_packed_backward_plain`.
+
+**Positions form.** `flash_attention_positions(q, k, v, qpos, kpos, scale,
+causal, window)` is the counterpart of nemo_tpu/ops/flash_attention.py:
+flash_attention_positions (733), the inner step of ring attention: Tq rows
+against Tkv keys, pair (i, j) kept where kpos[j] <= qpos[i] (causal) and
+kpos[j] > qpos[i] - window, with qpos [Tq] and kpos [Tkv] shared by the
+batch. It returns (o, lse); a row that keeps no key gets o = 0 and lse =
+-1e30. It is differentiable in q, k and v through both outputs
+(`FlashAttentionPositions`): the forward is K11 (`csrc/flash_fwd.cu`, K5's
+kernel with positions on), the backward K12 (`flash_pos_dq`) and K13
+(`flash_pos_dkv`, `csrc/flash_bwd.cu`) with delta' = rowsum(dO∘O) − g_lse;
+CPU tensors take `flash_attention_positions_plain` and
+`flash_attention_positions_backward_plain`. `flash_attention(q_offset != 0)`
+runs through it.
 
 Every wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain version only for CPU tensors; each counts its launches in `.launches`.
@@ -339,17 +354,18 @@ def _lib(name: str = "relpos_flash") -> ctypes.CDLL:
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor, scale: float, causal: bool,
-                window, segments=None) -> torch.Tensor:
+                window, segments=None, qpos=None, kpos=None) -> torch.Tensor:
     """Masked fp32 scores [B, G, H/G, Tq, Tk] of q [B, H, Tq, dh] against k
     [B, G, Tk, dh], as nemo_tpu/ops/flash_attention.py:_xla_reference builds
     them; with `segments` [B, T] also masked to pairs of equal nonzero ids
-    (_seg_mask)."""
+    (_seg_mask); with `qpos` [Tq] and `kpos` [Tk] the causal and window
+    masks compare those positions (_pos_mask) instead of 0 .. T-1."""
     B, H, Tq, dh = q.shape
     G, Tk = k.shape[1], k.shape[2]
     qg = q.reshape(B, G, H // G, Tq, dh).float()
     s = torch.einsum("bgrid,bgjd->bgrij", qg, k.float()) * scale
-    qpos = torch.arange(Tq, device=q.device)[:, None]
-    kpos = torch.arange(Tk, device=q.device)[None, :]
+    qpos = (torch.arange(Tq, device=q.device) if qpos is None else qpos.to(q.device))[:, None]
+    kpos = (torch.arange(Tk, device=q.device) if kpos is None else kpos.to(q.device))[None, :]
     keep = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device)
     if causal:
         keep &= kpos <= qpos
@@ -376,14 +392,16 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sca
     return o.reshape(B, H, T, dh).to(q.dtype), lse.reshape(B, H, T)
 
 
-def _flash_backward_plain(q, k, v, scale, causal, window, lse, delta, do, segments=None):
+def _flash_backward_plain(q, k, v, scale, causal, window, lse, delta, do, segments=None,
+                          qpos=None, kpos=None):
     B, H, T, dh = q.shape
     G = k.shape[1]
     rows = (B, G, H // G, T)
     lse_r = lse.reshape(rows)[..., None]
     # 0 on masked pairs
-    probs = torch.exp(_gqa_scores(q, k, scale, causal, window, segments) - lse_r)
-    if segments is not None:  # a padding row (lse = -1e30) keeps no pair, not exp(0)
+    probs = torch.exp(_gqa_scores(q, k, scale, causal, window, segments, qpos, kpos) - lse_r)
+    if segments is not None or qpos is not None:
+        # a row that keeps no key (lse = -1e30) keeps no pair, not exp(0)
         probs = probs.masked_fill(lse_r <= NEG_INF / 2, 0.0)
     dog = do.reshape(*rows, dh).float()
     dprobs = torch.einsum("bgrid,bgjd->bgrij", dog, v.float())
@@ -411,9 +429,10 @@ def flash_attention_backward_plain(
     return _flash_backward_plain(q, k, v, scale, causal, window, lse, row_delta(o, do), do)
 
 
-def _flash_check(what: str, q, k, v, window) -> None:
+def _flash_check(what: str, q, k, v, window, same_length: bool = True) -> None:
     """What the kernels take: fp32 or bf16; q [B, H, T, dh] and k, v
-    [B, G, T, dh] on one device, G dividing H, dh 64 or 128, window >= 1."""
+    [B, G, T, dh] (any Tkv with `same_length` False) on one device, G
+    dividing H, dh 64 or 128, window >= 1."""
     if q.dtype not in _DTYPES:
         raise ValueError(f"{what}: dtype {q.dtype} not supported")
     if q.dim() != 4:
@@ -421,8 +440,10 @@ def _flash_check(what: str, q, k, v, window) -> None:
     B, H, T, dh = q.shape
     if dh not in (64, 128):
         raise ValueError(f"{what}: head dim {dh} not in (64, 128)")
-    if k.dim() != 4 or (k.shape[0], k.shape[2], k.shape[3]) != (B, T, dh) or H % k.shape[1]:
-        raise ValueError(f"{what}: k must be [{B}, G, {T}, {dh}] with G dividing {H}")
+    Tk = T if same_length else "Tkv"
+    if (k.dim() != 4 or (k.shape[0], k.shape[3]) != (B, dh) or H % k.shape[1]
+            or (same_length and k.shape[2] != T)):
+        raise ValueError(f"{what}: k must be [{B}, G, {Tk}, {dh}] with G dividing {H}")
     for name, t in (("k", k), ("v", v)):
         if t.shape != k.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{what}: {name} does not match k and q")
@@ -488,10 +509,16 @@ def flash_attention(
     CPU tensors take the plain version; CUDA tensors launch K5 (fp32, or bf16
     at 16-byte aligned addresses; dh 64 or 128) or raise. The kernel reads
     q/k/v in the [B, T, heads, dh] layout (a view of the Linear outputs needs
-    no copy) and writes o in that layout too. `q_offset` (queries placed
-    after a prefix of keys) is not ported: no caller passes it."""
+    no copy) and writes o in that layout too. With `q_offset` != 0 (the
+    queries placed after a prefix of keys: q [B, H, Tq, dh] against k, v
+    [B, G, Tkv, dh]) it is `flash_attention_positions` with qpos = q_offset +
+    0 .. Tq-1 and kpos = 0 .. Tkv-1, the mask of _mask_block with its offset
+    (K11-K13 on the card; Tq and Tkv multiples of 64 there)."""
     if q_offset:
-        raise NotImplementedError("flash_attention: q_offset != 0 is not ported")
+        qpos = torch.arange(q.shape[2], dtype=torch.int32, device=q.device) + int(q_offset)
+        kpos = torch.arange(k.shape[2], dtype=torch.int32, device=q.device)
+        o, _ = flash_attention_positions(q, k, v, qpos, kpos, scale, causal, window)
+        return o
     o, _ = FlashAttention.apply(q, k, v, float(scale), bool(causal), window)
     return o.transpose(1, 2)
 
@@ -573,21 +600,24 @@ def flash_attention_backward(
 
 
 def _flash_lib(name: str) -> ctypes.CDLL:
-    """The K5 + K8 (`flash_fwd`) or K6, K7, K9 + K10 (`flash_bwd`) kernel
-    library, with its C signatures set."""
+    """The K5, K8 + K11 (`flash_fwd`) or K6, K7, K9, K10, K12 + K13
+    (`flash_bwd`) kernel library, with its C signatures set."""
     from nemo_tpu_torch.csrc.loader import library
 
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib = library(name)
     # dtype, tensors, B, H, G, T, head_dim, scale, causal, window, stream
     n_ptrs = {"flash_fwd": 5, "flash_bwd_dq": 7, "flash_bwd_dkv": 8,
-              "flash_seg_fwd": 7, "flash_seg_bwd_dq": 9, "flash_seg_bwd_dkv": 10}
-    fns = {"flash_fwd": ("flash_fwd", "flash_seg_fwd"),
-           "flash_bwd": ("flash_bwd_dq", "flash_bwd_dkv", "flash_seg_bwd_dq", "flash_seg_bwd_dkv")}
+              "flash_seg_fwd": 7, "flash_seg_bwd_dq": 9, "flash_seg_bwd_dkv": 10,
+              "flash_pos_fwd": 9, "flash_pos_bwd_dq": 11, "flash_pos_bwd_dkv": 12}
+    fns = {"flash_fwd": ("flash_fwd", "flash_seg_fwd", "flash_pos_fwd"),
+           "flash_bwd": ("flash_bwd_dq", "flash_bwd_dkv", "flash_seg_bwd_dq", "flash_seg_bwd_dkv",
+                         "flash_pos_bwd_dq", "flash_pos_bwd_dkv")}
     for fn_name in fns[name]:
         fn = getattr(lib, fn_name)
-        if fn.argtypes is None:
-            fn.argtypes = ([ci] + [vp] * n_ptrs[fn_name] + [ci] * 5
+        if fn.argtypes is None:  # B, H, G, T (Tq and Tkv for positions), head_dim
+            n_ints = 6 if fn_name.startswith("flash_pos") else 5
+            fn.argtypes = ([ci] + [vp] * n_ptrs[fn_name] + [ci] * n_ints
                            + [ctypes.c_float, ci, ci, vp])
             fn.restype = ci
     return lib
@@ -780,3 +810,243 @@ def flash_attention_packed_backward(
                                                      o, lse, do)
     args = (q, k, v, segments, scale, causal, window, lse, row_delta(o, do), do)
     return (flash_seg_dq(*args, ranges=ranges), *flash_seg_dkv(*args, ranges=ranges))
+
+
+# --------------------------------------------------------------------------
+# explicit positions: K11 (forward), K12 (dq), K13 (dk, dv)
+# --------------------------------------------------------------------------
+
+
+def flash_attention_positions_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                    qpos: torch.Tensor, kpos: torch.Tensor, scale: float,
+                                    causal: bool = True, window=None
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K11, the counterpart of
+    nemo_tpu/ops/flash_attention.py:xla_attention_positions (766): dense fp32
+    GQA scores masked by positions at -1e30, a softmax whose max is floored
+    at -5e29, then (o [B, H, Tq, dh] in q's dtype, lse [B, H, Tq] fp32). A
+    row that keeps no key gets o = 0 and lse = -1e30. Shapes as
+    `flash_attention_positions`."""
+    B, H, Tq, dh = q.shape
+    s = _gqa_scores(q, k, scale, causal, window, qpos=qpos, kpos=kpos)
+    m = s.amax(-1, keepdim=True)
+    m_safe = m.clamp_min(NEG_INF / 2)
+    probs = torch.exp(s - m_safe)
+    denom = probs.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bgrij,bgjd->bgrid", probs / denom, v.float())
+    lse = torch.where(m <= NEG_INF / 2, torch.full_like(m, NEG_INF), m_safe + denom.log())
+    return o.reshape(B, H, Tq, dh).to(q.dtype), lse.reshape(B, H, Tq)
+
+
+def flash_attention_positions_backward_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, qpos: torch.Tensor, kpos: torch.Tensor,
+    scale: float, causal: bool, window, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+    dlse=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K12 and K13: (dq, dk, dv) for the cotangents
+    do of o and `dlse` of lse (None: 0), `flash_attention_backward_plain`
+    with the position mask, delta' = rowsum(dO∘O) − dlse
+    (_flash_backward_pos, flash_attention.py:672-675) and P = where(lse >
+    -5e29, exp(s − lse), 0), so a row that keeps no key gets dq = 0."""
+    return _flash_backward_plain(q, k, v, scale, causal, window, lse, pos_delta(o, do, dlse), do,
+                                 qpos=qpos, kpos=kpos)
+
+
+def pos_delta(o: torch.Tensor, do: torch.Tensor, dlse=None) -> torch.Tensor:
+    """delta' = rowsum(dO ∘ O) − g_lse in fp32 [B, H, Tq]: the lse cotangent
+    folded into the backward's row term (flash_attention.py:672-675)."""
+    delta = row_delta(o, do)
+    return delta if dlse is None else delta - dlse.float()
+
+
+def pos_tile_ranges(pos: torch.Tensor) -> torch.Tensor:
+    """[T] int32 positions → [ceil(T / 64), 2] int32, the [min, max] position
+    of each 64 rows: the pre-pass from which K11-K13 skip tile pairs that
+    keep no pair (_pos_active)."""
+    return seg_tile_ranges(pos.reshape(1, -1))[0]
+
+
+def _pos_check(what: str, q, k, v, qpos, kpos, window):
+    """What the kernels take: `_flash_check`'s shapes with any Tkv, Tq and
+    Tkv multiples of 64, qpos [Tq] and kpos [Tkv] integers on q's device.
+    → (qpos, kpos) as contiguous int32."""
+    _flash_check(what, q, k, v, window, same_length=False)
+    Tq, Tkv = q.shape[2], k.shape[2]
+    for name, pos, n in (("qpos", qpos, Tq), ("kpos", kpos, Tkv)):
+        if pos.shape != (n,) or pos.dtype.is_floating_point or pos.is_complex():
+            raise ValueError(f"{what}: {name} must be [{n}] integers")
+        if pos.device != q.device:
+            raise ValueError(f"{what}: {name} must be on {q.device}")
+    if Tq % 64 or Tkv % 64:
+        raise ValueError(f"{what}: Tq {Tq} and Tkv {Tkv} must be multiples of 64 on the card")
+    return qpos.to(torch.int32).contiguous(), kpos.to(torch.int32).contiguous()
+
+
+def _pos_ranges(what: str, qpos, kpos, ranges):
+    """The tile ranges (qrange, krange) of the positions: `ranges` where the
+    caller gives them (checked), else computed here."""
+    if ranges is None:
+        return pos_tile_ranges(qpos), pos_tile_ranges(kpos)
+    out = []
+    for pos, r in zip((qpos, kpos), ranges):
+        if r.shape != (-(-pos.shape[0] // 64), 2) or r.dtype != torch.int32 or (
+                r.device != pos.device):
+            raise ValueError(f"{what}: ranges must be [ceil(T / 64), 2] int32 on {pos.device}")
+        out.append(r.contiguous())
+    return tuple(out)
+
+
+def _k11_launch(q, k, v, qpos, kpos, scale, causal, window, ranges=None):
+    """K11 → (o [B, Tq, H, dh], lse [B, H, Tq] fp32)."""
+    what = "flash_attention_positions"
+    qpos, kpos = _pos_check(what, q, k, v, qpos, kpos, window)
+    qr, kr = _pos_ranges(what, qpos, kpos, ranges)
+    B, H, Tq, dh = q.shape
+    G, Tkv = k.shape[1], k.shape[2]
+    qt, kt, vt = _bthd(what, (q, k, v))
+    o = torch.empty((B, Tq, H, dh), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    err = _flash_lib("flash_fwd").flash_pos_fwd(
+        _DTYPES[q.dtype], qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), qpos.data_ptr(),
+        kpos.data_ptr(), qr.data_ptr(), kr.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H, G,
+        Tq, Tkv, dh, float(scale), int(causal), int(window or 0),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+    flash_attention_positions.launches += 1
+    return o, lse
+
+
+def positions_forward(q, k, v, qpos, kpos, scale, causal, window, ranges=None):
+    """(o [B, Tq, H, dh], lse [B, H, Tq]) of `flash_attention_positions`
+    without autograd: K11 for CUDA tensors, the plain version for CPU
+    tensors (o then a view in the kernel's layout)."""
+    if _device("flash_attention_positions", q) == "cpu":
+        o, lse = flash_attention_positions_plain(q, k, v, qpos, kpos, scale, causal, window)
+        return o.transpose(1, 2), lse
+    return _k11_launch(q, k, v, qpos, kpos, scale, causal, window, ranges)
+
+
+class FlashAttentionPositions(torch.autograd.Function):
+    """K11 with its backward. Forward: o [B, Tq, H, dh] and lse [B, H, Tq],
+    both differentiable; backward: `flash_attention_positions_backward`
+    (K12 + K13 on the card, the plain backward on the CPU) with the lse
+    cotangent folded into delta'."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qpos, kpos, scale, causal, window):
+        o, lse = positions_forward(q, k, v, qpos, kpos, scale, causal, window)
+        o = o.contiguous()
+        ctx.save_for_backward(q, k, v, qpos, kpos, o, lse)
+        ctx.args = (scale, causal, window)
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, qpos, kpos, o, lse = ctx.saved_tensors
+        do = torch.zeros_like(o) if do is None else do.to(q.dtype)
+        grads = flash_attention_positions_backward(
+            q, k, v, qpos, kpos, *ctx.args, o.transpose(1, 2), lse, do.transpose(1, 2), dlse)
+        return (*grads, None, None, None, None, None)
+
+
+def flash_attention_positions(
+    q: torch.Tensor,  # [B, H, Tq, dh]
+    k: torch.Tensor,  # [B, G, Tkv, dh], G dividing H
+    v: torch.Tensor,  # [B, G, Tkv, dh]
+    qpos: torch.Tensor,  # [Tq] integer positions of the query rows
+    kpos: torch.Tensor,  # [Tkv] integer positions of the keys
+    scale: float,
+    causal: bool = True,
+    window=None,  # sliding window: key j is seen by query i only if kpos[j] > qpos[i] - window
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """→ (o [B, H, Tq, dh] in q's dtype, lse [B, H, Tq] fp32), both
+    differentiable in q, k and v: the counterpart of
+    nemo_tpu/ops/flash_attention.py:flash_attention_positions (733), whose
+    lse is [B, H, Tq, 1]. A row that keeps no key gets o = 0 and lse = -1e30.
+
+    CPU tensors take the plain version; CUDA tensors launch K11 (fp32, or
+    bf16 at 16-byte aligned addresses; dh 64 or 128; Tq and Tkv multiples of
+    64) or raise. Layouts as `flash_attention`."""
+    o, lse = FlashAttentionPositions.apply(q, k, v, qpos, kpos, float(scale), bool(causal),
+                                           window)
+    return o.transpose(1, 2), lse
+
+
+flash_attention_positions.launches = 0
+
+
+def _pos_bwd_launch(fn: str, q, k, v, qpos, kpos, scale, causal, window, lse, delta, do,
+                    ranges=None):
+    """Launch K12 (→ dq [B, Tq, H, dh]) or K13 (→ dk, dv [B, Tkv, G, dh])."""
+    qpos, kpos = _pos_check(fn, q, k, v, qpos, kpos, window)
+    qr, kr = _pos_ranges(fn, qpos, kpos, ranges)
+    B, H, Tq, dh = q.shape
+    G, Tkv = k.shape[1], k.shape[2]
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"{fn}: do must match q")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (B, H, Tq) or t.dtype != torch.float32:
+            raise ValueError(f"{fn}: {name} must be [B, H, Tq] float32")
+    qt, kt, vt, dot = _bthd(fn, (q, k, v, do))
+    lse_c, delta_c = lse.contiguous(), delta.contiguous()
+    dq_side = fn.endswith("_dq")
+    outs = [torch.empty((B, Tq, H, dh) if dq_side else (B, Tkv, G, dh), dtype=q.dtype,
+                        device=q.device) for _ in range(1 if dq_side else 2)]
+    err = getattr(_flash_lib("flash_bwd"), fn)(
+        _DTYPES[q.dtype], qt.data_ptr(), kt.data_ptr(), vt.data_ptr(), dot.data_ptr(),
+        lse_c.data_ptr(), delta_c.data_ptr(), qpos.data_ptr(), kpos.data_ptr(), qr.data_ptr(),
+        kr.data_ptr(), *(t.data_ptr() for t in outs), B, H, G, Tq, Tkv, dh, float(scale),
+        int(causal), int(window or 0), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA error {err} at launch")
+    return outs
+
+
+def flash_pos_dq(q, k, v, qpos, kpos, scale, causal, window, lse, delta, do, ranges=None):
+    """K12 → dq [B, H, Tq, dh]; `delta` is `pos_delta(o, do, dlse)`. Inputs
+    as `flash_attention_positions`, plus lse and delta [B, H, Tq] fp32, do
+    [B, H, Tq, dh] in q's dtype and optionally the positions' tile ranges.
+    CPU tensors take the plain backward."""
+    if _device("flash_pos_dq", q) == "cpu":
+        return _flash_backward_plain(q, k, v, scale, causal, window, lse, delta, do,
+                                     qpos=qpos, kpos=kpos)[0]
+    (dq,) = _pos_bwd_launch("flash_pos_bwd_dq", q, k, v, qpos, kpos, scale, causal, window, lse,
+                            delta, do, ranges)
+    flash_pos_dq.launches += 1
+    return dq.transpose(1, 2)
+
+
+flash_pos_dq.launches = 0
+
+
+def flash_pos_dkv(q, k, v, qpos, kpos, scale, causal, window, lse, delta, do, ranges=None):
+    """K13 → (dk, dv) [B, G, Tkv, dh], each summed over the H/G query heads
+    of its kv head; arguments as `flash_pos_dq`. CPU tensors take the plain
+    backward."""
+    if _device("flash_pos_dkv", q) == "cpu":
+        return _flash_backward_plain(q, k, v, scale, causal, window, lse, delta, do,
+                                     qpos=qpos, kpos=kpos)[1:]
+    dk, dv = _pos_bwd_launch("flash_pos_bwd_dkv", q, k, v, qpos, kpos, scale, causal, window,
+                             lse, delta, do, ranges)
+    flash_pos_dkv.launches += 1
+    return dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+flash_pos_dkv.launches = 0
+
+
+def flash_attention_positions_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, qpos: torch.Tensor, kpos: torch.Tensor,
+    scale: float, causal: bool, window, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+    dlse=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of `flash_attention_positions` for the cotangents do of o
+    and dlse of lse (None: 0): K12 and K13 for CUDA tensors, the plain
+    backward for CPU tensors."""
+    if _device("flash_attention_positions_backward", q) == "cpu":
+        return flash_attention_positions_backward_plain(q, k, v, qpos, kpos, scale, causal,
+                                                        window, o, lse, do, dlse)
+    args = (q, k, v, qpos, kpos, scale, causal, window, lse, pos_delta(o, do, dlse), do)
+    return (flash_pos_dq(*args), *flash_pos_dkv(*args))

@@ -486,3 +486,173 @@ def test_packed_llm_train_step_launch_counts(cuda, monkeypatch):
     assert got == (2 * L, L, L, 0, 0, 0)
     assert len(calls) == 1
     assert math.isfinite(float(m["loss"])) and math.isfinite(float(m["grad_norm"]))
+
+
+# explicit positions: K11 (forward), K12 (dq), K13 (dk, dv), and the ring
+def _zigzag_positions(S: int, cp: int) -> torch.Tensor:
+    from nemo_tpu_torch.ops.ring_attention import zigzag_order
+
+    return torch.from_numpy(zigzag_order(S, cp).astype(np.int32))
+
+
+def position_layout(layout: str, Tl: int):
+    """(qpos, kpos, window, q_offset) of one ring step at Tl rows a rank:
+    "arange" (0 .. Tl-1 on both sides), "diagonal" (rank 0 of the zig-zag
+    cp 2 layout against itself), "off_diagonal" (rank 0's rows against rank
+    1's keys: the rows of chunk 0 keep no key), "window" (the diagonal with
+    a window of Tl / 4), "offset" (Tl / 2 rows after Tl / 2 keys)."""
+    if layout in ("arange", "offset"):
+        pos = torch.arange(Tl, dtype=torch.int32)
+        return (pos[Tl // 2:], pos, None, Tl // 2) if layout == "offset" else (pos, pos, None, 0)
+    z = _zigzag_positions(2 * Tl, 2)
+    qpos, kpos = z[:Tl], (z[Tl:] if layout == "off_diagonal" else z[:Tl])
+    return qpos, kpos, (Tl // 4 if layout == "window" else None), 0
+
+
+@pytest.mark.parametrize("dtype,tol,gtol,ntol", [(torch.float32, 2e-5, 1e-4, 1e-5),
+                                                 (torch.bfloat16, 2e-2, 3e-2, 1e-2)])
+@pytest.mark.parametrize("H,G,dh", [(32, 8, 64), (12, 12, 128)])
+@pytest.mark.parametrize("layout", ["arange", "diagonal", "off_diagonal", "window", "offset"])
+def test_positions_flash_kernels_match_plain(cuda, layout, H, G, dh, dtype, tol, gtol, ntol):
+    """K11 against the plain positions forward, and K12, K13 against the
+    plain backward given a nonzero lse cotangent, at B=2 and 512 rows a rank,
+    held row by row as K5-K7 are: rows that keep no key give o = 0, lse =
+    -1e30 and dq = 0 exactly; at "arange" K11-K13 give K5-K7's bits."""
+    from nemo_tpu_torch.ops.flash_attention import (
+        _k11_launch, _k5_launch, flash_attention_positions,
+        flash_attention_positions_backward_plain, flash_attention_positions_plain,
+        flash_pos_dkv, flash_pos_dq, pos_delta)
+
+    B, Tl, scale = 2, 512, 1.0 / math.sqrt(dh)
+    qpos, kpos, window, _ = position_layout(layout, Tl)
+    qpos, kpos = qpos.to(cuda), kpos.to(cuda)
+    g = torch.Generator().manual_seed(dh + len(layout))
+    q, do = (torch.randn(B, len(qpos), H, dh, generator=g).to(cuda, dtype).transpose(1, 2)
+             for _ in range(2))
+    k, v = (torch.randn(B, len(kpos), G, dh, generator=g).to(cuda, dtype).transpose(1, 2)
+            for _ in range(2))
+    dlse = torch.randn(B, H, len(qpos), generator=g).to(cuda)
+    o, lse_w = flash_attention_positions(q, k, v, qpos, kpos, scale, True, window)
+    _, lse = _k11_launch(q, k, v, qpos, kpos, scale, True, window)
+    o_ref, lse_ref = flash_attention_positions_plain(q, k, v, qpos, kpos, scale, True, window)
+    dead = (kpos[None, :] > qpos[:, None]).all(-1)
+    assert bool(dead.any()) == (layout == "off_diagonal")
+    _assert_rows_close(o, o_ref, tol, ntol, "o")
+    assert torch.equal(lse, lse_w)
+    torch.testing.assert_close(lse[:, :, ~dead], lse_ref[:, :, ~dead], atol=1e-3, rtol=1e-4)
+    assert bool((o[:, :, dead] == 0).all()) and bool((lse[:, :, dead] == -1e30).all())
+    args = (q, k, v, qpos, kpos, scale, True, window, lse, pos_delta(o, do, dlse), do)
+    out = (flash_pos_dq(*args), *flash_pos_dkv(*args))
+    ref = flash_attention_positions_backward_plain(q, k, v, qpos, kpos, scale, True, window, o,
+                                                   lse, do, dlse)
+    torch.cuda.synchronize()
+    for name, x, r in zip(("dq", "dk", "dv"), out, ref):
+        assert x.shape == r.shape and x.dtype == dtype, name
+        _assert_rows_close(x, r, gtol, ntol, name)
+    assert bool((out[0][:, :, dead] == 0).all())
+    if layout == "arange":  # K5-K7 step for step
+        o5, lse5 = _k5_launch(q, k, v, scale, True, window)
+        args5 = (q, k, v, scale, True, window, lse5, pos_delta(o, do, dlse), do)
+        assert torch.equal(o.transpose(1, 2), o5) and torch.equal(lse, lse5)
+        for x, y in zip(out, (flash_dq(*args5), *flash_dkv(*args5))):
+            assert torch.equal(x, y)
+
+
+def test_positions_flash_is_differentiable_through_lse_on_cuda(cuda):
+    """flash_attention_positions carries its autograd Function through o and
+    lse; the backward launches K12 and K13 once each and matches the plain
+    version's gradient of sum(o²) + sum(tanh(lse)) in fp32."""
+    from nemo_tpu_torch.ops.flash_attention import flash_attention_positions, flash_pos_dkv, \
+        flash_pos_dq
+
+    qpos, kpos, _, _ = position_layout("off_diagonal", 256)
+    g = torch.Generator().manual_seed(3)
+    leaves = [torch.randn(1, h, 256, 64, generator=g) for h in (8, 2, 2)]
+    grads = {}
+    for dev in ("cpu", cuda):
+        xs = [x.to(dev).requires_grad_() for x in leaves]
+        o, lse = flash_attention_positions(*xs, qpos.to(dev), kpos.to(dev), 0.125)
+        launches = flash_pos_dq.launches, flash_pos_dkv.launches
+        grads[str(dev)] = [x.cpu() for x in torch.autograd.grad(
+            o.square().sum() + torch.tanh(lse).sum(), xs)]
+    assert (flash_pos_dq.launches, flash_pos_dkv.launches) == (launches[0] + 1, launches[1] + 1)
+    for x, r in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(x, r, rtol=0, atol=1e-4 * float(r.abs().max()) + 1e-6)
+
+
+@pytest.mark.parametrize("cp", [2, 4])
+def test_ring_on_cuda_matches_causal_flash(cuda, cp):
+    """ring_flash_attention with every rank in one process (LocalRing) on
+    the card at S=2048, 8 heads over 2, bf16, against K5-K7's causal
+    attention over the un-permuted sequence, row by row."""
+    from nemo_tpu_torch.ops.ring_attention import LocalRing, ring_flash_attention, \
+        zigzag_shard, zigzag_unshard
+
+    S, H, G, dh = 2048, 8, 2, 64
+    g = torch.Generator().manual_seed(cp)
+    q, do = (torch.randn(1, H, S, dh, generator=g).to(cuda, torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(1, G, S, dh, generator=g).to(cuda, torch.bfloat16) for _ in range(2))
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    o_ref = flash_attention(*xs, 0.125)
+    ref = torch.autograd.grad(o_ref, xs, do)
+    Tl = S // cp
+    zs = [zigzag_shard(x, cp, 2).view(1, x.shape[1], cp, Tl, dh).permute(2, 0, 1, 3, 4)
+          .contiguous().requires_grad_() for x in (q, k, v)]
+    o = ring_flash_attention(*zs, _zigzag_positions(S, cp).view(cp, Tl).to(cuda),
+                             LocalRing(cp), scale=0.125)
+    dz = zigzag_shard(do, cp, 2).view(1, H, cp, Tl, dh).permute(2, 0, 1, 3, 4)
+    grads = torch.autograd.grad(o, zs, dz)
+    unz = lambda t: zigzag_unshard(t.permute(1, 2, 0, 3, 4).reshape(  # noqa: E731
+        1, t.shape[2], S, dh), cp, 2)
+    _assert_rows_close(unz(o.detach()), o_ref, 2e-2, 1e-2, "o")
+    for name, x, r in zip(("dq", "dk", "dv"), grads, ref):
+        _assert_rows_close(unz(x), r, 3e-2, 1e-2, name)
+
+
+def test_cp_llm_train_step_on_cuda(cuda):
+    """A tiny Llama-style model (2 layers, 8 heads of 64 over 2, flash, full
+    remat) at cp 2, every rank in one process: in fp32 the loss within 1e-5
+    relative and every gradient within 1e-4 of its leaf's max-abs of the
+    CPU's; in bf16 one train step launches K11 2·L·cp² times and K12, K13
+    L·cp² times, none of K5-K10, with a loss within 2e-3 relative of the
+    same step at cp 1."""
+    import dataclasses
+
+    from nemo_tpu_torch.models.llm.config import tiny_test
+    from nemo_tpu_torch.models.llm.train import GPTTrainModule
+    from nemo_tpu_torch.ops.flash_attention import flash_attention_positions, flash_pos_dkv, \
+        flash_pos_dq
+
+    cfg = tiny_test(hidden_size=512, num_attention_heads=8, num_query_groups=2, seq_length=512,
+                    attention_backend="flash", remat="full", cp_size=2,
+                    share_embeddings_and_output_weights=True, rope_scaling="llama3")
+    rng = np.random.RandomState(2)
+    batch = {k: torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 512)))
+             for k in ("tokens", "labels")}
+    out = {}
+    for dev in ("cpu", cuda):
+        mod = GPTTrainModule(cfg, device=dev, seed=0)
+        if dev != "cpu":
+            mod.model.load_state_dict(cpu_state)
+        cpu_state = mod.model.state_dict()
+        loss = mod.loss(*(batch[k].to(dev) for k in ("tokens", "labels")))
+        out[str(dev)] = (float(loss.detach()), [x.cpu() for x in torch.autograd.grad(
+            loss, mod.params)])
+    (loss, grads), (ref_loss, ref_grads) = out["cuda"], out["cpu"]
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    for x, r in zip(grads, ref_grads):
+        torch.testing.assert_close(x, r, rtol=0, atol=1e-4 * float(r.abs().max()) + 1e-6)
+
+    bf = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    one = GPTTrainModule(dataclasses.replace(bf, cp_size=1), device=cuda, seed=0)
+    mod = GPTTrainModule(bf, device=cuda, seed=0)
+    counters = (flash_attention_positions, flash_pos_dq, flash_pos_dkv, flash_attention, flash_dq,
+                flash_dkv, flash_attention_packed, flash_seg_dq, flash_seg_dkv)
+    launches = [fn.launches for fn in counters]
+    m = mod.train_step(batch)
+    torch.cuda.synchronize()
+    got = tuple(fn.launches - n for fn, n in zip(counters, launches))
+    L, cp = cfg.num_layers, 2
+    assert got == (2 * L * cp * cp, L * cp * cp, L * cp * cp, 0, 0, 0, 0, 0, 0)
+    ref = float(one.train_step(batch)["loss"])
+    assert abs(float(m["loss"]) - ref) <= 2e-3 * abs(ref)

@@ -90,9 +90,10 @@ def test_backward_wrappers_take_plain_version_on_cpu():
 
 def test_cuda_wrapper_refuses_what_the_kernels_do_not_take(monkeypatch):
     """On CUDA tensors the wrapper raises where the kernels do not go (a head
-    dim of 16, a kv head count that does not divide H); `q_offset` is not
-    ported on any device. Simulated on CPU tensors by taking the launch
-    branch: the checks run before anything touches a card."""
+    dim of 16, a kv head count that does not divide H; with `q_offset`, a
+    query length that is not a multiple of 64). Simulated on CPU tensors by
+    taking the launch branch: the checks run before anything touches a
+    card."""
     monkeypatch.setattr(port, "_device", lambda what, t: "cuda")
     q, k, v = (torch.zeros(1, h, 128, 16) for h in (4, 2, 2))
     with pytest.raises(ValueError, match="head dim 16"):
@@ -102,5 +103,6 @@ def test_cuda_wrapper_refuses_what_the_kernels_do_not_take(monkeypatch):
         port.flash_attention(q, k, v, 0.125)
     with pytest.raises(ValueError, match="dtype"):
         port.flash_attention(q.half(), k.half(), v.half(), 0.125)
-    with pytest.raises(NotImplementedError, match="q_offset"):
-        port.flash_attention(q, k, v, 0.125, q_offset=128)
+    q, k, v = (torch.zeros(1, h, 128, 64) for h in (4, 2, 2))
+    with pytest.raises(ValueError, match="multiples of 64"):
+        port.flash_attention(q[:, :, :96], k, v, 0.125, q_offset=32)

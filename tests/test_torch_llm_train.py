@@ -134,7 +134,7 @@ def test_train_module_refuses_what_is_not_ported():
     tokens = np.zeros((2, 2, S), np.int32)
     with pytest.raises(NotImplementedError, match=r"\[A, B, S\]"):
         mod.train_step({"tokens": tokens, "labels": tokens})
-    for field, value in (("attn_logit_softcapping", 50.0), ("cp_size", 2)):
+    for field, value in (("attn_logit_softcapping", 50.0), ("qk_layernorm", True)):
         with pytest.raises(NotImplementedError, match=f"GPTConfig.{field}="):
             GPTTrainModule(dataclasses.replace(_cfg(port_config), **{field: value}),
                            device="cpu")
