@@ -14,11 +14,18 @@ at 16,384 tokens through the position-masked flash kernels K11-K13.
     torchrun --nproc-per-node 2 chip_smoke.py --cp-processes
                                      # only CP training over processes, one a card
                                      # (NCCL), against every rank in one process
+    python3 chip_smoke.py --time-forward [--tree DIR]
+                                     # only the bf16 forward kernels K5, K8 and K11
+                                     # of this checkout (or of DIR) timed, one JSON
+                                     # line: run two checkouts in turns to compare
 
 Phases, each printing a line; any failure raises and exits non-zero:
 
 1. the card's name and power limit (nvidia-smi), then the build of every
-   kernel source (`nemo_tpu_torch/csrc/*.cu`, one nvcc each, in parallel);
+   kernel source (`nemo_tpu_torch/csrc/*.cu`, one nvcc each, in parallel),
+   then the unit check of the TMA and wgmma wrappers (`csrc/hopper.cuh`,
+   which the bf16 forward of K5, K8 and K11 is built from): one
+   warpgroup's m64nNk16 products of TMA-loaded tiles against torch.matmul;
 2. K1, the rel-pos flash attention, against its plain version at the
    transcription shape (B=32, H=8, T=751, dh=64), in bf16 and fp32, with its
    time, the plain version's and SDPA's (given the precomputed additive bias);
@@ -248,6 +255,29 @@ def phase_build():
         for line in (loader.BUILD / f"{name}.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+
+
+def phase_hopper_check(gen: torch.Generator) -> None:
+    """The TMA and wgmma wrappers of csrc/hopper.cuh alone, before any
+    attention kernel: one warpgroup's four m64nNk16 steps over TMA-loaded
+    bf16 tiles against torch.matmul, N = 64 and 128, b K-major (as k) and
+    MN-major (as v), a from shared memory (as q) and from registers (as P).
+    The products of bf16 values are exact in fp32; only the order and
+    rounding of the fp32 sums differ: atol 1e-3 + rtol 1e-4 (a wrong
+    descriptor or swizzle moves entries by O(1))."""
+    from nemo_tpu_torch.csrc.loader import wgmma_tile_product
+
+    for n in (64, 128):
+        for mn in (False, True):
+            for areg in (False, True):
+                a = torch.randn(64, 64, generator=gen).to("cuda", torch.bfloat16)
+                b = torch.randn(*((64, n) if mn else (n, 64)), generator=gen).to(
+                    "cuda", torch.bfloat16)
+                c = wgmma_tile_product(a, b, mn, areg)
+                torch.cuda.synchronize()
+                ref = a.float() @ (b.float() if mn else b.float().T)
+                compare(f"wgmma m64n{n}k16, b {'MN' if mn else 'K'}-major, a from "
+                        f"{'registers' if areg else 'shared memory'}", c, ref, 1e-3, 1e-4)
 
 
 def phase_k1(gen: torch.Generator) -> dict:
@@ -1663,6 +1693,49 @@ def cp_processes() -> int:
     return 0
 
 
+def time_forward() -> int:
+    """--time-forward: only the bf16 forward kernels K5, K8 and K11 of the
+    `nemo_tpu_torch` on sys.path (another checkout with --tree), each timed
+    by CUDA events over 50 launches after 3 warm-up ones at the shape of its
+    path: K5 at B=8, H=32 over G=8, S=2048, dh 64, causal (and at dh 128, 12
+    heads over 12, GPT-551M's head), beside SDPA's forward; K8 on the SFT
+    run's first batch; K11 at one rank's CP shape (B=1, Tl=8,192), rank 0's
+    diagonal and off-diagonal ring steps. Prints one JSON line. Run it for two
+    trees in turns (parent, change, change, parent) to compare them on one
+    card."""
+    import nemo_tpu_torch
+    from nemo_tpu_torch.ops.flash_attention import (_k5_launch, _k8_launch, _k11_launch,
+                                                    pos_tile_ranges, seg_tile_ranges)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    gen = torch.Generator().manual_seed(0)
+    out = {"tree": os.path.dirname(os.path.dirname(nemo_tpu_torch.__file__)), "card": smi}
+    timed = lambda fn: cuda_ms(fn, iters=50, warmup=3)  # noqa: E731
+    for name, (H, G, dh) in (("k5", (32, 8, 64)), ("k5_dh128", (12, 12, 128))):
+        q, k, v, _ = _gqa_inputs(gen, LLM_B, H, G, LLM_S, dh, torch.bfloat16)
+        scale = 1.0 / math.sqrt(dh)
+        out[f"{name}_ms"] = timed(lambda: _k5_launch(q, k, v, scale, True, None))
+        out[f"sdpa{name[2:]}_ms"] = timed(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale, enable_gqa=True))
+    q, k, v, _ = _gqa_inputs(gen, LLM_B, 32, 8, LLM_S, 64, torch.bfloat16)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sft.jsonl")
+        write_sft_jsonl(path)
+        seg = sft_data(path)[1][0]["segment_ids"].to("cuda", torch.int32)
+    ranges = seg_tile_ranges(seg)
+    out["k8_ms"] = timed(lambda: _k8_launch(q, k, v, seg, ranges, 0.125, True, None))
+    Tl = CP_S // 2
+    q, k, v, _ = _gqa_inputs(gen, CP_B, 32, 8, Tl, 64, torch.bfloat16)
+    for step, (qpos, kpos, _, _) in ((s, position_layouts(Tl)[s])
+                                     for s in ("diagonal", "off_diagonal")):
+        r = (pos_tile_ranges(qpos), pos_tile_ranges(kpos))
+        out[f"k11_{step}_ms"] = timed(
+            lambda: _k11_launch(q, k, v, qpos, kpos, 0.125, True, None, r))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
@@ -1671,12 +1744,20 @@ def main() -> int:
     parser.add_argument("--cp-processes", action="store_true",
                         help="only the process-group form of CP training, one process a card: "
                              "torchrun --nproc-per-node N chip_smoke.py --cp-processes")
+    parser.add_argument("--time-forward", action="store_true",
+                        help="only time the bf16 forward kernels K5, K8 and K11")
+    parser.add_argument("--tree", default=None,
+                        help="with --time-forward: the checkout whose nemo_tpu_torch to time")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this check runs on the GPU only", file=sys.stderr)
         return 1
     if args.cp_processes:
         return cp_processes()
+    if args.time_forward:
+        if args.tree:
+            sys.path.insert(0, os.path.abspath(args.tree))
+        return time_forward()
     from nemo_tpu_torch.ops.flash_attention import flash_attention as k5
     from nemo_tpu_torch.ops.flash_attention import flash_attention_positions as k11
     from nemo_tpu_torch.ops.flash_attention import flash_pos_dkv as k13
@@ -1697,6 +1778,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     gen = torch.Generator().manual_seed(0)
+    phase_hopper_check(torch.Generator().manual_seed(1))
     rows = [phase_k1(gen), phase_k2(gen), *phase_k3_k4(gen)]
     phase_exactness(k1, k2)
     phase_grad_exactness()

@@ -6,12 +6,15 @@
 // Layouts: q, o, dO, dq are [B, Tq, H, D] and k, v, dk, dv [B, Tkv, G, D]
 // (the Linear outputs viewed per head; row stride H*D or G*D); query head h
 // reads kv head h*G/H; segment ids [B, T] int32; positions [Tq] and [Tkv]
-// int32, shared by the batch. Tiles are 64 query rows by 64 keys.
+// int32, shared by the batch. Tiles are 64 query rows by 64 keys (BQ, BKV);
+// the bf16 forward takes its own larger tiles through the TQ / TK template
+// arguments of Mask and Pairs, which default to these.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
@@ -33,11 +36,18 @@ struct Mask {
   __device__ __forceinline__ bool allowed(int i, int j) const {
     return i < Tq && j < Tkv && (!causal || j <= i) && (window <= 0 || j > i - window);
   }
-  // the key tiles [lo, hi] that hold an unmasked pair for the query tile at i0
+  // the keys [lo, hi] that row i keeps: allowed(i, j) for 0 <= j is lo <= j <= hi
+  __device__ __forceinline__ void row_keys(int i, int& lo, int& hi) const {
+    hi = i < Tq ? (causal ? min(i, Tkv - 1) : Tkv - 1) : -1;
+    lo = window > 0 ? i - window + 1 : 0;
+  }
+  // the key tiles [lo, hi] (of TK keys) that hold an unmasked pair for the
+  // TQ query rows at i0
+  template <int TQ = BQ, int TK = BKV>
   __device__ __forceinline__ void kv_range(int i0, int& lo, int& hi) const {
-    const int n = (Tkv + BKV - 1) / BKV;
-    hi = causal ? min((i0 + BQ - 1) / BKV, n - 1) : n - 1;
-    lo = window > 0 ? max(i0 - window + 1, 0) / BKV : 0;
+    const int n = (Tkv + TK - 1) / TK;
+    hi = causal ? min((i0 + TQ - 1) / TK, n - 1) : n - 1;
+    lo = window > 0 ? max(i0 - window + 1, 0) / TK : 0;
   }
   // the query tiles [lo, hi] that hold an unmasked pair for the key tile at j0
   __device__ __forceinline__ void q_range(int j0, int& lo, int& hi) const {
@@ -45,10 +55,12 @@ struct Mask {
     lo = causal ? j0 / BQ : 0;
     hi = window > 0 ? min((j0 + BKV - 1 + window - 1) / BQ, n - 1) : n - 1;
   }
-  // a tile pair with masked elements (a boundary tile, or one past the end)
+  // a tile pair (TQ rows at i0, TK keys at j0) with masked elements (a
+  // boundary tile, or one past the end)
+  template <int TQ = BQ, int TK = BKV>
   __device__ __forceinline__ bool edge(int i0, int j0) const {
-    return (causal && j0 + BKV - 1 > i0) || (window > 0 && j0 <= i0 + BQ - 1 - window) ||
-           j0 + BKV > Tkv || i0 + BQ > Tq;
+    return (causal && j0 + TK - 1 > i0) || (window > 0 && j0 <= i0 + TQ - 1 - window) ||
+           j0 + TK > Tkv || i0 + TQ > Tq;
   }
 };
 
@@ -68,7 +80,8 @@ constexpr float NEG_HALF = NEG / 2;  // a running max at or below it: no key see
 // and of the keys (a pre-pass). A tile pair is skipped where those ranges
 // show that it keeps no pair (_seg_overlap, _pos_active: sound for values
 // in any order), and needs no element mask where they show that it keeps
-// every pair.
+// every pair. The forward's key tiles of 128 merge two entries (min of the
+// minima, max of the maxima), which keeps both tests sound.
 enum Mode { PLAIN = 0, SEG = 1, POS = 2 };
 
 template <int M>
@@ -91,21 +104,57 @@ struct Pairs {
     if constexpr (M == POS) return (!causal || ks <= qs) && (window <= 0 || ks > qs - window);
     return true;
   }
-  // the tile pair at (i0, j0) may hold a kept pair
+  // the key values [lo, hi] that a row with value qs keeps: same(qs, ks) is
+  // lo <= ks <= hi
+  __device__ __forceinline__ void kept(int qs, int& lo, int& hi) const {
+    lo = INT_MIN;
+    hi = INT_MAX;
+    if constexpr (M == SEG) {
+      lo = qs > 0 ? qs : 1;
+      hi = qs > 0 ? qs : 0;
+    }
+    if constexpr (M == POS) {
+      if (window > 0) lo = qs - window + 1;
+      if (causal) hi = qs;
+    }
+  }
+  // [lo, hi]: the [min, max] value of the TK keys from j0 (a multiple of
+  // TK), merged from their 64-key entries; past Tkv nothing is read
+  template <int TK>
+  __device__ __forceinline__ void key_range(int j0, int& lo, int& hi) const {
+    const int* b = kr + 2 * (j0 / BKV);
+    const int n = (Tkv + BKV - 1) / BKV - j0 / BKV;  // entries left
+    lo = b[0];
+    hi = b[1];
+#pragma unroll
+    for (int e = 1; e < TK / BKV; ++e)
+      if (e < n) {
+        lo = min(lo, b[2 * e]);
+        hi = max(hi, b[2 * e + 1]);
+      }
+  }
+  // the tile pair of the 64 rows at i0 and the TK keys at j0 may hold a
+  // kept pair
+  template <int TK = BKV>
   __device__ __forceinline__ bool active(int i0, int j0) const {
     if constexpr (M != PLAIN) {
-      const int *a = qr + 2 * (i0 / BQ), *b = kr + 2 * (j0 / BKV);
-      if constexpr (M == SEG) return b[0] <= a[1] && b[1] >= a[0];
-      return (!causal || b[0] <= a[1]) && (window <= 0 || b[1] > a[0] - window);
+      const int* a = qr + 2 * (i0 / BQ);
+      int b0, b1;
+      key_range<TK>(j0, b0, b1);
+      if constexpr (M == SEG) return b0 <= a[1] && b1 >= a[0];
+      return (!causal || b0 <= a[1]) && (window <= 0 || b1 > a[0] - window);
     }
     return true;
   }
-  // every pair of the tile pair at (i0, j0) is kept
+  // every pair of that tile pair is kept
+  template <int TK = BKV>
   __device__ __forceinline__ bool uniform(int i0, int j0) const {
     if constexpr (M != PLAIN) {
-      const int *a = qr + 2 * (i0 / BQ), *b = kr + 2 * (j0 / BKV);
-      if constexpr (M == SEG) return a[0] > 0 && a[0] == a[1] && b[0] == b[1] && a[0] == b[0];
-      return (!causal || b[1] <= a[0]) && (window <= 0 || b[0] > a[1] - window);
+      const int* a = qr + 2 * (i0 / BQ);
+      int b0, b1;
+      key_range<TK>(j0, b0, b1);
+      if constexpr (M == SEG) return a[0] > 0 && a[0] == a[1] && b0 == b1 && a[0] == b0;
+      return (!causal || b1 <= a[0]) && (window <= 0 || b0 > a[1] - window);
     }
     return true;
   }

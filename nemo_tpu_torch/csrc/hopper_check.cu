@@ -1,0 +1,121 @@
+// Unit check of csrc/hopper.cuh on the card, before any attention code: one
+// warpgroup loads a bf16 tile a [64][64] and a tile b by TMA (rank-4 maps,
+// 128-byte swizzle, one mbarrier) and computes c [64][N] = a b' in fp32 with
+// four wgmma m64nNk16 steps, N = 64 or 128:
+//
+//   tb = 0: b [N][64], K-major (as k for s = q k^T): c = a b^T
+//   tb = 1: b [64][N], MN-major (as v for o += p v): c = a b, N / 64 boxes
+//
+// with a from shared memory (areg = 0, as q) or as register A fragments read
+// from device memory (areg = 1, as the probabilities). chip_smoke.py holds c
+// against torch.matmul.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+#include "hopper.cuh"
+#include "mma_bf16.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using hopper::ATOM;
+using hopper::desc_sw128;
+
+constexpr uint32_t ABYTES = 64 * hopper::BOX_ROW_BYTES;  // one box of 64 rows
+
+template <int N, int TB, int AREG>
+__global__ void __launch_bounds__(128) check_kernel(const __grid_constant__ CUtensorMap ta,
+                                                    const __grid_constant__ CUtensorMap tb,
+                                                    const bf16* __restrict__ a,
+                                                    float* __restrict__ c) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t sa = (raw + ATOM - 1) & ~(ATOM - 1), sb = sa + ABYTES;
+  const uint32_t bar = sb + N * hopper::BOX_ROW_BYTES;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  if (tid == 0) {
+    hopper::mbar_init(bar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_arrive_tx(bar, ABYTES + N * hopper::BOX_ROW_BYTES);
+    hopper::tma_load_4d(sa, &ta, bar, 0, 0, 0, 0);
+    if (TB == 0) {
+      hopper::tma_load_4d(sb, &tb, bar, 0, 0, 0, 0);  // N rows of 64
+    } else {
+      for (int j = 0; j < N / 64; ++j)  // 64 rows of N: N / 64 boxes
+        hopper::tma_load_4d(sb + j * ABYTES, &tb, bar, 64 * j, 0, 0, 0);
+    }
+  }
+  hopper::mbar_wait(bar, 0);
+
+  uint32_t fa[4][4];  // a's rows 16 warp + g (+ 8) as A fragments, read by AREG = 1
+  if (AREG) {
+    const int ra = 16 * warp + g, rb = ra + 8;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        fa[ks][e] = ld_bf16x2(a + ((e & 1) ? rb : ra) * 64 + 16 * ks + 2 * t + 8 * (e >> 1));
+  }
+  float d[N / 8][4];
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const uint64_t db = TB == 0 ? desc_sw128(sb + ks * 32, 0)
+                                : desc_sw128(sb + ks * 2 * ATOM, ABYTES);
+    if (AREG)
+      hopper::wgmma_rs<N, TB>(d, fa[ks], db, ks);
+    else
+      hopper::wgmma_ss<N, TB>(d, desc_sw128(sa + ks * 32, 0), db, ks);
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(d);
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      c[(16 * warp + g + 8 * (e >> 1)) * N + 8 * i + 2 * t + (e & 1)] = d[i][e];
+}
+
+template <int N, int TB, int AREG>
+int run(const void* a, const void* b, void* c, cudaStream_t s) {
+  CUtensorMap ma, mb;
+  int err = hopper::encode_bthd(&ma, a, 1, 64, 1, 64, 64);
+  if (err == 0)
+    err = TB == 0 ? hopper::encode_bthd(&mb, b, 1, N, 1, 64, N)
+                  : hopper::encode_bthd(&mb, b, 1, 64, 1, N, 64);
+  if (err != 0) return err;
+  const size_t smem = ABYTES + N * hopper::BOX_ROW_BYTES + 8 + ATOM;
+  auto kernel = check_kernel<N, TB, AREG>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<1, 128, smem, s>>>(ma, mb, static_cast<const bf16*>(a), static_cast<float*>(c));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// a [64][64] bf16; b [n][64] (tb 0) or [64][n] (tb 1) bf16; c [64][n] fp32;
+// every pointer 16-byte aligned. n 64 or 128. Returns a cudaError_t.
+extern "C" int hopper_check(int n, int tb, int areg, const void* a, const void* b, void* c,
+                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((n != 64 && n != 128) || (tb != 0 && tb != 1) || (areg != 0 && areg != 1))
+    return (int)cudaErrorInvalidValue;
+  switch ((n == 128) * 4 + tb * 2 + areg) {
+    case 0: return run<64, 0, 0>(a, b, c, s);
+    case 1: return run<64, 0, 1>(a, b, c, s);
+    case 2: return run<64, 1, 0>(a, b, c, s);
+    case 3: return run<64, 1, 1>(a, b, c, s);
+    case 4: return run<128, 0, 0>(a, b, c, s);
+    case 5: return run<128, 0, 1>(a, b, c, s);
+    case 6: return run<128, 1, 0>(a, b, c, s);
+    case 7: return run<128, 1, 1>(a, b, c, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -9,7 +9,8 @@ use into `build/lib<name>-<hash>.so` (hash of the source and the flags), for
 
 `build_all()` starts one nvcc per source, all at once, and waits for them.
 ptxas's register and shared-memory report goes to `build/<name>.log`.
-Nothing is built when this module is imported.
+Nothing is built when this module is imported. `wgmma_tile_product` runs the
+unit check of `hopper.cuh` (`hopper_check.cu`).
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent
 BUILD = CSRC / "build"
-SOURCES = ("relpos_flash", "relpos_flash_bwd", "fused_subsampling", "flash_fwd", "flash_bwd")
+SOURCES = ("relpos_flash", "relpos_flash_bwd", "fused_subsampling", "flash_fwd", "flash_bwd",
+           "hopper_check")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -104,3 +106,28 @@ def check(err: int, what: str) -> None:
     """Raise if a kernel's C entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def wgmma_tile_product(a, b, b_mn_major: bool, a_in_registers: bool):
+    """c [64, N] fp32 = a [64, 64] · b' on the card by one warpgroup: a and b
+    bf16 CUDA tensors loaded by TMA, four wgmma m64nNk16 steps (N = 64 or
+    128), the unit check of `hopper.cuh`. b is [N, 64] (K-major, c = a b^T)
+    or, with `b_mn_major`, [64, N] (MN-major, c = a b); a is read from shared
+    memory or, with `a_in_registers`, as register fragments."""
+    import torch
+
+    n = b.shape[1] if b_mn_major else b.shape[0]
+    want = (64, n) if b_mn_major else (n, 64)
+    if (a.shape != (64, 64) or tuple(b.shape) != want or n not in (64, 128)
+            or a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16
+            or not (a.is_cuda and b.is_cuda)):
+        raise ValueError("wgmma_tile_product: a [64, 64] and b [N, 64] or [64, N] bf16 on the "
+                         "card, N 64 or 128")
+    a, b = a.contiguous(), b.contiguous()
+    c = torch.empty(64, n, dtype=torch.float32, device=a.device)
+    fn = library("hopper_check").hopper_check
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    check(fn(n, int(b_mn_major), int(a_in_registers), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+             torch.cuda.current_stream(a.device).cuda_stream), "wgmma_tile_product")
+    return c

@@ -44,6 +44,9 @@ from nemo_tpu_torch.models.llm.gpt import build_model, check_supported, init_par
 from nemo_tpu_torch.models.llm.loss import fused_linear_cross_entropy, masked_token_loss
 from nemo_tpu_torch.ops.ring_attention import ProcessGroupRing, zigzag_order
 
+# the keys of a batch that train_step takes; any other (with a value) raises
+BATCH_KEYS = ("tokens", "labels", "loss_mask", "positions", "segment_ids")
+
 
 class GPTTrainModule:
     """Owns the model and its optimizer. `train_step(batch)` takes
@@ -136,6 +139,11 @@ class GPTTrainModule:
         return torch.as_tensor(x).to(self.device, non_blocking=True)
 
     def train_step(self, batch: Mapping[str, object]) -> Dict[str, torch.Tensor]:
+        unported = sorted(k for k, v in batch.items() if k not in BATCH_KEYS and v is not None)
+        if unported:  # teacher_logits: distillation (JAX train.py:208-225) is not ported
+            raise NotImplementedError(
+                f"GPTTrainModule.train_step: batch keys {unported} are not ported; a batch "
+                f"takes {', '.join(BATCH_KEYS)}")
         tokens = self._tensor(batch["tokens"])
         if tokens.dim() != 2:
             raise NotImplementedError(

@@ -41,6 +41,24 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("b_mn_major", [False, True])
+@pytest.mark.parametrize("a_in_registers", [False, True])
+def test_wgmma_tile_product_matches_matmul(cuda, n, b_mn_major, a_in_registers):
+    """The TMA and wgmma wrappers of csrc/hopper.cuh (the bf16 flash
+    forward's): one warpgroup's m64nNk16 steps over TMA-loaded bf16 tiles
+    against torch.matmul; the bf16 products are exact in fp32, only the fp32
+    sums' order and rounding differ."""
+    from nemo_tpu_torch.csrc.loader import wgmma_tile_product
+
+    g = torch.Generator().manual_seed(n + 2 * b_mn_major + a_in_registers)
+    a = torch.randn(64, 64, generator=g).to(cuda, torch.bfloat16)
+    b = torch.randn(*((64, n) if b_mn_major else (n, 64)), generator=g).to(cuda, torch.bfloat16)
+    c = wgmma_tile_product(a, b, b_mn_major, a_in_registers)
+    ref = a.float() @ (b.float() if b_mn_major else b.float().T)
+    torch.testing.assert_close(c, ref, atol=1e-3, rtol=1e-4)
+
+
 def _attention_inputs(B, H, T, lengths, seed):
     dh = 64
     g = torch.Generator().manual_seed(seed)
@@ -248,7 +266,13 @@ def _assert_rows_close(x, r, tol, norm_tol, msg):
 
 GQA_CASES = [  # H, G, T, dh, causal, window
     (4, 1, 256, 64, True, None), (4, 2, 200, 64, True, 48), (4, 4, 192, 128, True, None),
-    (4, 2, 128, 128, False, None), (8, 2, 320, 64, False, 100), (4, 4, 256, 64, True, 64)]
+    (4, 2, 128, 128, False, None), (8, 2, 320, 64, False, 100), (4, 4, 256, 64, True, 64),
+    # the bf16 forward's 128-row blocks and 128-key (dh 64) or 64-key (dh 128) tiles:
+    # less than a tile, a 64-row half, 1.5 blocks, one row short of and one row past
+    # a multiple of 128; 8 query heads a kv head, a window at dh 128, not causal (one
+    # row: test_flash_forward_of_one_row_matches_plain)
+    (8, 1, 17, 64, True, None), (4, 2, 64, 64, True, None), (8, 1, 192, 128, True, 100),
+    (4, 1, 2047, 64, True, None), (4, 2, 2049, 128, False, None)]
 
 
 @pytest.mark.parametrize("dtype,tol,gtol,ntol", [(torch.float32, 2e-5, 1e-4, 1e-5),
@@ -284,6 +308,27 @@ def test_flash_kernels_match_plain(cuda, dtype, tol, gtol, H, G, T, dh, causal, 
     for name, x, r in zip(("dq", "dk", "dv"), out, ref):
         assert x.shape == r.shape and x.dtype == dtype, name
         _assert_rows_close(x, r, gtol, ntol, name)
+
+
+@pytest.mark.parametrize("dtype,tol,ntol", [(torch.float32, 2e-5, 1e-5),
+                                          (torch.bfloat16, 2e-2, 1e-2)])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_forward_of_one_row_matches_plain(cuda, dtype, tol, ntol, dh):
+    """K5 at T = 1 (one row in a block of 128, one key in a tile), 8 query
+    heads a kv head: o and lse against the plain forward. The gradients are
+    not compared here: with one key a row dq and dk are 0 in exact
+    arithmetic, and both sides give rounding noise."""
+    from nemo_tpu_torch.ops.flash_attention import _k5_launch
+
+    g = torch.Generator().manual_seed(dh)
+    q = torch.randn(3, 1, 8, dh, generator=g).to(cuda, dtype).transpose(1, 2)
+    k, v = (torch.randn(3, 1, 1, dh, generator=g).to(cuda, dtype).transpose(1, 2)
+            for _ in range(2))
+    o, lse = _k5_launch(q, k, v, 1.0 / math.sqrt(dh), True, None)
+    o_ref, lse_ref = flash_attention_plain(q, k, v, 1.0 / math.sqrt(dh), True, None)
+    torch.testing.assert_close(o.transpose(1, 2).float(), o_ref.float(), atol=tol, rtol=tol)
+    _assert_rows_close(o.transpose(1, 2), o_ref, tol, ntol, "o")
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
 
 
 def test_flash_output_is_differentiable_on_cuda(cuda):
@@ -329,7 +374,9 @@ def packed_segments(layout: str, T: int) -> torch.Tensor:
     lengths of the SFT data (a prompt of 64-1024 tokens and an answer of
     8-128, and one eos); "mixed", a row with ids 1, 2, 1, 3 and a run of
     padding in the middle and at the end, then a row of padding only;
-    "one", one segment over each whole row."""
+    "one", one segment over each whole row; "mid_tile", segments that start
+    inside the bf16 forward's 128-row tiles (at 100, 300, 1000 and 70), with
+    padding inside (230-299) and at the end of the first row."""
     from nemo_tpu_torch.data.packed_sequence import pack_batch
 
     seg = torch.zeros(2, T, dtype=torch.int32)
@@ -343,6 +390,10 @@ def packed_segments(layout: str, T: int) -> torch.Tensor:
         cuts = [0, 3 * T // 20, 7 * T // 20, 9 * T // 20, 13 * T // 20, 19 * T // 20 - 5]
         for sid, (lo, hi) in zip((1, 2, 0, 1, 3), zip(cuts, cuts[1:])):
             seg[0, lo:hi] = sid
+    elif layout == "mid_tile":
+        for sid, lo, hi in ((1, 0, 100), (2, 100, 230), (3, 300, 1000), (4, 1000, T - 58)):
+            seg[0, lo:hi] = sid
+        seg[1, :70], seg[1, 70:] = 1, 2
     else:
         seg[:] = 1
     return seg
@@ -354,7 +405,7 @@ PACKED_CASES = [(32, 8, 64, None), (32, 8, 64, 512), (12, 12, 128, None)]  # H, 
 @pytest.mark.parametrize("dtype,tol,gtol,ntol", [(torch.float32, 2e-5, 1e-4, 1e-5),
                                                  (torch.bfloat16, 2e-2, 3e-2, 1e-2)])
 @pytest.mark.parametrize("H,G,dh,window", PACKED_CASES)
-@pytest.mark.parametrize("layout", ["packed", "mixed", "one"])
+@pytest.mark.parametrize("layout", ["packed", "mixed", "one", "mid_tile"])
 def test_packed_flash_kernels_match_plain(cuda, layout, H, G, dh, window, dtype, tol, gtol, ntol):
     """K8 against the plain packed forward and K9, K10 against the plain
     packed backward at B=2, S=2048, held row by row as K5-K7 are: padding
@@ -512,19 +563,22 @@ def position_layout(layout: str, Tl: int):
 @pytest.mark.parametrize("dtype,tol,gtol,ntol", [(torch.float32, 2e-5, 1e-4, 1e-5),
                                                  (torch.bfloat16, 2e-2, 3e-2, 1e-2)])
 @pytest.mark.parametrize("H,G,dh", [(32, 8, 64), (12, 12, 128)])
-@pytest.mark.parametrize("layout", ["arange", "diagonal", "off_diagonal", "window", "offset"])
+@pytest.mark.parametrize("layout", ["arange", "diagonal", "off_diagonal", "window", "offset",
+                                    "arange_192", "off_diagonal_192"])
 def test_positions_flash_kernels_match_plain(cuda, layout, H, G, dh, dtype, tol, gtol, ntol):
     """K11 against the plain positions forward, and K12, K13 against the
-    plain backward given a nonzero lse cotangent, at B=2 and 512 rows a rank,
-    held row by row as K5-K7 are: rows that keep no key give o = 0, lse =
-    -1e30 and dq = 0 exactly; at "arange" K11-K13 give K5-K7's bits."""
+    plain backward given a nonzero lse cotangent, at B=2 and 512 rows a rank
+    (192 for the "_192" layouts: a multiple of 64 that is not one of the bf16
+    forward's 128-row blocks), held row by row as K5-K7 are: rows that keep no
+    key give o = 0, lse = -1e30 and dq = 0 exactly; at "arange" K11-K13 give
+    K5-K7's bits."""
     from nemo_tpu_torch.ops.flash_attention import (
         _k11_launch, _k5_launch, flash_attention_positions,
         flash_attention_positions_backward_plain, flash_attention_positions_plain,
         flash_pos_dkv, flash_pos_dq, pos_delta)
 
-    B, Tl, scale = 2, 512, 1.0 / math.sqrt(dh)
-    qpos, kpos, window, _ = position_layout(layout, Tl)
+    B, Tl, scale = 2, 192 if layout.endswith("_192") else 512, 1.0 / math.sqrt(dh)
+    qpos, kpos, window, _ = position_layout(layout.removesuffix("_192"), Tl)
     qpos, kpos = qpos.to(cuda), kpos.to(cuda)
     g = torch.Generator().manual_seed(dh + len(layout))
     q, do = (torch.randn(B, len(qpos), H, dh, generator=g).to(cuda, dtype).transpose(1, 2)
@@ -536,7 +590,7 @@ def test_positions_flash_kernels_match_plain(cuda, layout, H, G, dh, dtype, tol,
     _, lse = _k11_launch(q, k, v, qpos, kpos, scale, True, window)
     o_ref, lse_ref = flash_attention_positions_plain(q, k, v, qpos, kpos, scale, True, window)
     dead = (kpos[None, :] > qpos[:, None]).all(-1)
-    assert bool(dead.any()) == (layout == "off_diagonal")
+    assert bool(dead.any()) == layout.startswith("off_diagonal")
     _assert_rows_close(o, o_ref, tol, ntol, "o")
     assert torch.equal(lse, lse_w)
     torch.testing.assert_close(lse[:, :, ~dead], lse_ref[:, :, ~dead], atol=1e-3, rtol=1e-4)
@@ -550,7 +604,7 @@ def test_positions_flash_kernels_match_plain(cuda, layout, H, G, dh, dtype, tol,
         assert x.shape == r.shape and x.dtype == dtype, name
         _assert_rows_close(x, r, gtol, ntol, name)
     assert bool((out[0][:, :, dead] == 0).all())
-    if layout == "arange":  # K5-K7 step for step
+    if layout.startswith("arange"):  # K5-K7 step for step
         o5, lse5 = _k5_launch(q, k, v, scale, True, window)
         args5 = (q, k, v, scale, True, window, lse5, pos_delta(o, do, dlse), do)
         assert torch.equal(o.transpose(1, 2), o5) and torch.equal(lse, lse5)

@@ -44,6 +44,31 @@ def test_chip_smoke_alone_fails_without_a_result(tmp_path):
     assert '"ok"' not in out.stdout
 
 
+def test_chip_smoke_forward_timing_fails_without_a_card():
+    """`chip_smoke.py --time-forward` (the A/B timing of the bf16 flash
+    forward) needs a card too: it exits non-zero and prints no timing."""
+    out = subprocess.run([sys.executable, "chip_smoke.py", "--time-forward", "--tree", "."],
+                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "k5_ms" not in out.stdout
+
+
+def test_wgmma_tile_product_runs_on_the_card_or_raises():
+    """The unit check of csrc/hopper.cuh takes bf16 tiles on the card only:
+    CPU tensors, other dtypes and other shapes raise before any build."""
+    from nemo_tpu_torch.csrc.loader import wgmma_tile_product
+
+    a, b = torch.zeros(64, 64, dtype=torch.bfloat16), torch.zeros(128, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="on the card"):
+        wgmma_tile_product(a, b, False, False)
+    with pytest.raises(ValueError, match="bf16"):
+        wgmma_tile_product(a.float(), b.float(), False, True)
+    with pytest.raises(ValueError, match="N 64 or 128"):
+        wgmma_tile_product(a, b[:96], False, False)
+    with pytest.raises(ValueError, match="N 64 or 128"):
+        wgmma_tile_product(a, b, True, False)  # MN-major b is [64, N]
+
+
 def test_model_without_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

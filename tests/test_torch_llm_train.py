@@ -140,6 +140,22 @@ def test_train_module_refuses_what_is_not_ported():
                            device="cpu")
 
 
+def test_train_step_refuses_batch_keys_it_does_not_take():
+    """A batch with teacher_logits (a distillation batch, which the JAX step
+    trains as (1-a) CE + a T^2 KL) raises until distillation is ported, where
+    it trained plain CE; the usual keys still train, and a key set to None
+    is no key (as the JAX step reads it)."""
+    mod = GPTTrainModule(_cfg(port_config, num_layers=1), device="cpu")
+    batch = _batches(1)[0]
+    teacher = np.zeros(batch["tokens"].shape + (mod.cfg.vocab_size,), np.float32)
+    with pytest.raises(NotImplementedError, match="teacher_logits"):
+        mod.train_step({**batch, "teacher_logits": teacher})
+    assert mod.step == 0
+    metrics = mod.train_step({**batch, "loss_mask": np.ones(batch["tokens"].shape, np.float32),
+                              "teacher_logits": None})
+    assert mod.step == 1 and np.isfinite(float(metrics["loss"]))
+
+
 def test_init_state_draws_the_seeds_parameters_again():
     cfg = _cfg(port_config, num_layers=1)
     mod = GPTTrainModule(cfg, device="cpu", seed=3)
