@@ -18,6 +18,10 @@ at 16,384 tokens through the position-masked flash kernels K11-K13.
                                      # only the bf16 forward kernels K5, K8 and K11
                                      # of this checkout (or of DIR) timed, one JSON
                                      # line: run two checkouts in turns to compare
+    python3 chip_smoke.py --time-backward [--tree DIR]
+                                     # the same for the bf16 backward kernels K6,
+                                     # K7, K9, K10, K12 and K13, beside SDPA's
+                                     # backward
 
 Phases, each printing a line; any failure raises and exits non-zero:
 
@@ -1693,6 +1697,25 @@ def cp_processes() -> int:
     return 0
 
 
+def _timing_start():
+    """(the JSON line's head: tree and card, the timer) of --time-forward and
+    --time-backward: CUDA events over 50 launches after 3 warm-up ones"""
+    import nemo_tpu_torch
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    out = {"tree": os.path.dirname(os.path.dirname(nemo_tpu_torch.__file__)), "card": smi}
+    return out, lambda fn: cuda_ms(fn, iters=50, warmup=3)
+
+
+def _sft_first_segments() -> torch.Tensor:
+    """the segment ids [8, 2048] of the SFT run's first batch, on the card"""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sft.jsonl")
+        write_sft_jsonl(path)
+        return sft_data(path)[1][0]["segment_ids"].to("cuda", torch.int32)
+
+
 def time_forward() -> int:
     """--time-forward: only the bf16 forward kernels K5, K8 and K11 of the
     `nemo_tpu_torch` on sys.path (another checkout with --tree), each timed
@@ -1703,15 +1726,11 @@ def time_forward() -> int:
     diagonal and off-diagonal ring steps. Prints one JSON line. Run it for two
     trees in turns (parent, change, change, parent) to compare them on one
     card."""
-    import nemo_tpu_torch
     from nemo_tpu_torch.ops.flash_attention import (_k5_launch, _k8_launch, _k11_launch,
                                                     pos_tile_ranges, seg_tile_ranges)
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    out, timed = _timing_start()
     gen = torch.Generator().manual_seed(0)
-    out = {"tree": os.path.dirname(os.path.dirname(nemo_tpu_torch.__file__)), "card": smi}
-    timed = lambda fn: cuda_ms(fn, iters=50, warmup=3)  # noqa: E731
     for name, (H, G, dh) in (("k5", (32, 8, 64)), ("k5_dh128", (12, 12, 128))):
         q, k, v, _ = _gqa_inputs(gen, LLM_B, H, G, LLM_S, dh, torch.bfloat16)
         scale = 1.0 / math.sqrt(dh)
@@ -1719,10 +1738,7 @@ def time_forward() -> int:
         out[f"sdpa{name[2:]}_ms"] = timed(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, scale=scale, enable_gqa=True))
     q, k, v, _ = _gqa_inputs(gen, LLM_B, 32, 8, LLM_S, 64, torch.bfloat16)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "sft.jsonl")
-        write_sft_jsonl(path)
-        seg = sft_data(path)[1][0]["segment_ids"].to("cuda", torch.int32)
+    seg = _sft_first_segments()
     ranges = seg_tile_ranges(seg)
     out["k8_ms"] = timed(lambda: _k8_launch(q, k, v, seg, ranges, 0.125, True, None))
     Tl = CP_S // 2
@@ -1732,6 +1748,58 @@ def time_forward() -> int:
         r = (pos_tile_ranges(qpos), pos_tile_ranges(kpos))
         out[f"k11_{step}_ms"] = timed(
             lambda: _k11_launch(q, k, v, qpos, kpos, 0.125, True, None, r))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def time_backward() -> int:
+    """--time-backward: only the bf16 backward kernels of the `nemo_tpu_torch`
+    on sys.path (another checkout with --tree), as --time-forward times the
+    forward: K6, K7 and row_delta (the delta pass before them) at B=8, H=32
+    over G=8, S=2048, dh 64, causal (and at dh 128, 12 heads over 12),
+    beside SDPA's backward (dq, dk, dv of a causal GQA forward, its own delta
+    pass included); K9 and K10 on the SFT run's first batch; K12 and K13 at
+    one rank's CP shape (B=1, Tl=8,192), rank 0's diagonal and off-diagonal
+    ring steps. Each given the lse of its forward. Prints one JSON line."""
+    from nemo_tpu_torch.ops.flash_attention import (
+        _k5_launch, _k8_launch, _k11_launch, flash_dkv, flash_dq, flash_pos_dkv, flash_pos_dq,
+        flash_seg_dkv, flash_seg_dq, pos_delta, pos_tile_ranges, row_delta, seg_tile_ranges)
+
+    out, timed = _timing_start()
+    gen = torch.Generator().manual_seed(0)
+    for name, (H, G, dh) in (("", (32, 8, 64)), ("_dh128", (12, 12, 128))):
+        q, k, v, do = _gqa_inputs(gen, LLM_B, H, G, LLM_S, dh, torch.bfloat16)
+        scale = 1.0 / math.sqrt(dh)
+        o, lse = _k5_launch(q, k, v, scale, True, None)
+        o = o.transpose(1, 2)
+        args = (q, k, v, scale, True, None, lse, row_delta(o, do), do)
+        out[f"k6{name}_ms"] = timed(lambda: flash_dq(*args))
+        out[f"k7{name}_ms"] = timed(lambda: flash_dkv(*args))
+        out[f"row_delta{name}_ms"] = timed(lambda: row_delta(o, do))
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, scale=scale,
+                                               enable_gqa=True)
+        out[f"sdpa_backward{name}_ms"] = timed(
+            lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do, retain_graph=True))
+        del o_lib, ql, kl, vl
+    q, k, v, do = _gqa_inputs(gen, LLM_B, 32, 8, LLM_S, 64, torch.bfloat16)
+    seg = _sft_first_segments()
+    ranges = seg_tile_ranges(seg)
+    o, lse = _k8_launch(q, k, v, seg, ranges, 0.125, True, None)
+    o = o.transpose(1, 2)
+    args = (q, k, v, seg, 0.125, True, None, lse, row_delta(o, do), do, ranges)
+    out["k9_ms"] = timed(lambda: flash_seg_dq(*args))
+    out["k10_ms"] = timed(lambda: flash_seg_dkv(*args))
+    Tl = CP_S // 2
+    q, k, v, do = _gqa_inputs(gen, CP_B, 32, 8, Tl, 64, torch.bfloat16)
+    for step, (qpos, kpos, _, _) in ((s, position_layouts(Tl)[s])
+                                     for s in ("diagonal", "off_diagonal")):
+        r = (pos_tile_ranges(qpos), pos_tile_ranges(kpos))
+        o, lse = _k11_launch(q, k, v, qpos, kpos, 0.125, True, None, r)
+        o = o.transpose(1, 2)
+        args = (q, k, v, qpos, kpos, 0.125, True, None, lse, pos_delta(o, do), do, r)
+        out[f"k12_{step}_ms"] = timed(lambda: flash_pos_dq(*args))
+        out[f"k13_{step}_ms"] = timed(lambda: flash_pos_dkv(*args))
     print(json.dumps(out), flush=True)
     return 0
 
@@ -1746,18 +1814,21 @@ def main() -> int:
                              "torchrun --nproc-per-node N chip_smoke.py --cp-processes")
     parser.add_argument("--time-forward", action="store_true",
                         help="only time the bf16 forward kernels K5, K8 and K11")
+    parser.add_argument("--time-backward", action="store_true",
+                        help="only time the bf16 backward kernels K6, K7, K9, K10, K12 and K13")
     parser.add_argument("--tree", default=None,
-                        help="with --time-forward: the checkout whose nemo_tpu_torch to time")
+                        help="with --time-forward or --time-backward: the checkout whose "
+                             "nemo_tpu_torch to time")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this check runs on the GPU only", file=sys.stderr)
         return 1
     if args.cp_processes:
         return cp_processes()
-    if args.time_forward:
+    if args.time_forward or args.time_backward:
         if args.tree:
             sys.path.insert(0, os.path.abspath(args.tree))
-        return time_forward()
+        return time_forward() if args.time_forward else time_backward()
     from nemo_tpu_torch.ops.flash_attention import flash_attention as k5
     from nemo_tpu_torch.ops.flash_attention import flash_attention_positions as k11
     from nemo_tpu_torch.ops.flash_attention import flash_pos_dkv as k13

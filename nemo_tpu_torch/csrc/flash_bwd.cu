@@ -17,23 +17,44 @@
 //   K6: dq_i = sum_j dS_ij k_j
 //   K7: dk_j = sum_{h in g} sum_i dS_ij q_i     dv_j = sum_{h in g} sum_i P_ij dO_i
 //
-// Both recompute s per 64 x 64 tile pair and visit only the pairs with an
-// unmasked element (_block_active); boundary tiles are masked element-wise.
+// Both recompute s per tile pair and visit only the pairs with an unmasked
+// element (_block_active); boundary tiles are masked element-wise. They are
+// two kernels with no atomics, as the JAX package has them: a fused kernel
+// that adds dq by fp32 atomics would not be deterministic.
 //
-// - K6: one block per (b, h, 64 query rows), looping over the key tiles from
-//   the window's first to the diagonal; later query tiles (more work) launch
-//   first.
-// - K7: one block per (b, kv head g, 64 keys), looping over the H/G query
-//   heads of the group (the JAX grid's `rep` axis) times the query tiles from
-//   the diagonal to the window's last. Each warp owns 16 keys and works on
-//   transposed scores (keys x queries); dk and dv stay in registers across
-//   the whole loop, so each tile of dk and dv is written once, with no
-//   atomics: K7 is deterministic.
-//
-// bf16 (the main path): tensor cores through mma.sync m16n8k16 with fp32
-// accumulators; P and dS are rounded to bf16 before each product, as the JAX
-// kernels round them to the input dtype (flash_attention.py:248,291,299).
-// fp32 (the exactness check): scalar FMAs from shared-memory tiles.
+// bf16 (the main path; csrc/hopper.cuh, TMA and wgmma, no mma.sync): a block
+// of 384 threads, a producer warpgroup that hands its registers to two
+// consumer warpgroups (setmaxnreg 56 / 224) and works in one warp, which
+// decides the tiles 32 at a time by ballot and loads them by TMA into a
+// ring of shared-memory stages in the 128-byte swizzle, each completed on an
+// mbarrier, with the tile's index and per-warpgroup mask flags beside it.
+// - K6: a block owns 128 query rows of one (b, h), a consumer 64 of them; q
+//   and dO are loaded once an item (double-buffered), k and v of each key
+//   tile (128 keys at D = 64, 64 at D = 128) into 3 stages. Products: s = q
+//   k^T and dP = dO v^T from shared memory (K-major), dq += dS k with dS as
+//   register A fragments and k MN-major (the transposed-B bit).
+// - K7: a block owns 128 keys of one (b, kv head g), a consumer 64 of them;
+//   k and v are loaded once an item, q and dO of each (query head of the
+//   group, 64-row query tile) pair into 4 stages, with the rows' lse and
+//   delta (plain loads by the producer warp: their rows need not be 16-byte
+//   aligned for a bulk copy). Transposed scores, keys by queries: s^T = k
+//   q^T and dP^T = v dO^T (k, v as A, q, dO as B, K-major), dv += P^T dO
+//   and dk += dS^T q (register A fragments, q and dO MN-major). dk and dv
+//   stay in fp32 registers over all the group's heads and are written once:
+//   K7 is deterministic. 64-row query tiles: at D = 128, 128 would spill.
+// K6, K9 and K7 take a persistent grid (a block a multiprocessor, items in
+// a snake order); K12, K10 and K13 one block an item (their items' work
+// varies with the positions or segments). A warpgroup issues K6's products
+// one after another (the two warpgroups overlap each other), and K7's dk
+// product of a tile after the next tile's s^T and dP^T (one tile behind:
+// 2-3 % faster at D = 64 on the H100; it spills at D = 128, 0.53 ms there
+// where the plain order took 0.44, not the main path; K6 measured 5 %
+// slower so). Edge tiles are masked from each row's kept key range
+// (Mask::row_keys, Pairs::kept) in K6 and each key's kept row range
+// (Mask::key_rows, Pairs::kept_by) in K7, in a branch of their own. P and dS
+// are rounded to bf16 before their products, as the JAX kernels round them
+// to the input dtype (flash_attention.py:248,291,299); dS takes P in fp32.
+// fp32 (the exactness check): scalar FMAs from shared-memory tiles, 64 x 64.
 //
 // K9 and K10 replace nemo_tpu/ops/flash_attention.py:_dq_seg_kernel
 // (pallas_call at 1044) and _dkv_seg_kernel (pallas_call at 1090), the
@@ -63,7 +84,8 @@
 // Bound on the H100: per valid (query, key) pair K6 does 3 products of 2 D
 // operations (q.k, dO.v, dS.k) and K7 4 (q.k, dO.v, P.dO, dS.q), against ~5
 // (K6) and ~7 (K7) x B T H D x 2 bytes of inputs and outputs, so operations
-// bound both at the training shape. wgmma, TMA and pipelining come later.
+// bound both at the training shape (B=8, H=32, G=8, T=2048, D=64: 0.21 and
+// 0.28 ms at the bf16 peak).
 //
 // Layouts: q, dO, dq [B, Tq, H, D]; k, v, dk, dv [B, Tkv, G, D]; lse and
 // delta [B, H, Tq] fp32; segment ids [B, T] int32 and their tile ranges
@@ -74,6 +96,7 @@
 #include <cuda_bf16.h>
 
 #include "flash_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -290,210 +313,654 @@ __global__ void __launch_bounds__(NT) dkv_kernel(
 
 }  // namespace f32
 
-// ------------------------------------------------------- bf16 tensor-core path
+// ------------------------------------------------ bf16 path: TMA and wgmma
 
-namespace tc {
+namespace wg {
 
-using namespace flash::tc;
+using bf16 = __nv_bfloat16;
+using flash::tc::ex2;
+using flash::tc::pack_p;
+using hopper::ATOM;
+using hopper::product_rs;
+using hopper::product_ss;
 
-// K6: K, V [BKV][D+8] bf16
-template <int D>
-constexpr size_t smem_dq() { return 2 * BKV * (D + 8) * sizeof(bf16); }
-// K7: K, V [BKV][D+8], Q, dO [BQ][D+8] bf16; lse, delta [BQ] fp32
-template <int D>
-constexpr size_t smem_dkv() { return 4 * BQ * (D + 8) * sizeof(bf16) + 2 * BQ * sizeof(float); }
+constexpr int WGS = 2;               // consumer warpgroups, 64 rows or keys each
+constexpr int NT = 128 * (WGS + 1);  // and a producer warpgroup, one warp of it at work
+constexpr int PRODUCER_REGS = 56;    // registers a thread, after the split (setmaxnreg):
+constexpr int CONSUMER_REGS = 224;   // 128 x 56 + 256 x 224 <= 384 x 168 at launch
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr uint32_t BOX64 = 64 * hopper::BOX_ROW_BYTES;  // a box of 64 rows
 
-template <int D, int M>
-__global__ void __launch_bounds__(NT, 2) dq_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, const int* __restrict__ qv, const int* __restrict__ kv,
-    const int* __restrict__ qr, const int* __restrict__ kr, bf16* __restrict__ dq, int H, int G,
-    int Tq, int Tkv, float scale, int causal, int window) {
-  constexpr int LDS = D + 8, KS = D / 16, NDT = D / 8;
-  extern __shared__ float4 smem4[];
-  bf16* sK = reinterpret_cast<bf16*>(smem4);  // [BKV][LDS]: k_j
-  bf16* sV = sK + BKV * LDS;                  // [BKV][LDS]: v_j
-  __shared__ int sKs[M != PLAIN ? BKV : 1];   // the key tile's ids or positions
+// this warp is done with what `bar` guards
+__device__ __forceinline__ void release(uint32_t bar, int lane) {
+  __syncwarp();
+  if (lane == 0) hopper::mbar_arrive(bar);
+}
 
-  const Mask mask = flash::mask_of<M>(Tq, Tkv, causal, window);
-  const int i0 = (gridDim.x - 1 - blockIdx.x) * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const long long rq = (long long)H * D, rk = (long long)G * D;
-  const long long qoff = (long long)b * Tq * rq + (long long)h * D;
-  const long long koff = (long long)b * Tkv * rk + (long long)(h * G / H) * D;
-  const long long lrow = ((long long)b * H + h) * Tq;
-
-  // this warp's query rows ia, ib as A fragments of q and dO
-  const int ia = i0 + 16 * warp + g, ib = ia + 8;
-  uint32_t fq[KS][4], fo[KS][4];
-  load_rows_a<KS>(fq, q + qoff, ia, ib, Tq, rq, t);
-  load_rows_a<KS>(fo, dout + qoff, ia, ib, Tq, rq, t);
-  const float lse_r[2] = {ia < Tq ? lse[lrow + ia] : 0.f, ib < Tq ? lse[lrow + ib] : 0.f};
-  const float del_r[2] = {ia < Tq ? delta[lrow + ia] : 0.f, ib < Tq ? delta[lrow + ib] : 0.f};
-  const Pairs<M> pr = flash::pairs_of<M>(qv, kv, qr, kr, b, Tq, Tkv, causal, window);
-  const int qs[2] = {pr.qid(ia), pr.qid(ib)};
-
-  float aq[NDT][4];
-  zero<NDT>(aq);
-  int lo, hi;
-  mask.kv_range(i0, lo, hi);
-  for (int kt = lo; kt <= hi; ++kt) {
-    const int j0 = kt * BKV;
-    if (!pr.active(i0, j0)) continue;  // the same for the whole block
-    __syncthreads();  // the previous tile is no longer read
-    stage_rows<D>(sK, k + koff, j0, BKV, Tkv, rk);
-    stage_rows<D>(sV, v + koff, j0, BKV, Tkv, rk);
-    flash::stage_kids<M>(sKs, pr, j0);
-    __syncthreads();
-
-    // P = exp(s scale - lse), 0 where masked
-    float s[8][4];
-    zero<8>(s);
-    mma_nt<8, KS, LDS>(s, fq, sK, g, t);
-    const bool edge = mask.edge(i0, j0) || !pr.uniform(i0, j0);
+// P = 2^(s scale2 - lse2) of a score tile in registers (rows 0, 1 as e / 2,
+// column 8 nt + 2 t + e % 2 of the tile), lse2 = lse log2(e) of the pair's
+// query (lse2(hh, c), c = 8 nt + e % 2). Where `edge`, P = 0 directly (never
+// an exponential) on masked pairs: where the column is outside its row's
+// kept range (klo, khi: offsets from the tile's column 2 t) or, under a
+// policy, the column's value (cid, from column 2 t) is outside the row's
+// kept values [vlo, vhi]. Both branches take the same arithmetic, so a kept
+// pair gets the same bits in either.
+template <int NC, int M, typename Lse>
+__device__ __forceinline__ void probs(float (&sc)[NC / 8][4], bool edge, const int (&klo)[2],
+                                      const int (&khi)[2], const int* cid, const int (&vlo)[2],
+                                      const int (&vhi)[2], float scale2, Lse lse2) {
+  if (__builtin_expect(edge, 0)) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < NC / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = g + 8 * (e >> 1), jl = 8 * nt + 2 * t + (e & 1);
-        const bool ok = !edge || (mask.allowed(i0 + 16 * warp + r, j0 + jl) &&
-                                  pr.same(qs[e >> 1], M != PLAIN ? sKs[jl] : 1));
-        s[nt][e] = ok ? __expf(s[nt][e] * scale - lse_r[e >> 1]) : 0.f;
+        const int c = 8 * nt + (e & 1), hh = e >> 1;
+        bool keep = c >= klo[hh] && c <= khi[hh];
+        if constexpr (M != PLAIN) keep = keep && cid[c] >= vlo[hh] && cid[c] <= vhi[hh];
+        sc[nt][e] = keep ? ex2(fmaf(sc[nt][e], scale2, -lse2(hh, c))) : 0.f;
       }
-
-    // dS = P (dO v^T - delta) scale
-    {
-      float dpr[8][4];
-      zero<8>(dpr);
-      mma_nt<8, KS, LDS>(dpr, fo, sV, g, t);
+  } else {
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < NC / 8; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = s[nt][e] * (dpr[nt][e] - del_r[e >> 1]) * scale;
-    }
-    uint32_t a[4][4];
-    pack_a(a, s);
-    mma_nn<4, NDT, LDS>(aq, a, sK, lane);  // dq += dS k
+      for (int e = 0; e < 4; ++e)
+        sc[nt][e] = ex2(fmaf(sc[nt][e], scale2, -lse2(e >> 1, 8 * nt + (e & 1))));
   }
-  const float one[2] = {1.f, 1.f};
-  store_rows<NDT>(dq + qoff, aq, ia, ib, Tq, rq, t, one);
 }
 
+// dS = P (dP - delta) scale in dp's registers, then as bf16 A fragments
+// (delta(hh, c) as lse2 above)
+template <int NC, typename Del>
+__device__ __forceinline__ void dscores(uint32_t (&a)[NC / 16][4], float (&dp)[NC / 8][4],
+                                        const float (&p)[NC / 8][4], float scale, Del del) {
+#pragma unroll
+  for (int nt = 0; nt < NC / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dp[nt][e] = p[nt][e] * (dp[nt][e] - del(e >> 1, 8 * nt + (e & 1))) * scale;
+  pack_p<NC>(a, dp);
+}
+
+// ---- K6, K9, K12: dq. A block of 384 threads: a producer warpgroup and two
+// consumer warpgroups of 64 query rows, as the forward (flash_fwd.cu:
+// fwd_kernel): the producer's first warp walks the key tiles 32 at a time,
+// loads q and dO once an item (double-buffered) and k and v of each visited
+// tile by TMA into a ring of stages; a consumer computes s = q k^T and dP =
+// dO v^T from shared memory, P and dS in registers, and dq += dS k with dS
+// as register A fragments and k MN-major, dq held in fp32 registers for the
+// item and written once.
+
+constexpr int TQ = 64 * WGS;  // query rows a block
+
+// Shared memory, in bytes from a 1024-aligned base: two buffers of q and dO
+// (a box of 64 rows x 64 columns per warpgroup and 64 columns of D: q's
+// boxes, then dO's), so that the next work item's rows load while this
+// one's are read; STAGES stages of k and v (D / 64 boxes of TK keys each);
+// the mbarriers (q loaded[2], q free[2], full[STAGES], empty[STAGES]); the
+// keys' ids or positions of each stage; and each stage's tile: its index
+// (-1: the item has no more tiles) and which warpgroups need the element
+// mask there (bit w).
+template <int D>
+struct DqLayout {
+  static constexpr int TK = D == 64 ? 128 : 64;  // keys a tile, as the registers allow
+  static constexpr int NB = D / 64;              // boxes a row
+  static constexpr int STAGES = 3;
+  static constexpr uint32_t KBOX = TK * hopper::BOX_ROW_BYTES;
+  static constexpr uint32_t QBUF = 2 * WGS * NB * BOX64;
+  static constexpr uint32_t KV = 2 * QBUF;
+  static constexpr uint32_t STAGE = 2 * NB * KBOX;  // k boxes, then v boxes
+  static constexpr uint32_t BARS = KV + STAGES * STAGE;
+  static constexpr uint32_t IDS = BARS + 8 * (4 + 2 * STAGES);
+  static constexpr uint32_t INFO = IDS + STAGES * TK * 4;
+  static constexpr uint32_t BYTES = INFO + STAGES * 8 + ATOM;  // + the alignment slack
+};
+
 template <int D, int M>
-__global__ void __launch_bounds__(NT, 2) dkv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, const int* __restrict__ qv, const int* __restrict__ kv,
-    const int* __restrict__ qr, const int* __restrict__ kr, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, int H, int G, int Tq, int Tkv, float scale, int causal,
+__global__ void __launch_bounds__(NT, 1) dq_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const float* __restrict__ lse, const float* __restrict__ delta, const int* __restrict__ qv,
+    const int* __restrict__ kv, const int* __restrict__ qr, const int* __restrict__ kr,
+    bf16* __restrict__ dq, int B, int H, int G, int Tq, int Tkv, float scale, int causal,
     int window) {
-  constexpr int LDS = D + 8, KS = D / 16, NDT = D / 8;
-  extern __shared__ float4 smem4[];
-  bf16* sK = reinterpret_cast<bf16*>(smem4);  // [BKV][LDS]: k_j
-  bf16* sV = sK + BKV * LDS;                  // [BKV][LDS]: v_j
-  bf16* sQ = sV + BKV * LDS;                  // [BQ][LDS]: q_i of the current head
-  bf16* sO = sQ + BQ * LDS;                   // [BQ][LDS]: dO_i
-  float* sL = reinterpret_cast<float*>(sO + BQ * LDS);  // [BQ] lse
-  float* sDl = sL + BQ;                                 // [BQ] delta
-  __shared__ int sQs[M != PLAIN ? BQ : 1], sKs[M != PLAIN ? BKV : 1];  // rows', keys' values
+  using L = DqLayout<D>;
+  constexpr int TK = L::TK, NB = L::NB, STAGES = L::STAGES;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + ATOM - 1) & ~(ATOM - 1);
+  int* ids = reinterpret_cast<int*>(smem_raw + (base - raw) + L::IDS);
+  int2* info = reinterpret_cast<int2*>(smem_raw + (base - raw) + L::INFO);
+  auto q_loaded = [&](int qb) { return base + L::BARS + 8 * qb; };
+  auto q_free = [&](int qb) { return base + L::BARS + 8 * (2 + qb); };
+  auto full = [&](int s) { return base + L::BARS + 8 * (4 + s); };
+  auto empty = [&](int s) { return base + L::BARS + 8 * (4 + STAGES + s); };
 
+  // work item it: 128 query rows from i0 of head h, batch row b, the last
+  // query tiles (the most key tiles) first over every (b, h); a persistent
+  // grid takes them in a snake (one block an item under positions)
+  const int n_q = (Tq + TQ - 1) / TQ, n_items = n_q * H * B;
+  auto item_of = [&](int it, int& i0, int& h, int& b) {
+    const int rem = it % (H * B);
+    i0 = (n_q - 1 - it / (H * B)) * TQ;
+    h = rem % H;
+    b = rem / H;
+  };
   const Mask mask = flash::mask_of<M>(Tq, Tkv, causal, window);
-  const int j0 = blockIdx.x * BKV, gk = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int rep = H / G;
-  const long long rq = (long long)H * D, rk = (long long)G * D;
-  const long long koff = (long long)b * Tkv * rk + (long long)gk * D;
+  if (threadIdx.x == 0) {
+    for (int qb = 0; qb < 2; ++qb) {
+      hopper::mbar_init(q_loaded(qb), 1);
+      hopper::mbar_init(q_free(qb), 4 * WGS);  // every consumer warp
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(full(s), 1 + (M != PLAIN ? 32 : 0));  // the TMA bytes (and the ids)
+      hopper::mbar_init(empty(s), 4 * WGS);                   // every consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
 
-  // this warp's keys ja, jb (local 16 warp + g, + 8); their k and v rows are
-  // the A operands of the transposed products, read from shared memory
-  const int ja = j0 + 16 * warp + g, jb = ja + 8;
-  const bf16* sKw = sK + 16 * warp * LDS;
-  const bf16* sVw = sV + 16 * warp * LDS;
-  float ak[NDT][4], avv[NDT][4];
-  zero<NDT>(ak);
-  zero<NDT>(avv);
-
-  const Pairs<M> pr = flash::pairs_of<M>(qv, kv, qr, kr, b, Tq, Tkv, causal, window);
-  stage_rows<D>(sK, k + koff, j0, BKV, Tkv, rk);
-  stage_rows<D>(sV, v + koff, j0, BKV, Tkv, rk);
-  flash::stage_kids<M>(sKs, pr, j0);
-  int lo, hi;
-  mask.q_range(j0, lo, hi);
-  for (int r = 0; r < rep; ++r) {
-    const int h = gk * rep + r;
-    const long long qoff = (long long)b * Tq * rq + (long long)h * D;
-    const long long lrow = ((long long)b * H + h) * Tq;
-    for (int qt = lo; qt <= hi; ++qt) {
-      const int i0 = qt * BQ;
-      if (!pr.active(i0, j0)) continue;  // the same for the whole block
-      __syncthreads();  // the previous tile is no longer read
-      stage_rows<D>(sQ, q + qoff, i0, BQ, Tq, rq);
-      stage_rows<D>(sO, dout + qoff, i0, BQ, Tq, rq);
-      for (int idx = threadIdx.x; idx < BQ; idx += NT) {
-        const int i = i0 + idx;
-        sL[idx] = i < Tq ? lse[lrow + i] : 0.f;
-        sDl[idx] = i < Tq ? delta[lrow + i] : 0.f;
-      }
-      flash::stage_qids<M>(sQs, pr, i0);
-      __syncthreads();
-
-      // transposed scores: key row jl = 16 warp + (g, g + 8) x query il
-      float s[8][4];
-      zero<8>(s);
-      mma_nt_s<8, KS, LDS>(s, sKw, sQ, g, t);
-      const bool edge = mask.edge(i0, j0) || !pr.uniform(i0, j0);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int jl = 16 * warp + g + 8 * (e >> 1), il = 8 * nt + 2 * t + (e & 1);
-          const bool ok = !edge || (mask.allowed(i0 + il, j0 + jl) &&
-                                    pr.same(M != PLAIN ? sQs[il] : 1, M != PLAIN ? sKs[jl] : 1));
-          s[nt][e] = ok ? __expf(s[nt][e] * scale - sL[il]) : 0.f;
-        }
-      uint32_t a[4][4];
-      pack_a(a, s);
-      mma_nn<4, NDT, LDS>(avv, a, sO, lane);  // dv += P^T dO
-      {
-        float dpt[8][4];
-        zero<8>(dpt);
-        mma_nt_s<8, KS, LDS>(dpt, sVw, sO, g, t);  // (dO v^T)^T
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int il = 8 * nt + 2 * t + (e & 1);
-            s[nt][e] = s[nt][e] * (dpt[nt][e] - sDl[il]) * scale;
+  if (warp < 4) {
+    // the producer: the forward's walk (flash_fwd.cu), q and dO for q
+    hopper::reg_dealloc<PRODUCER_REGS>();
+    if (warp != 0) return;
+    int n = 0, k = 0;  // stages filled, items taken
+    for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
+      const int it = flash::tc::snake_item(r);
+      if (it >= n_items) continue;
+      int i0, h, b;
+      item_of(it, i0, h, b);
+      const int hk = h * G / H, qb = k & 1;
+      const Pairs<M> pr = flash::pairs_of<M>(qv, kv, qr, kr, b, Tq, Tkv, causal, window);
+      auto meets = [&](int r0, int kt) {
+        if (r0 >= Tq) return false;
+        int lo, hi;
+        mask.kv_range<64, TK>(r0, lo, hi);
+        return kt >= lo && kt <= hi && pr.template active<TK>(r0, kt * TK);
+      };
+      if (lane == 0) {  // q and dO into buffer qb, once the item before last is done with it
+        if (k >= 2) hopper::mbar_wait(q_free(qb), ((k >> 1) - 1) & 1);
+        hopper::mbar_arrive_tx(q_loaded(qb), L::QBUF);
+        const uint32_t at = base + qb * L::QBUF;
+        for (int w = 0; w < WGS; ++w)
+          for (int c = 0; c < NB; ++c) {
+            hopper::tma_load_4d(at + (w * NB + c) * BOX64, &tq, q_loaded(qb), 64 * c, h,
+                                i0 + 64 * w, b);
+            hopper::tma_load_4d(at + ((WGS + w) * NB + c) * BOX64, &tdo, q_loaded(qb), 64 * c,
+                                h, i0 + 64 * w, b);
           }
       }
-      pack_a(a, s);
-      mma_nn<4, NDT, LDS>(ak, a, sQ, lane);  // dk += dS^T q
+      // the next stage: tile kt (-1: the end of the item) and its mask flags
+      auto fill = [&](int kt, int edges) {
+        const int s = n % STAGES, use = n / STAGES;
+        ++n;
+        if (use > 0) hopper::mbar_wait(empty(s), (use - 1) & 1);  // the stage is read out
+        if constexpr (M != PLAIN) {  // only a tile that a warpgroup masks reads them
+          if (edges)
+            for (int idx = lane; idx < TK; idx += 32) ids[s * TK + idx] = pr.kid(kt * TK + idx);
+        }
+        if (lane == 0) {
+          info[s] = make_int2(kt, edges);
+          if (kt < 0) {
+            hopper::mbar_arrive(full(s));
+          } else {
+            const uint32_t st = base + L::KV + s * L::STAGE;
+            hopper::mbar_arrive_tx(full(s), L::STAGE);
+            for (int c = 0; c < NB; ++c) {
+              hopper::tma_load_4d(st + c * L::KBOX, &tk, full(s), 64 * c, hk, kt * TK, b);
+              hopper::tma_load_4d(st + (NB + c) * L::KBOX, &tv, full(s), 64 * c, hk, kt * TK,
+                                  b);
+            }
+          }
+        }
+        if constexpr (M != PLAIN) hopper::mbar_arrive(full(s));
+      };
+      int lo, hi;
+      mask.kv_range<TQ, TK>(i0, lo, hi);
+      for (int kt0 = lo; kt0 <= hi; kt0 += 32) {
+        const int kt = kt0 + lane;
+        bool any = false;
+        int edges = 0;
+        if (kt <= hi) {
+#pragma unroll
+          for (int w = 0; w < WGS; ++w) {
+            const int r0 = i0 + 64 * w;
+            any = any || meets(r0, kt);
+            if (mask.edge<64, TK>(r0, kt * TK) || !pr.template uniform<TK>(r0, kt * TK))
+              edges |= 1 << w;
+          }
+        }
+        for (unsigned vis = __ballot_sync(0xffffffffu, any); vis; vis &= vis - 1) {
+          const int l = __ffs(vis) - 1;
+          fill(kt0 + l, __shfl_sync(0xffffffffu, edges, l));
+        }
+      }
+      fill(-1, 0);
+      ++k;
     }
+    return;
   }
-  const float one[2] = {1.f, 1.f};
-  store_rows<NDT>(dk + koff, ak, ja, jb, Tkv, rk, t, one);
-  store_rows<NDT>(dv + koff, avv, ja, jb, Tkv, rk, t, one);
+
+  // consumer warpgroup w: query rows r0 .. r0 + 63 of each item; this
+  // thread's rows ia, ib
+  hopper::reg_alloc<CONSUMER_REGS>();
+  const int w = (warp >> 2) - 1, g = lane >> 2, t = lane & 3;
+  const float scale2 = scale * LOG2E;  // P = 2^(s scale2 - lse log2(e))
+  const long long rq = (long long)H * D;
+  int n = 0, k = 0;  // stages consumed, items taken
+  for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
+    const int it = flash::tc::snake_item(r);
+    if (it >= n_items) continue;
+    int i0, h, b;
+    item_of(it, i0, h, b);
+    const Pairs<M> pr = flash::pairs_of<M>(qv, kv, qr, kr, b, Tq, Tkv, causal, window);
+    const int r0 = i0 + 64 * w, ia = r0 + 16 * (warp & 3) + g, ib = ia + 8, qb = k & 1;
+    int rlo[2], rhi[2], vlo[2], vhi[2];  // the keys and key values that rows ia, ib keep
+    mask.row_keys(ia, rlo[0], rhi[0]);
+    mask.row_keys(ib, rlo[1], rhi[1]);
+    pr.kept(pr.qid(ia), vlo[0], vhi[0]);
+    pr.kept(pr.qid(ib), vlo[1], vhi[1]);
+    const long long lrow = ((long long)b * H + h) * Tq;
+    float l2[2], dl[2];  // lse log2(e) and delta of rows ia, ib
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = hh ? ib : ia;
+      l2[hh] = i < Tq ? lse[lrow + i] * LOG2E : 0.f;
+      dl[hh] = i < Tq ? delta[lrow + i] : 0.f;
+    }
+    const uint32_t q_at = base + qb * L::QBUF + w * NB * BOX64;
+    const uint32_t do_at = q_at + WGS * NB * BOX64;
+    float acc[D / 8][4], sc[TK / 8][4], dp[TK / 8][4];
+    uint32_t pa[TK / 16][4];  // dS as A fragments
+    flash::tc::zero<D / 8>(acc);
+
+    hopper::mbar_wait(q_loaded(qb), (k >> 1) & 1);
+    int s;
+    for (;;) {
+      s = n % STAGES;
+      hopper::mbar_wait(full(s), (n / STAGES) & 1);
+      const int2 in = info[s];
+      if (in.x < 0) break;
+      const bool edge = (in.y >> w) & 1;
+      int klo[2], khi[2];  // rows ia, ib's kept keys as offsets from the tile's key 2 t
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        klo[hh] = rlo[hh] - in.x * TK - 2 * t;
+        khi[hh] = rhi[hh] - in.x * TK - 2 * t;
+      }
+      const uint32_t k_at = base + L::KV + s * L::STAGE, v_at = k_at + NB * L::KBOX;
+      hopper::wgmma_fence();
+      product_ss<TK, D>(sc, q_at, k_at);   // s = q k^T
+      product_ss<TK, D>(dp, do_at, v_at);  // dP = dO v^T
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(sc);
+      probs<TK, M>(sc, edge, klo, khi, ids + s * TK + 2 * t, vlo, vhi, scale2,
+                   [&](int hh, int) { return l2[hh]; });
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
+      dscores<TK>(pa, dp, sc, scale, [&](int hh, int) { return dl[hh]; });
+      hopper::wgmma_fence();
+      product_rs<D, TK>(acc, pa, k_at);  // dq += dS k, k MN-major
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      hopper::fence_regs(pa);
+      release(empty(s), lane);
+      ++n;
+    }
+    release(q_free(qb), lane);  // every product of the item that reads q and dO is done
+    release(empty(s), lane);    // the stage that ended the item
+    ++n;
+    const float one[2] = {1.f, 1.f};
+    flash::tc::store_rows<D / 8>(dq + (long long)b * Tq * rq + (long long)h * D, acc, ia, ib, Tq,
+                                 rq, t, one);
+    ++k;
+  }
 }
 
-}  // namespace tc
+// ---- K7, K10, K13: dk and dv. A block of 384 threads owns 128 keys of one
+// kv head g (two consumer warpgroups of 64 keys) and walks the pairs (query
+// head of the group, 64-row query tile) that may keep a pair with them: the
+// producer's first warp decides them 32 tiles at a time by ballot, as the
+// dq producer walks key tiles, and loads each visited tile's q and dO by TMA
+// into a ring of stages, with its rows' lse log2(e) and delta (plain loads
+// by the warp's lanes: lse and delta rows need not be 16-byte aligned for a
+// bulk copy) and, where a warpgroup masks the tile under a policy, its rows'
+// ids or positions. k and v of the block are loaded once an item (double-
+// buffered at D = 64, for the persistent grid of K7). A consumer works on transposed scores, keys by
+// queries: s^T = k q^T and dP^T = v dO^T with k, v as A and q, dO as B from
+// shared memory (K-major), P^T and dS^T in registers, then dv += P^T dO and
+// dk += dS^T q with the scores as register A fragments and q, dO MN-major.
+// dk and dv stay in fp32 registers over all the group's heads and are
+// written once: no atomics, K7 is deterministic.
+
+constexpr int TKB = 64 * WGS;  // keys a block
+constexpr int TQT = 64;        // query rows a tile (128 would spill dk and dv at D = 128)
+
+// Shared memory, in bytes from a 1024-aligned base: KVB buffers of k and v
+// (a box of 64 keys x 64 columns per warpgroup and 64 columns of D: k's
+// boxes, then v's); STAGES stages of q and dO (D / 64 boxes of 64 rows
+// each); the mbarriers (kv loaded[KVB], kv free[KVB], full[STAGES],
+// empty[STAGES]); each stage's rows' lse log2(e) and delta [2][64] and ids
+// or positions [64]; and its tile: query tile index (-1: no more) and mask
+// flags (bit w).
+template <int D>
+struct DkvLayout {
+  static constexpr int NB = D / 64;
+  static constexpr int KVB = D == 64 ? 2 : 1;
+  static constexpr int STAGES = 4;
+  static constexpr uint32_t KVBUF = 2 * WGS * NB * BOX64;
+  static constexpr uint32_t ST = KVB * KVBUF;
+  static constexpr uint32_t STAGE = 2 * NB * BOX64;  // q boxes, then dO boxes
+  static constexpr uint32_t BARS = ST + STAGES * STAGE;
+  static constexpr uint32_t ROWS = BARS + 8 * (2 * KVB + 2 * STAGES);
+  static constexpr uint32_t IDS = ROWS + STAGES * 2 * TQT * 4;
+  static constexpr uint32_t INFO = IDS + STAGES * TQT * 4;
+  static constexpr uint32_t BYTES = INFO + STAGES * 8 + ATOM;  // + the alignment slack
+};
 
 template <int D, int M>
-int dq(int dtype, void** args, int n_q, int H, int B, cudaStream_t s) {
-  if (dtype == 0)
-    return flash::launch(f32::dq_kernel<D, M>, f32::smem_dq<D>(), f32::NT, n_q, H, B, s, args);
-  return flash::launch(tc::dq_kernel<D, M>, tc::smem_dq<D>(), tc::NT, n_q, H, B, s, args);
+__global__ void __launch_bounds__(NT, 1) dkv_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const float* __restrict__ lse, const float* __restrict__ delta, const int* __restrict__ qv,
+    const int* __restrict__ kv, const int* __restrict__ qr, const int* __restrict__ kr,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int H, int G, int Tq, int Tkv,
+    float scale, int causal, int window) {
+  using L = DkvLayout<D>;
+  constexpr int NB = L::NB, KVB = L::KVB, STAGES = L::STAGES;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + ATOM - 1) & ~(ATOM - 1);
+  float* rows = reinterpret_cast<float*>(smem_raw + (base - raw) + L::ROWS);
+  int* ids = reinterpret_cast<int*>(smem_raw + (base - raw) + L::IDS);
+  int2* info = reinterpret_cast<int2*>(smem_raw + (base - raw) + L::INFO);
+  auto kv_loaded = [&](int kb) { return base + L::BARS + 8 * kb; };
+  auto kv_free = [&](int kb) { return base + L::BARS + 8 * (KVB + kb); };
+  auto full = [&](int s) { return base + L::BARS + 8 * (2 * KVB + s); };
+  auto empty = [&](int s) { return base + L::BARS + 8 * (2 * KVB + STAGES + s); };
+
+  // work item it: 128 keys from j0 of kv head g, batch row b, the first key
+  // blocks (the most query tiles, causal) first over every (b, g)
+  const int n_k = (Tkv + TKB - 1) / TKB, n_items = n_k * G * B, rep = H / G;
+  auto item_of = [&](int it, int& j0, int& gk, int& b) {
+    const int rem = it % (G * B);
+    j0 = it / (G * B) * TKB;
+    gk = rem % G;
+    b = rem / G;
+  };
+  const Mask mask = flash::mask_of<M>(Tq, Tkv, causal, window);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int kb = 0; kb < KVB; ++kb) {
+      hopper::mbar_init(kv_loaded(kb), 1);
+      hopper::mbar_init(kv_free(kb), 4 * WGS);  // every consumer warp
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(full(s), 1 + 32);    // the TMA bytes, and each lane's rows
+      hopper::mbar_init(empty(s), 4 * WGS);  // every consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    hopper::reg_dealloc<PRODUCER_REGS>();
+    if (warp != 0) return;
+    int n = 0, k = 0;  // stages filled, items taken
+    for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
+      const int it = flash::tc::snake_item(r);
+      if (it >= n_items) continue;
+      int j0, gk, b;
+      item_of(it, j0, gk, b);
+      const int kb = k % KVB, use = k / KVB;
+      const Pairs<M> pr = flash::pairs_of<M>(qv, kv, qr, kr, b, Tq, Tkv, causal, window);
+      auto meets = [&](int c0, int qt) {  // the 64 keys at c0 and query tile qt
+        if (c0 >= Tkv) return false;
+        int lo, hi;
+        mask.q_range<TQT, 64>(c0, lo, hi);
+        return qt >= lo && qt <= hi && pr.template active<64>(qt * TQT, c0);
+      };
+      if (lane == 0) {  // k and v into buffer kb, once the item that used it is done
+        if (use > 0) hopper::mbar_wait(kv_free(kb), (use - 1) & 1);
+        hopper::mbar_arrive_tx(kv_loaded(kb), L::KVBUF);
+        const uint32_t at = base + kb * L::KVBUF;
+        for (int w = 0; w < WGS; ++w)
+          for (int c = 0; c < NB; ++c) {
+            hopper::tma_load_4d(at + (w * NB + c) * BOX64, &tk, kv_loaded(kb), 64 * c, gk,
+                                j0 + 64 * w, b);
+            hopper::tma_load_4d(at + ((WGS + w) * NB + c) * BOX64, &tv, kv_loaded(kb), 64 * c,
+                                gk, j0 + 64 * w, b);
+          }
+      }
+      // the next stage: query tile qt of head h (qt -1: the end of the item)
+      auto fill = [&](int qt, int h, int edges) {
+        const int s = n % STAGES, su = n / STAGES;
+        ++n;
+        const long long lrow = ((long long)b * H + h) * Tq;
+        float lv[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};  // this lane's rows, loaded first
+        if (qt >= 0)
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int i = qt * TQT + lane + 32 * x;
+            if (i < Tq) {
+              lv[x] = lse[lrow + i] * LOG2E;
+              dl[x] = delta[lrow + i];
+            }
+          }
+        if (su > 0) hopper::mbar_wait(empty(s), (su - 1) & 1);  // the stage is read out
+        if (qt >= 0) {
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            rows[s * 2 * TQT + lane + 32 * x] = lv[x];
+            rows[s * 2 * TQT + TQT + lane + 32 * x] = dl[x];
+          }
+          if constexpr (M != PLAIN) {  // only a tile that a warpgroup masks reads them
+            if (edges)
+              for (int x = 0; x < 2; ++x)
+                ids[s * TQT + lane + 32 * x] = pr.qid(qt * TQT + lane + 32 * x);
+          }
+        }
+        if (lane == 0) {
+          info[s] = make_int2(qt, edges);
+          if (qt < 0) {
+            hopper::mbar_arrive(full(s));
+          } else {
+            const uint32_t st = base + L::ST + s * L::STAGE;
+            hopper::mbar_arrive_tx(full(s), L::STAGE);
+            for (int c = 0; c < NB; ++c) {
+              hopper::tma_load_4d(st + c * BOX64, &tq, full(s), 64 * c, h, qt * TQT, b);
+              hopper::tma_load_4d(st + (NB + c) * BOX64, &tdo, full(s), 64 * c, h, qt * TQT,
+                                  b);
+            }
+          }
+        }
+        hopper::mbar_arrive(full(s));
+      };
+      // the walk: each head of the group, its query tiles 32 at a time
+      int lo, hi;
+      mask.q_range<TQT, TKB>(j0, lo, hi);
+      for (int rr = 0; rr < rep; ++rr) {
+        const int h = gk * rep + rr;
+        for (int qt0 = lo; qt0 <= hi; qt0 += 32) {
+          const int qt = qt0 + lane;
+          bool any = false;
+          int edges = 0;
+          if (qt <= hi) {
+#pragma unroll
+            for (int w = 0; w < WGS; ++w) {
+              const int c0 = j0 + 64 * w;
+              any = any || meets(c0, qt);
+              if (mask.edge<TQT, 64>(qt * TQT, c0) || !pr.template uniform<64>(qt * TQT, c0))
+                edges |= 1 << w;
+            }
+          }
+          for (unsigned vis = __ballot_sync(0xffffffffu, any); vis; vis &= vis - 1) {
+            const int l = __ffs(vis) - 1;
+            fill(qt0 + l, h, __shfl_sync(0xffffffffu, edges, l));
+          }
+        }
+      }
+      fill(-1, 0, 0);
+      ++k;
+    }
+    return;
+  }
+
+  // consumer warpgroup w: keys c0 .. c0 + 63 of each item; this thread's
+  // keys ja, jb (rows of the transposed scores)
+  hopper::reg_alloc<CONSUMER_REGS>();
+  const int w = (warp >> 2) - 1, g = lane >> 2, t = lane & 3;
+  const float scale2 = scale * LOG2E;
+  const long long rk = (long long)G * D;
+  int n = 0, k = 0;  // stages consumed, items taken
+  for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
+    const int it = flash::tc::snake_item(r);
+    if (it >= n_items) continue;
+    int j0, gk, b;
+    item_of(it, j0, gk, b);
+    const int kb = k % KVB;
+    const Pairs<M> pr = flash::pairs_of<M>(qv, kv, qr, kr, b, Tq, Tkv, causal, window);
+    const int ja = j0 + 64 * w + 16 * (warp & 3) + g, jb = ja + 8;
+    int rlo[2], rhi[2], vlo[2], vhi[2];  // the rows and row values that keys ja, jb are kept by
+    mask.key_rows(ja, rlo[0], rhi[0]);
+    mask.key_rows(jb, rlo[1], rhi[1]);
+    pr.kept_by(pr.kid(ja), vlo[0], vhi[0]);
+    pr.kept_by(pr.kid(jb), vlo[1], vhi[1]);
+    const uint32_t k_at = base + kb * L::KVBUF + w * NB * BOX64;
+    const uint32_t v_at = k_at + WGS * NB * BOX64;
+    float dka[D / 8][4], dva[D / 8][4], sc[TQT / 8][4], dp[TQT / 8][4];
+    uint32_t pa[TQT / 16][4], pd[TQT / 16][4];  // P^T and dS^T as A fragments
+    flash::tc::zero<D / 8>(dka);
+    flash::tc::zero<D / 8>(dva);
+
+    // stage s's tile (-1: no more), whether this warpgroup masks it, and
+    // keys ja, jb's kept rows as offsets from the tile's row 2 t
+    bool edge;
+    int klo[2], khi[2];
+    auto tile = [&](int s) {
+      const int2 in = info[s];
+      edge = (in.y >> w) & 1;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        klo[hh] = rlo[hh] - in.x * TQT - 2 * t;
+        khi[hh] = rhi[hh] - in.x * TQT - 2 * t;
+      }
+      return in.x;
+    };
+    auto q_of = [&](int s) { return base + L::ST + s * L::STAGE; };  // then dO's boxes
+    // s^T = k q^T and dP^T = v dO^T of stage s: two commit groups
+    auto scores = [&](int s) {
+      product_ss<TQT, D>(sc, k_at, q_of(s));
+      product_ss<TQT, D>(dp, v_at, q_of(s) + NB * BOX64);
+    };
+    // once s^T is in: P^T, dv += P^T dO (dO MN-major), then dS^T into pd
+    auto tile_body = [&](int s, uint32_t (&pd)[TQT / 16][4]) {
+      const float* l2 = rows + s * 2 * TQT + 2 * t;  // lse log2(e), then delta, from row 2 t
+      probs<TQT, M>(sc, edge, klo, khi, ids + s * TQT + 2 * t, vlo, vhi, scale2,
+                    [&](int, int c) { return l2[c]; });
+      pack_p<TQT>(pa, sc);
+      hopper::wgmma_fence();
+      product_rs<D, TQT>(dva, pa, q_of(s) + NB * BOX64);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dp);
+      hopper::fence_regs(dva);
+      hopper::fence_regs(pa);
+      dscores<TQT>(pd, dp, sc, scale, [&](int, int c) { return l2[TQT + c]; });
+    };
+
+    // One tile behind: dk += dS^T q (q MN-major) of a tile is waited for
+    // only after the next tile's s^T and dP^T are issued, and its stage goes
+    // back then. The first tile is peeled.
+    hopper::mbar_wait(kv_loaded(kb), (k / KVB) & 1);
+    int s = n % STAGES;
+    hopper::mbar_wait(full(s), (n / STAGES) & 1);
+    if (tile(s) >= 0) {
+      hopper::wgmma_fence();
+      scores(s);
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(sc);
+      tile_body(s, pd);
+      hopper::wgmma_fence();
+      product_rs<D, TQT>(dka, pd, q_of(s));
+      int held = s;
+      for (;;) {
+        s = ++n % STAGES;
+        hopper::mbar_wait(full(s), (n / STAGES) & 1);
+        if (tile(s) < 0) break;
+        hopper::wgmma_fence();
+        scores(s);
+        hopper::wgmma_wait<1>();  // the held tile's dk product, and s^T
+        hopper::fence_regs(sc);
+        hopper::fence_regs(dka);
+        hopper::fence_regs(pd);
+        release(empty(held), lane);
+        tile_body(s, pd);
+        hopper::wgmma_fence();
+        product_rs<D, TQT>(dka, pd, q_of(s));
+        held = s;
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dka);
+      hopper::fence_regs(pd);
+      release(empty(held), lane);
+    }
+    release(kv_free(kb), lane);  // every product of the item that reads k and v is done
+    release(empty(s), lane);     // the stage that ended the item
+    ++n;
+    const float one[2] = {1.f, 1.f};
+    const long long koff = (long long)b * Tkv * rk + (long long)gk * D;
+    flash::tc::store_rows<D / 8>(dk + koff, dka, ja, jb, Tkv, rk, t, one);
+    flash::tc::store_rows<D / 8>(dv + koff, dva, ja, jb, Tkv, rk, t, one);
+    ++k;
+  }
 }
 
-template <int D, int M>
-int dkv(int dtype, void** args, int n_kv, int G, int B, cudaStream_t s) {
-  if (dtype == 0)
-    return flash::launch(f32::dkv_kernel<D, M>, f32::smem_dkv<D>(), f32::NT, n_kv, G, B, s,
-                         args);
-  return flash::launch(tc::dkv_kernel<D, M>, tc::smem_dkv<D>(), tc::NT, n_kv, G, B, s, args);
+// One block a multiprocessor (or an item, where there are fewer items) if
+// `persistent`, else one block an item
+inline int grid_of(int n_items, bool persistent, int& grid) {
+  grid = n_items;
+  if (!persistent) return 0;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  grid = n_items < sms ? n_items : sms;
+  return (int)e;
 }
+
+// the four tensor maps (q and dO by 64 rows; k and v by the tile's keys)
+// and the launch; out != nullptr: K6 (dq into out), else K7 (dk, dv). The
+// grid is persistent for K6 and K9 (under positions, K12, one block an
+// item: as the forward) and for K7; K10 and K13 take one block an item,
+// since their items' work varies with the segments or positions (a
+// persistent grid measured 21 % slower for K10 at the SFT layout on the
+// H100, and 0.5 % faster for K7).
+template <int D, int M>
+int launch(void* q, void* k, void* v, void* dout, void* lse, void* delta, void* qv, void* kv,
+           void* qr, void* kr, void* out, void* dk, void* dv, int B, int H, int G, int Tq,
+           int Tkv, float scale, int causal, int window, cudaStream_t stream) {
+  const bool dq_side = out != nullptr;
+  const int krows = dq_side ? DqLayout<D>::TK : 64;
+  CUtensorMap mq, mdo, mk, mv;
+  int err = hopper::encode_bthd(&mq, q, B, Tq, H, D, 64);
+  if (err == 0) err = hopper::encode_bthd(&mdo, dout, B, Tq, H, D, 64);
+  if (err == 0) err = hopper::encode_bthd(&mk, k, B, Tkv, G, D, krows);
+  if (err == 0) err = hopper::encode_bthd(&mv, v, B, Tkv, G, D, krows);
+  int grid = 0;
+  if (err == 0)
+    err = dq_side ? grid_of((Tq + TQ - 1) / TQ * H * B, M != flash::POS, grid)
+                  : grid_of((Tkv + TKB - 1) / TKB * G * B, M == PLAIN, grid);
+  if (err != 0) return err;
+  if (dq_side) {
+    void* args[] = {&mq, &mdo, &mk, &mv, &lse, &delta, &qv,     &kv,     &qr,    &kr,
+                    &out, &B,  &H,  &G,  &Tq,  &Tkv,   &scale, &causal, &window};
+    return flash::launch(dq_kernel<D, M>, DqLayout<D>::BYTES, NT, grid, 1, 1, stream, args);
+  }
+  void* args[] = {&mq, &mdo, &mk, &mv, &lse, &delta, &qv,    &kv,     &qr,     &kr,
+                  &dk, &dv,  &B,  &H,  &G,   &Tq,    &Tkv,   &scale, &causal, &window};
+  return flash::launch(dkv_kernel<D, M>, DkvLayout<D>::BYTES, NT, grid, 1, 1, stream, args);
+}
+
+}  // namespace wg
 
 template <int M>
 int dq_entry(int dtype, void* q, void* k, void* v, void* dout, void* lse, void* delta, void* qv,
@@ -501,16 +968,22 @@ int dq_entry(int dtype, void* q, void* k, void* v, void* dout, void* lse, void* 
              int head_dim, float scale, int causal, int window, void* stream) {
   if (!flash::valid_shape(B, H, G, Tq, Tkv, head_dim, window) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     const void* bf[] = {q, k, v, dout, dq_out};
     if (!flash::aligned16(bf, 5)) return (int)cudaErrorMisalignedAddress;
+    auto run = &wg::launch<128, M>;
+    if (head_dim == 64) run = &wg::launch<64, M>;
+    return run(q, k, v, dout, lse, delta, qv, kv, qr, kr, dq_out, nullptr, nullptr, B, H, G, Tq,
+               Tkv, scale, causal, window, s);
   }
   void* args[] = {&q,      &k, &v, &dout, &lse, &delta, &qv,     &kv,    &qr, &kr,
                   &dq_out, &H, &G, &Tq,   &Tkv, &scale, &causal, &window};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_q = (Tq + BQ - 1) / BQ;
-  return head_dim == 64 ? dq<64, M>(dtype, args, n_q, H, B, s)
-                        : dq<128, M>(dtype, args, n_q, H, B, s);
+  return head_dim == 64
+             ? flash::launch(f32::dq_kernel<64, M>, f32::smem_dq<64>(), f32::NT, n_q, H, B, s, args)
+             : flash::launch(f32::dq_kernel<128, M>, f32::smem_dq<128>(), f32::NT, n_q, H, B, s,
+                             args);
 }
 
 template <int M>
@@ -519,16 +992,22 @@ int dkv_entry(int dtype, void* q, void* k, void* v, void* dout, void* lse, void*
               int Tkv, int head_dim, float scale, int causal, int window, void* stream) {
   if (!flash::valid_shape(B, H, G, Tq, Tkv, head_dim, window) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     const void* bf[] = {q, k, v, dout, dk, dv};
     if (!flash::aligned16(bf, 6)) return (int)cudaErrorMisalignedAddress;
+    auto run = &wg::launch<128, M>;
+    if (head_dim == 64) run = &wg::launch<64, M>;
+    return run(q, k, v, dout, lse, delta, qv, kv, qr, kr, nullptr, dk, dv, B, H, G, Tq, Tkv,
+               scale, causal, window, s);
   }
   void* args[] = {&q,  &k,  &v, &dout, &lse, &delta, &qv,    &kv,     &qr,    &kr,
                   &dk, &dv, &H, &G,    &Tq,  &Tkv,   &scale, &causal, &window};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_kv = (Tkv + BKV - 1) / BKV;
-  return head_dim == 64 ? dkv<64, M>(dtype, args, n_kv, G, B, s)
-                        : dkv<128, M>(dtype, args, n_kv, G, B, s);
+  return head_dim == 64 ? flash::launch(f32::dkv_kernel<64, M>, f32::smem_dkv<64>(), f32::NT,
+                                        n_kv, G, B, s, args)
+                        : flash::launch(f32::dkv_kernel<128, M>, f32::smem_dkv<128>(), f32::NT,
+                                        n_kv, G, B, s, args);
 }
 
 }  // namespace

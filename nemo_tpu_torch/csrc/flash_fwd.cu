@@ -264,7 +264,8 @@ namespace wg {
 
 using bf16 = __nv_bfloat16;
 using hopper::ATOM;
-using hopper::desc_sw128;
+using flash::tc::ex2;
+using flash::tc::pack_p;
 
 constexpr int WGS = 2;                // consumer warpgroups, 64 query rows each
 constexpr int TQ = 64 * WGS;          // query rows a block
@@ -298,63 +299,14 @@ struct Layout {
 
 // Work item `it` -> its 128 query rows from i0, head h, batch row b: the
 // last query tiles (the most key tiles) first, over every (b, h);
-// neighbouring items share a kv head. In round r a block takes item r G + x
-// (G blocks, block x) or, in odd rounds, r G + G - 1 - x: a snake, so that
-// no block takes the heaviest item of every round (a plain round robin did,
-// and measured 3-6 % slower on K5 and on K11's diagonal step).
+// neighbouring items share a kv head. Blocks take them in a snake
+// (flash_tiles.cuh:snake_item).
 struct Item {
   int i0, h, b;
 };
-__device__ __forceinline__ int item_index(int r) {
-  const int G = gridDim.x, x = blockIdx.x;
-  return r * G + ((r & 1) ? G - 1 - x : x);
-}
 __device__ __forceinline__ Item item_of(int it, int n_q, int H, int B) {
   const int rem = it % (H * B);
   return {(n_q - 1 - it / (H * B)) * TQ, rem % H, rem / H};
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// the m64 x NK score tile (NK / 8 blocks of 8 keys) as bf16 A fragments of
-// NK / 16 steps of 16 keys (flash_tiles.cuh:pack_a, for any NK)
-template <int NK>
-__device__ __forceinline__ void pack_p(uint32_t (&a)[NK / 16][4], const float (&s)[NK / 8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < NK / 16; ++kk) {
-    a[kk][0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-    a[kk][1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-    a[kk][2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    a[kk][3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-  }
-}
-
-// acc += P v: P as register A fragments (TK / 16 steps of 16 keys), v [TK
-// keys][D] at v_at, MN-major (the transposed-B bit); one commit group
-template <int D, int TK>
-__device__ __forceinline__ void add_pv(float (&acc)[D / 8][4], const uint32_t (&pa)[TK / 16][4],
-                                       uint32_t v_at) {
-#pragma unroll
-  for (int kk = 0; kk < TK / 16; ++kk)
-    hopper::wgmma_rs<D, 1>(acc, pa[kk],
-                           desc_sw128(v_at + kk * 2 * ATOM, TK * hopper::BOX_ROW_BYTES), 1);
-  hopper::wgmma_commit();
-}
-
-// sc = q k^T for one tile: q (64 rows) and k (TK keys) K-major in shared
-// memory, D / 16 steps of 16 columns; one commit group
-template <int D, int TK>
-__device__ __forceinline__ void issue_qk(float (&sc)[TK / 8][4], uint32_t q_at, uint32_t k_at) {
-  constexpr uint32_t QBOX = 64 * hopper::BOX_ROW_BYTES, KBOX = TK * hopper::BOX_ROW_BYTES;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-    hopper::wgmma_ss<TK, 0>(sc, desc_sw128(q_at + (ks / 4) * QBOX + (ks % 4) * 32, 0),
-                            desc_sw128(k_at + (ks / 4) * KBOX + (ks % 4) * 32, 0), ks);
-  hopper::wgmma_commit();
 }
 
 // One tile's online softmax in this thread's registers: the raw scores sc
@@ -442,7 +394,7 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(
   auto full = [&](int s) { return base + L::BARS + 8 * (4 + s); };
   auto empty = [&](int s) { return base + L::BARS + 8 * (4 + STAGES + s); };
 
-  // a persistent grid: a block takes one work item a round (item_index)
+  // a persistent grid: a block takes one work item a round (snake_item)
   const int n_q = (Tq + TQ - 1) / TQ, n_items = n_q * H * B;
   const Mask mask = flash::mask_of<M>(Tq, Tkv, causal, window);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -476,7 +428,7 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(
     if (warp != 0) return;
     int n = 0, k = 0;  // stages filled, items taken
     for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
-      const int it = item_index(r);
+      const int it = flash::tc::snake_item(r);
       if (it >= n_items) continue;
       const Item item = item_of(it, n_q, H, B);
       const int i0 = item.i0, hk = item.h * G / H, qb = k & 1;
@@ -560,7 +512,7 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(
 
   int n = 0, k = 0;  // stages consumed, items taken
   for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
-    const int it = item_index(r);
+    const int it = flash::tc::snake_item(r);
     if (it >= n_items) continue;
     const Item item = item_of(it, n_q, H, B);
     const Pairs<M> pr = flash::pairs_of<M>(qv, kv, qr, kr, item.b, Tq, Tkv, causal, window);
@@ -603,7 +555,7 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(
     hopper::mbar_wait(full(s), (n / STAGES) & 1);
     if (tile(s, edge, klo, khi, kid) >= 0) {
       hopper::wgmma_fence();
-      issue_qk<D, TK>(sc, q_at, k0 + s * L::STAGE);
+      hopper::product_ss<TK, D>(sc, q_at, k0 + s * L::STAGE);
       hopper::wgmma_wait<0>();
       hopper::fence_regs(sc);
       softmax_tile<TK, M>(sc, m, l, alpha, edge, klo, khi, kid, vlo, vhi, scale2);
@@ -614,8 +566,8 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(
         hopper::mbar_wait(full(s), (n / STAGES) & 1);
         if (tile(s, edge, klo, khi, kid) < 0) break;
         hopper::wgmma_fence();
-        issue_qk<D, TK>(sc, q_at, k0 + s * L::STAGE);
-        add_pv<D, TK>(acc, pa, v0 + held * L::STAGE);
+        hopper::product_ss<TK, D>(sc, q_at, k0 + s * L::STAGE);
+        hopper::product_rs<D, TK>(acc, pa, v0 + held * L::STAGE);
         hopper::wgmma_wait<1>();  // the scores are in
         hopper::fence_regs(sc);
         softmax_tile<TK, M>(sc, m, l, alpha, edge, klo, khi, kid, vlo, vhi, scale2);
@@ -629,7 +581,7 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(
       }
       release(q_free(qb));  // every q k^T of the item is done
       hopper::wgmma_fence();
-      add_pv<D, TK>(acc, pa, v0 + held * L::STAGE);
+      hopper::product_rs<D, TK>(acc, pa, v0 + held * L::STAGE);
       hopper::wgmma_wait<0>();
       hopper::fence_regs(acc);
       release(empty(held));

@@ -1,4 +1,4 @@
-// Tiles, masks and warp-level products shared by the causal GQA flash
+// Tiles, masks and register-tile helpers shared by the causal GQA flash
 // attention kernels (flash_fwd.cu: K5, K8 with segments and K11 with
 // positions; flash_bwd.cu: K6, K7, their segment forms K9, K10 and their
 // position forms K12, K13).
@@ -7,7 +7,7 @@
 // (the Linear outputs viewed per head; row stride H*D or G*D); query head h
 // reads kv head h*G/H; segment ids [B, T] int32; positions [Tq] and [Tkv]
 // int32, shared by the batch. Tiles are 64 query rows by 64 keys (BQ, BKV);
-// the bf16 forward takes its own larger tiles through the TQ / TK template
+// the bf16 kernels take their own larger tiles through the TQ / TK template
 // arguments of Mask and Pairs, which default to these.
 
 #pragma once
@@ -49,11 +49,19 @@ struct Mask {
     hi = causal ? min((i0 + TQ - 1) / TK, n - 1) : n - 1;
     lo = window > 0 ? max(i0 - window + 1, 0) / TK : 0;
   }
-  // the query tiles [lo, hi] that hold an unmasked pair for the key tile at j0
+  // the rows [lo, hi] that key j is kept by: allowed(i, j) for 0 <= i is
+  // lo <= i <= hi (the transpose of row_keys)
+  __device__ __forceinline__ void key_rows(int j, int& lo, int& hi) const {
+    lo = causal ? j : 0;
+    hi = j < Tkv ? (window > 0 ? min(j + window - 1, Tq - 1) : Tq - 1) : -1;
+  }
+  // the query tiles [lo, hi] (of TQ rows) that hold an unmasked pair for
+  // the TK keys at j0
+  template <int TQ = BQ, int TK = BKV>
   __device__ __forceinline__ void q_range(int j0, int& lo, int& hi) const {
-    const int n = (Tq + BQ - 1) / BQ;
-    lo = causal ? j0 / BQ : 0;
-    hi = window > 0 ? min((j0 + BKV - 1 + window - 1) / BQ, n - 1) : n - 1;
+    const int n = (Tq + TQ - 1) / TQ;
+    lo = causal ? j0 / TQ : 0;
+    hi = window > 0 ? min((j0 + TK - 1 + window - 1) / TQ, n - 1) : n - 1;
   }
   // a tile pair (TQ rows at i0, TK keys at j0) with masked elements (a
   // boundary tile, or one past the end)
@@ -116,6 +124,20 @@ struct Pairs {
     if constexpr (M == POS) {
       if (window > 0) lo = qs - window + 1;
       if (causal) hi = qs;
+    }
+  }
+  // the row values [lo, hi] that a key with value ks is kept by: same(qs,
+  // ks) is lo <= qs <= hi (the transpose of kept)
+  __device__ __forceinline__ void kept_by(int ks, int& lo, int& hi) const {
+    lo = INT_MIN;
+    hi = INT_MAX;
+    if constexpr (M == SEG) {
+      lo = ks > 0 ? ks : 1;
+      hi = ks > 0 ? ks : 0;
+    }
+    if constexpr (M == POS) {
+      if (causal) lo = ks;
+      if (window > 0) hi = ks + window - 1;
     }
   }
   // [lo, hi]: the [min, max] value of the TK keys from j0 (a multiple of
@@ -196,118 +218,39 @@ __device__ __forceinline__ void stage_qids(int* dst, const Pairs<M>& pr, int i0)
     for (int idx = threadIdx.x; idx < BQ; idx += blockDim.x) dst[idx] = pr.qid(i0 + idx);
 }
 
-// --------------------------------------------------------- bf16 tensor-core tiles
+// ------------------------------------------------- bf16 tiles in registers
 
 namespace tc {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int NT = 128;  // 4 warps x 16 rows
-
-// rows [row0, row0 + n) of a [rows, heads, D] tensor (row stride rs, src at
-// the head) into shared memory [n][D + 8]; rows outside [0, rows) are 0
-template <int D>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ src, int row0,
-                                           int n, int rows, long long rs) {
-  constexpr int LDS = D + 8, C = D / 8;
-  for (int idx = threadIdx.x; idx < n * C; idx += NT) {
-    const int r = idx / C, c = idx % C, t = row0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (t >= 0 && t < rows) val = *reinterpret_cast<const uint4*>(src + t * rs + 8 * c);
-    *reinterpret_cast<uint4*>(dst + r * LDS + 8 * c) = val;
-  }
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// A fragments (KS k-steps of 16) of rows ra, rb of a [T, heads, D] tensor in
-// device memory (src at the head); rows past Tn are 0
-template <int KS>
-__device__ __forceinline__ void load_rows_a(uint32_t f[][4], const bf16* __restrict__ src, int ra,
-                                            int rb, int Tn, long long rs, int t) {
+// an m64 x NK accumulator tile (NK / 8 blocks of 8 columns) as bf16 A
+// fragments of NK / 16 steps of 16 columns: the accumulator's layout is the
+// A operand's (hopper.cuh), so the scores of one product feed the next
+template <int NK>
+__device__ __forceinline__ void pack_p(uint32_t (&a)[NK / 16][4], const float (&s)[NK / 8][4]) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = (e & 1) ? rb : ra;
-      const int d = 16 * ks + 2 * t + 8 * (e >> 1);
-      f[ks][e] = (r < Tn) ? ld_bf16x2(src + r * rs + d) : 0u;
-    }
-}
-
-// A fragment of k-step ks of a row-major bf16 [16][ld] tile in shared memory
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* m, int ld, int ks, int g,
-                                       int t) {
-  const bf16* r0 = m + g * ld + 16 * ks + 2 * t;
-  const bf16* r1 = r0 + 8 * ld;
-  a[0] = ld_bf16x2(r0);
-  a[1] = ld_bf16x2(r1);
-  a[2] = ld_bf16x2(r0 + 8);
-  a[3] = ld_bf16x2(r1 + 8);
-}
-
-// acc[16 x 8 NTL] += A[16 x 16 KS] . M^T, M [8 NTL][LDS] (k contiguous) in
-// shared memory, A from registers
-template <int NTL, int KS, int LDS>
-__device__ __forceinline__ void mma_nt(float acc[][4], const uint32_t a[][4], const bf16* m,
-                                       int g, int t) {
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-    for (int nt = 0; nt < NTL; ++nt) {
-      const bf16* r = m + (8 * nt + g) * LDS + 16 * ks + 2 * t;
-      const uint32_t bb[2] = {ld_bf16x2(r), ld_bf16x2(r + 8)};
-      mma_bf16_16816(acc[nt], a[ks], bb);
-    }
-}
-
-// the same with A read from a row-major [16][LDS] tile in shared memory
-template <int NTL, int KS, int LDS>
-__device__ __forceinline__ void mma_nt_s(float acc[][4], const bf16* am, const bf16* m, int g,
-                                         int t) {
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    uint32_t a[4];
-    load_a(a, am, LDS, ks, g, t);
-#pragma unroll
-    for (int nt = 0; nt < NTL; ++nt) {
-      const bf16* r = m + (8 * nt + g) * LDS + 16 * ks + 2 * t;
-      const uint32_t bb[2] = {ld_bf16x2(r), ld_bf16x2(r + 8)};
-      mma_bf16_16816(acc[nt], a, bb);
-    }
-  }
-}
-
-// acc[16 x 8 NDT] += A[16 x 16 KS] . M for M [16 KS][LDS] row-major in shared
-// memory; B fragments by ldmatrix.x4.trans (lane L addresses row L % 8 +
-// 8 (L / 8 % 2) at column 8 (L / 16): two n-tiles of 8 per load)
-template <int KS, int NDT, int LDS>
-__device__ __forceinline__ void mma_nn(float acc[][4], const uint32_t a[][4], const bf16* m,
-                                       int lane) {
-  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(
-      m + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LDS + 8 * (lane >> 4)));
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-    for (int dp = 0; dp < NDT / 2; ++dp) {
-      uint32_t bq[4];
-      asm volatile(
-          "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-          : "=r"(bq[0]), "=r"(bq[1]), "=r"(bq[2]), "=r"(bq[3])
-          : "r"(base + 2 * (16 * kk * LDS + 16 * dp)));
-      const uint32_t lo[2] = {bq[0], bq[1]}, hi[2] = {bq[2], bq[3]};
-      mma_bf16_16816(acc[2 * dp], a[kk], lo);
-      mma_bf16_16816(acc[2 * dp + 1], a[kk], hi);
-    }
-}
-
-// the 16 x 64 accumulator tile (8 n-tiles) as bf16 A fragments of 4 k-steps
-__device__ __forceinline__ void pack_a(uint32_t a[4][4], const float s[8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < NK / 16; ++kk) {
     a[kk][0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
     a[kk][1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
     a[kk][2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
     a[kk][3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
   }
+}
+
+// A persistent grid's work item for round r: r G + x (G blocks, block x) or,
+// in odd rounds, r G + G - 1 - x: a snake, so that no block takes the
+// heaviest item of every round (a plain round robin did, and measured 3-6 %
+// slower on K5 and on K11's diagonal step)
+__device__ __forceinline__ int snake_item(int r) {
+  const int G = gridDim.x, x = blockIdx.x;
+  return r * G + ((r & 1) ? G - 1 - x : x);
 }
 
 template <int N>

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks as small PTX wrappers: TMA tensor maps and
 // tile loads, mbarriers, and warpgroup MMA (wgmma) reading tiles that TMA
-// wrote in the 128-byte swizzle. Used by flash_fwd.cu (K5, K8 and K11) and
-// hopper_check.cu (the unit check of these wrappers against torch.matmul).
+// wrote in the 128-byte swizzle. Used by flash_fwd.cu (K5, K8 and K11),
+// flash_bwd.cu (K6, K7, K9, K10, K12 and K13) and hopper_check.cu (the unit
+// check of these wrappers against torch.matmul).
 //
 // A tile in shared memory. TMA copies a box of 64 bf16 columns (128 bytes,
 // the swizzle span) by R rows to R x 128 bytes at a 1024-byte-aligned
@@ -20,14 +21,16 @@
 // - MN-major (the output axis contiguous: v [keys][d] for o += p v, with the
 //   transposed-B bit): stride offset 1024 between groups of 8 keys, leading
 //   offset = one box's bytes between 64-column boxes of d; step kk of 16 keys
-//   starts 2048 bytes further.
+//   starts 2048 bytes further. The backward reads one tile both ways: k
+//   K-major for s = q k^T and MN-major for dq += dS k, q and dO K-major for
+//   s^T = k q^T and dP^T = v dO^T and MN-major for dk += dS^T q, dv += P^T dO.
 //
 // An m64nN accumulator holds, in thread (warp w, lane 4 g + t) of the
 // warpgroup, rows 16 w + g and 16 w + g + 8 at columns 8 i + 2 t and 8 i +
 // 2 t + 1 as d[i][0..1] and d[i][2..3]: mma.sync's C layout, one 8-column
 // block at a time. An A operand in registers takes mma.sync's A layout for
 // the warp's 16 rows (mma_bf16.cuh), so a score tile packs into the A
-// fragments of the next product (flash_tiles.cuh:pack_a).
+// fragments of the next product (flash_tiles.cuh:pack_p).
 
 #pragma once
 
@@ -293,6 +296,33 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&
   static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
   if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, b, scale_d);
   else wgmma_rs_n128<TB>(d, a, b, scale_d);
+}
+
+// Whole-tile products of 64 rows, one commit group each. A tile of R rows
+// and K columns is K / 64 TMA boxes of R x 128 bytes, one after the other.
+//
+// d[64 x N] = A B^T: A [64][K] at a_at and B [N][K] at b_at, both K-major in
+// shared memory, K / 16 steps of 16 columns (s = q k^T).
+template <int N, int K>
+__device__ __forceinline__ void product_ss(float (&d)[N / 8][4], uint32_t a_at, uint32_t b_at) {
+  constexpr uint32_t ABOX = 64 * BOX_ROW_BYTES, BBOX = N * BOX_ROW_BYTES;
+#pragma unroll
+  for (int ks = 0; ks < K / 16; ++ks)
+    wgmma_ss<N, 0>(d, desc_sw128(a_at + (ks / 4) * ABOX + (ks % 4) * 32, 0),
+                   desc_sw128(b_at + (ks / 4) * BBOX + (ks % 4) * 32, 0), ks);
+  wgmma_commit();
+}
+
+// d[64 x N] += A B: A [64][K] as register A fragments (K / 16 steps of 16
+// columns) and B [K][N] at b_at, MN-major (the transposed-B bit): N / 64
+// boxes of K rows, step kk of 16 rows 2048 bytes further (o += p v).
+template <int N, int K>
+__device__ __forceinline__ void product_rs(float (&d)[N / 8][4], const uint32_t (&a)[K / 16][4],
+                                           uint32_t b_at) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    wgmma_rs<N, 1>(d, a[kk], desc_sw128(b_at + kk * 2 * ATOM, K * BOX_ROW_BYTES), 1);
+  wgmma_commit();
 }
 
 }  // namespace hopper

@@ -272,7 +272,10 @@ GQA_CASES = [  # H, G, T, dh, causal, window
     # a multiple of 128; 8 query heads a kv head, a window at dh 128, not causal (one
     # row: test_flash_forward_of_one_row_matches_plain)
     (8, 1, 17, 64, True, None), (4, 2, 64, 64, True, None), (8, 1, 192, 128, True, 100),
-    (4, 1, 2047, 64, True, None), (4, 2, 2049, 128, False, None)]
+    (4, 1, 2047, 64, True, None), (4, 2, 2049, 128, False, None),
+    # a multiple of 64 that is not one of 128: the bf16 dk/dv's last 128-key block
+    # ends 64 keys past T
+    (4, 2, 1984, 64, True, None)]
 
 
 @pytest.mark.parametrize("dtype,tol,gtol,ntol", [(torch.float32, 2e-5, 1e-4, 1e-5),
@@ -710,3 +713,80 @@ def test_cp_llm_train_step_on_cuda(cuda):
     assert got == (2 * L * cp * cp, L * cp * cp, L * cp * cp, 0, 0, 0, 0, 0, 0)
     ref = float(one.train_step(batch)["loss"])
     assert abs(float(m["loss"]) - ref) <= 2e-3 * abs(ref)
+
+
+@pytest.mark.parametrize("dtype,gtol,ntol", [(torch.float32, 1e-4, 1e-5),
+                                             (torch.bfloat16, 3e-2, 1e-2)])
+@pytest.mark.parametrize("H,G,dh", [(8, 2, 64), (12, 12, 128)])
+def test_positions_backward_with_more_keys_than_rows(cuda, H, G, dh, dtype, gtol, ntol):
+    """K12 and K13 at Tq = 2048 rows against Tkv = 4096 keys (both multiples
+    of 64, not equal): rows at even positions 0 .. 4094, keys at 1024 ..
+    5119, so that the first 512 rows keep no key and get dq = 0 exactly;
+    against the plain backward with a nonzero lse cotangent, row by row."""
+    from nemo_tpu_torch.ops.flash_attention import (
+        _k11_launch, flash_attention_positions_backward_plain, flash_pos_dkv, flash_pos_dq,
+        pos_delta)
+
+    B, Tq, Tkv, scale = 1, 2048, 4096, 1.0 / math.sqrt(dh)
+    qpos = (2 * torch.arange(Tq, dtype=torch.int32)).to(cuda)
+    kpos = (1024 + torch.arange(Tkv, dtype=torch.int32)).to(cuda)
+    g = torch.Generator().manual_seed(dh + H)
+    q, do = (torch.randn(B, Tq, H, dh, generator=g).to(cuda, dtype).transpose(1, 2)
+             for _ in range(2))
+    k, v = (torch.randn(B, Tkv, G, dh, generator=g).to(cuda, dtype).transpose(1, 2)
+            for _ in range(2))
+    dlse = torch.randn(B, H, Tq, generator=g).to(cuda)
+    o, lse = _k11_launch(q, k, v, qpos, kpos, scale, True, None)
+    o = o.transpose(1, 2)
+    dead = qpos < 1024
+    assert int(dead.sum()) == 512 and bool((lse[:, :, dead] == -1e30).all())
+    args = (q, k, v, qpos, kpos, scale, True, None, lse, pos_delta(o, do, dlse), do)
+    out = (flash_pos_dq(*args), *flash_pos_dkv(*args))
+    ref = flash_attention_positions_backward_plain(q, k, v, qpos, kpos, scale, True, None, o,
+                                                   lse, do, dlse)
+    torch.cuda.synchronize()
+    for name, x, r in zip(("dq", "dk", "dv"), out, ref):
+        assert x.shape == r.shape and x.dtype == dtype, name
+        _assert_rows_close(x, r, gtol, ntol, name)
+    assert bool((out[0][:, :, dead] == 0).all())
+
+
+@pytest.mark.parametrize("form", ["causal", "packed", "positions"])
+def test_bf16_backward_kernels_are_deterministic(cuda, form):
+    """Two launches of each bf16 backward kernel on the same inputs give the
+    same bits: K6 and K7 (causal, S=2048), K9 and K10 (the packed layout),
+    K12 and K13 (the off-diagonal ring step at 512 rows a rank). No atomics:
+    dk and dv are summed over a kv group's heads in registers."""
+    from nemo_tpu_torch.ops.flash_attention import (_k5_launch, _k8_launch, _k11_launch,
+                                                    flash_pos_dkv, flash_pos_dq, pos_delta)
+
+    g = torch.Generator().manual_seed(7)
+    H, G, dh, scale = 8, 2, 64, 0.125
+    if form == "positions":
+        qpos, kpos, _, _ = position_layout("off_diagonal", 512)
+        qpos, kpos = qpos.to(cuda), kpos.to(cuda)
+    T = 512 if form == "positions" else 2048
+    q, do = (torch.randn(2, T, H, dh, generator=g).to(cuda, torch.bfloat16).transpose(1, 2)
+             for _ in range(2))
+    k, v = (torch.randn(2, T, G, dh, generator=g).to(cuda, torch.bfloat16).transpose(1, 2)
+            for _ in range(2))
+    if form == "causal":
+        o, lse = _k5_launch(q, k, v, scale, True, None)
+        args = (q, k, v, scale, True, None, lse, row_delta(o.transpose(1, 2), do), do)
+        dq_fn, dkv_fn = flash_dq, flash_dkv
+    elif form == "packed":
+        seg = packed_segments("packed", T).to(cuda)
+        o, lse = _k8_launch(q, k, v, seg, seg_tile_ranges(seg), scale, True, None)
+        args = (q, k, v, seg, scale, True, None, lse, row_delta(o.transpose(1, 2), do), do)
+        dq_fn, dkv_fn = flash_seg_dq, flash_seg_dkv
+    else:
+        o, lse = _k11_launch(q, k, v, qpos, kpos, scale, True, None)
+        args = (q, k, v, qpos, kpos, scale, True, None, lse, pos_delta(o.transpose(1, 2), do),
+                do)
+        dq_fn, dkv_fn = flash_pos_dq, flash_pos_dkv
+    first = (dq_fn(*args), *dkv_fn(*args))
+    second = (dq_fn(*args), *dkv_fn(*args))
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dq", "dk", "dv"), first, second):
+        assert torch.isfinite(x.float()).all() and x.abs().sum() > 0, name
+        assert torch.equal(x, y), name

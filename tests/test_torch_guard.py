@@ -44,13 +44,15 @@ def test_chip_smoke_alone_fails_without_a_result(tmp_path):
     assert '"ok"' not in out.stdout
 
 
-def test_chip_smoke_forward_timing_fails_without_a_card():
-    """`chip_smoke.py --time-forward` (the A/B timing of the bf16 flash
-    forward) needs a card too: it exits non-zero and prints no timing."""
-    out = subprocess.run([sys.executable, "chip_smoke.py", "--time-forward", "--tree", "."],
+@pytest.mark.parametrize("flag,key", [("--time-forward", "k5_ms"), ("--time-backward", "k6_ms")])
+def test_chip_smoke_forward_timing_fails_without_a_card(flag, key):
+    """`chip_smoke.py --time-forward` and `--time-backward` (the A/B timings
+    of the bf16 flash forward and backward) need a card too: each exits
+    non-zero and prints no timing."""
+    out = subprocess.run([sys.executable, "chip_smoke.py", flag, "--tree", "."],
                          cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
-    assert "k5_ms" not in out.stdout
+    assert key not in out.stdout
 
 
 def test_wgmma_tile_product_runs_on_the_card_or_raises():
