@@ -19,17 +19,17 @@ at 16,384 tokens through the position-masked flash kernels K11-K13.
                                      # of this checkout (or of DIR) timed, one JSON
                                      # line: run two checkouts in turns to compare
     python3 chip_smoke.py --time-backward [--tree DIR]
-                                     # the same for the bf16 backward kernels K6,
-                                     # K7, K9, K10, K12 and K13, beside SDPA's
-                                     # backward
+                                     # the same for the bf16 backward kernels K3,
+                                     # K4, K6, K7, K9, K10, K12 and K13, beside
+                                     # SDPA's backward
 
 Phases, each printing a line; any failure raises and exits non-zero:
 
 1. the card's name and power limit (nvidia-smi), then the build of every
    kernel source (`nemo_tpu_torch/csrc/*.cu`, one nvcc each, in parallel),
    then the unit check of the TMA and wgmma wrappers (`csrc/hopper.cuh`,
-   which the bf16 forward of K5, K8 and K11 is built from): one
-   warpgroup's m64nNk16 products of TMA-loaded tiles against torch.matmul;
+   which the bf16 kernels K3-K13 are built from): one warpgroup's m64nNk16
+   products of TMA-loaded (or thread-written) tiles against torch.matmul;
 2. K1, the rel-pos flash attention, against its plain version at the
    transcription shape (B=32, H=8, T=751, dh=64), in bf16 and fp32, with its
    time, the plain version's and SDPA's (given the precomputed additive bias);
@@ -38,7 +38,8 @@ Phases, each printing a line; any failure raises and exits non-zero:
 4. K3 and K4, the rel-pos flash backward (dq side; dk/dv and dp side),
    against the plain backward at the calibration shape (B=4, H=8, T=751,
    dh=64), ragged and full lengths, bf16 and fp32, with their times, the
-   plain backward's and SDPA's backward (given the bias);
+   plain backward's and SDPA's backward (given the bias), and the kernels'
+   and SDPA's device times under torch.profiler (`device_ms`);
 5. the whole model in fp32: one seeded Conformer-Large CTC model with both
    kernel flags, on the card (kernels) and on the CPU (plain versions), at
    B=2 x 5 s; log-probs on valid frames and greedy ids must agree;
@@ -187,6 +188,25 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean device time of fn() in ms: the summed durations of the device
+    operations of `iters` calls under torch.profiler (device activity only),
+    over `iters`. Unlike `cuda_ms` it leaves out the gaps between launches,
+    so a call whose host work (a wrapper's Python and launch) outlasts its
+    kernels is not timed at the host's pace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
+
+
 def compare(what: str, out: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float) -> float:
     """Max abs error; raises where |out - ref| > atol + rtol |ref| anywhere."""
     out, ref = out.float(), ref.float()
@@ -230,6 +250,32 @@ def bound(n_bytes: float, n_ops: float, dtype: torch.dtype):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
+def relpos_bias(qv: torch.Tensor, p: torch.Tensor, lens: torch.Tensor, scale: float,
+                dtype) -> torch.Tensor:
+    """The rel-pos term and the key mask of K1 as one precomputed additive
+    bias [B, H, T, T] in `dtype`: what SDPA is given where it stands in for
+    K1 (forward) or K3 + K4 (backward) as the library yardstick."""
+    Bn, H, T, _ = qv.shape
+    bd = torch.einsum("bhid,hrd->bhir", qv.float(), p.float())
+    bd = F.pad(bd, (1, 0)).reshape(Bn, H, 2 * T, T)[:, :, 1:].reshape(
+        Bn, H, T, 2 * T - 1)[..., :T] * scale
+    keys = torch.arange(T, device=qv.device)[None, :] < lens[:, None]
+    return bd.masked_fill_(~keys[:, None, None, :], float("-inf")).to(dtype)
+
+
+def relpos_backward_inputs(gen: torch.Generator, Bc: int, H: int = 8, T: int = 751,
+                           dh: int = 64):
+    """fp32 inputs of K3 and K4 at the calibration shape, on the CPU: the
+    projected rel-pos table p [2T-1, H, dh] (as the Conformer builds it from
+    RelPositionalEncoding) and qu, qv, k, v, dO [Bc, T, H, dh]"""
+    from nemo_tpu_torch.models.asr.modules.conformer import RelPositionalEncoding
+
+    D = H * dh
+    _, pos_emb = RelPositionalEncoding(D)(torch.zeros(1, T, D))
+    p32 = (pos_emb @ (torch.randn(D, D, generator=gen) / math.sqrt(D))).view(2 * T - 1, H, dh)
+    return p32, [torch.randn(Bc, T, H, dh, generator=gen) for _ in range(5)]
+
+
 def speechlike(batch: int, n: int, rng: np.random.RandomState) -> np.ndarray:
     """Pitch-modulated harmonics, an AM envelope and pauses, peak-normalised
     (a copy of bench.py's `_speechlike`), as int16 PCM."""
@@ -265,7 +311,9 @@ def phase_hopper_check(gen: torch.Generator) -> None:
     """The TMA and wgmma wrappers of csrc/hopper.cuh alone, before any
     attention kernel: one warpgroup's four m64nNk16 steps over TMA-loaded
     bf16 tiles against torch.matmul, N = 64 and 128, b K-major (as k) and
-    MN-major (as v), a from shared memory (as q) and from registers (as P).
+    MN-major (as v), a from shared memory (as q), from registers (as P) and
+    from shared memory the threads wrote in the swizzle (as K3's and K4's dS
+    band).
     The products of bf16 values are exact in fp32; only the order and
     rounding of the fp32 sums differ: atol 1e-3 + rtol 1e-4 (a wrong
     descriptor or swizzle moves entries by O(1))."""
@@ -273,15 +321,15 @@ def phase_hopper_check(gen: torch.Generator) -> None:
 
     for n in (64, 128):
         for mn in (False, True):
-            for areg in (False, True):
+            for source in ("tma", "registers", "threads"):
                 a = torch.randn(64, 64, generator=gen).to("cuda", torch.bfloat16)
                 b = torch.randn(*((64, n) if mn else (n, 64)), generator=gen).to(
                     "cuda", torch.bfloat16)
-                c = wgmma_tile_product(a, b, mn, areg)
+                c = wgmma_tile_product(a, b, mn, source)
                 torch.cuda.synchronize()
                 ref = a.float() @ (b.float() if mn else b.float().T)
-                compare(f"wgmma m64n{n}k16, b {'MN' if mn else 'K'}-major, a from "
-                        f"{'registers' if areg else 'shared memory'}", c, ref, 1e-3, 1e-4)
+                compare(f"wgmma m64n{n}k16, b {'MN' if mn else 'K'}-major, a from {source}", c,
+                        ref, 1e-3, 1e-4)
 
 
 def phase_k1(gen: torch.Generator) -> dict:
@@ -320,12 +368,7 @@ def phase_k1(gen: torch.Generator) -> dict:
         plain_ms = cuda_ms(lambda: relpos_flash_attention_plain(*args), iters=3)
         # SDPA as a yardstick, given the rel-pos term and the key mask as one
         # precomputed additive bias [B, H, T, T]
-        bd = torch.einsum("bhid,hrd->bhir", qv.float(), p.float())
-        bd = torch.nn.functional.pad(bd, (1, 0)).reshape(B, H, 2 * T, T)[:, :, 1:].reshape(
-            B, H, T, 2 * T - 1)[..., :T] * scale
-        keys = torch.arange(T, device="cuda")[None, :] < lens[:, None]
-        bias = bd.masked_fill(~keys[:, None, None, :], float("-inf")).to(dtype)
-        del bd
+        bias = relpos_bias(qv, p, lens, scale, dtype)
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qu, k, v, attn_mask=bias, scale=scale), iters=5)
         del bias
@@ -385,16 +428,13 @@ def phase_k2(gen: torch.Generator) -> dict:
 
 
 def phase_k3_k4(gen: torch.Generator):
-    from nemo_tpu_torch.models.asr.modules.conformer import RelPositionalEncoding
     from nemo_tpu_torch.ops.flash_attention import (relpos_flash_attention,
                                                     relpos_flash_attention_backward_plain,
                                                     relpos_flash_dkv, relpos_flash_dq, row_delta)
 
     Bc, H, T, dh = FIT_BATCH, 8, 751, 64
-    D, scale = H * dh, 1.0 / math.sqrt(dh)
-    _, pos_emb = RelPositionalEncoding(D)(torch.zeros(1, T, D))
-    p32 = (pos_emb @ (torch.randn(D, D, generator=gen) / math.sqrt(D))).view(2 * T - 1, H, dh)
-    base = [torch.randn(Bc, T, H, dh, generator=gen) for _ in range(5)]  # qu, qv, k, v, dO
+    scale = 1.0 / math.sqrt(dh)
+    p32, base = relpos_backward_inputs(gen, Bc, H, T, dh)  # p; qu, qv, k, v, dO
     ragged = torch.tensor([751, 700, 613, 500], dtype=torch.int32)
     full = torch.full((Bc,), T, dtype=torch.int32)
     rows = [{"name": "relpos_flash_dq", "route": "cuda",
@@ -405,7 +445,7 @@ def phase_k3_k4(gen: torch.Generator):
              "replaces": "nemo_tpu/ops/flash_attention.py:257"}]
     names = ("dqu", "dqv", "dk", "dv", "dp")
     # tolerance relative to each gradient's max-abs value: fp32 differs by the
-    # order of sums (dp's atomics change it from run to run), bf16 also by the
+    # order of sums (dp's reductions change it from run to run), bf16 also by the
     # kernels' rounding of P and dS to bf16 before each product
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
         qu, qv, k, v, do = (t.to("cuda", dtype).transpose(1, 2) for t in base)
@@ -425,23 +465,23 @@ def phase_k3_k4(gen: torch.Generator):
                 errs.append(compare(what, x, r, tol * float(r.float().abs().max()), 0.0))
             del ref
         args = (qu, qv, k, v, p, lens, scale)  # the calibration's lengths: full 30 s clips
-        ms3 = cuda_ms(lambda: relpos_flash_dq(*args, lse, delta, do), iters=10)
-        ms4 = cuda_ms(lambda: relpos_flash_dkv(*args, lse, delta, do), iters=10)
+        k3 = lambda: relpos_flash_dq(*args, lse, delta, do)  # noqa: E731
+        k4 = lambda: relpos_flash_dkv(*args, lse, delta, do)  # noqa: E731
+        ms3, ms4 = cuda_ms(k3, iters=10), cuda_ms(k4, iters=10)
+        # and the kernels' own device time, without the gaps between launches
+        dev3, dev4 = device_ms(k3, iters=10), device_ms(k4, iters=10)
         plain_ms = cuda_ms(lambda: relpos_flash_attention_backward_plain(*args, o, lse, do),
                            iters=3)
         # SDPA's backward (dq, dk, dv) as a yardstick, given the rel-pos term
         # and the key mask as one precomputed additive bias [B, H, T, T]
-        bd = torch.einsum("bhid,hrd->bhir", qv.float(), p.float())
-        bd = F.pad(bd, (1, 0)).reshape(Bc, H, 2 * T, T)[:, :, 1:].reshape(
-            Bc, H, T, 2 * T - 1)[..., :T] * scale
-        keys = torch.arange(T, device="cuda")[None, :] < lens[:, None]
-        bias = bd.masked_fill(~keys[:, None, None, :], float("-inf")).to(dtype)
-        del bd
+        bias = relpos_bias(qv, p, lens, scale, dtype)
         ql, kl, vl = (t.detach().requires_grad_() for t in (qu, k, v))
         o_lib = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=bias, scale=scale)
-        library_ms = cuda_ms(lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do,
-                                                         retain_graph=True), iters=5)
-        del o_lib, bias
+        sdpa_bwd = lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do,  # noqa: E731
+                                               retain_graph=True)
+        library_ms = cuda_ms(sdpa_bwd, iters=5)
+        library_device_ms = device_ms(sdpa_bwd, iters=5)
+        del o_lib, bias, sdpa_bwd
         elt = qu.element_size()
         btd = Bc * T * H * dh
         pairs = T * float(lens.sum())  # (query row, valid key) pairs
@@ -449,14 +489,15 @@ def phase_k3_k4(gen: torch.Generator):
         b3 = bound(common + elt * 2 * btd, 10 * H * dh * pairs, dtype)  # 5 products
         b4 = bound(common + elt * 2 * btd + 4 * (2 * T - 1) * H * dh, 12 * H * dh * pairs,
                    dtype)  # 6 products
-        for row, ms, (bound_ms, bound_by), err in ((rows[0], ms3, b3, max(errs[:2])),
-                                                   (rows[1], ms4, b4, max(errs[2:]))):
+        for row, ms, dev, (bound_ms, bound_by), err in (
+                (rows[0], ms3, dev3, b3, max(errs[:2])), (rows[1], ms4, dev4, b4, max(errs[2:]))):
             log(f"{'K3' if row is rows[0] else 'K4'} {str(dtype)[6:]} B={Bc}: kernel_ms={ms:.4f} "
-                f"plain_ms(whole backward)={plain_ms:.4f} "
-                f"library_ms(SDPA backward+bias)={library_ms:.4f} "
-                f"bound_ms={bound_ms:.4f} ({bound_by})")
+                f"(device {dev:.4f}) plain_ms(whole backward)={plain_ms:.4f} "
+                f"library_ms(SDPA backward+bias)={library_ms:.4f} (device "
+                f"{library_device_ms:.4f}) bound_ms={bound_ms:.4f} ({bound_by})")
             row.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by, library_ms=library_ms)  # bf16 last
+                       bound_by=bound_by, library_ms=library_ms, device_ms=dev,
+                       library_device_ms=library_device_ms)  # bf16 last
     return rows
 
 
@@ -1699,13 +1740,20 @@ def cp_processes() -> int:
 
 def _timing_start():
     """(the JSON line's head: tree and card, the timer) of --time-forward and
-    --time-backward: CUDA events over 50 launches after 3 warm-up ones"""
+    --time-backward: timed(key, fn) puts fn's mean time over 50 launches
+    after 3 warm-up ones under `key`_ms (CUDA events, `cuda_ms`) and its
+    device time under `key`_device_ms (torch.profiler, `device_ms`)"""
     import nemo_tpu_torch
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     out = {"tree": os.path.dirname(os.path.dirname(nemo_tpu_torch.__file__)), "card": smi}
-    return out, lambda fn: cuda_ms(fn, iters=50, warmup=3)
+
+    def timed(key: str, fn) -> None:
+        out[f"{key}_ms"] = cuda_ms(fn, iters=50, warmup=3)
+        out[f"{key}_device_ms"] = device_ms(fn, iters=50, warmup=3)
+
+    return out, timed
 
 
 def _sft_first_segments() -> torch.Tensor:
@@ -1719,13 +1767,14 @@ def _sft_first_segments() -> torch.Tensor:
 def time_forward() -> int:
     """--time-forward: only the bf16 forward kernels K5, K8 and K11 of the
     `nemo_tpu_torch` on sys.path (another checkout with --tree), each timed
-    by CUDA events over 50 launches after 3 warm-up ones at the shape of its
-    path: K5 at B=8, H=32 over G=8, S=2048, dh 64, causal (and at dh 128, 12
-    heads over 12, GPT-551M's head), beside SDPA's forward; K8 on the SFT
-    run's first batch; K11 at one rank's CP shape (B=1, Tl=8,192), rank 0's
-    diagonal and off-diagonal ring steps. Prints one JSON line. Run it for two
-    trees in turns (parent, change, change, parent) to compare them on one
-    card."""
+    by CUDA events and by torch.profiler over 50 launches after 3 warm-up
+    ones (`_timing_start`: keys `<kernel>_ms` and `<kernel>_device_ms`) at
+    the shape of its path: K5 at B=8, H=32 over G=8, S=2048, dh 64, causal
+    (and at dh 128, 12 heads over 12, GPT-551M's head), beside SDPA's
+    forward; K8 on the SFT run's first batch; K11 at one rank's CP shape
+    (B=1, Tl=8,192), rank 0's diagonal and off-diagonal ring steps. Prints
+    one JSON line. Run it for two trees in turns (parent, change, change,
+    parent) to compare them on one card."""
     from nemo_tpu_torch.ops.flash_attention import (_k5_launch, _k8_launch, _k11_launch,
                                                     pos_tile_ranges, seg_tile_ranges)
 
@@ -1734,20 +1783,19 @@ def time_forward() -> int:
     for name, (H, G, dh) in (("k5", (32, 8, 64)), ("k5_dh128", (12, 12, 128))):
         q, k, v, _ = _gqa_inputs(gen, LLM_B, H, G, LLM_S, dh, torch.bfloat16)
         scale = 1.0 / math.sqrt(dh)
-        out[f"{name}_ms"] = timed(lambda: _k5_launch(q, k, v, scale, True, None))
-        out[f"sdpa{name[2:]}_ms"] = timed(lambda: F.scaled_dot_product_attention(
+        timed(name, lambda: _k5_launch(q, k, v, scale, True, None))
+        timed(f"sdpa{name[2:]}", lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, scale=scale, enable_gqa=True))
     q, k, v, _ = _gqa_inputs(gen, LLM_B, 32, 8, LLM_S, 64, torch.bfloat16)
     seg = _sft_first_segments()
     ranges = seg_tile_ranges(seg)
-    out["k8_ms"] = timed(lambda: _k8_launch(q, k, v, seg, ranges, 0.125, True, None))
+    timed("k8", lambda: _k8_launch(q, k, v, seg, ranges, 0.125, True, None))
     Tl = CP_S // 2
     q, k, v, _ = _gqa_inputs(gen, CP_B, 32, 8, Tl, 64, torch.bfloat16)
     for step, (qpos, kpos, _, _) in ((s, position_layouts(Tl)[s])
                                      for s in ("diagonal", "off_diagonal")):
         r = (pos_tile_ranges(qpos), pos_tile_ranges(kpos))
-        out[f"k11_{step}_ms"] = timed(
-            lambda: _k11_launch(q, k, v, qpos, kpos, 0.125, True, None, r))
+        timed(f"k11_{step}", lambda: _k11_launch(q, k, v, qpos, kpos, 0.125, True, None, r))
     print(json.dumps(out), flush=True)
     return 0
 
@@ -1760,27 +1808,46 @@ def time_backward() -> int:
     beside SDPA's backward (dq, dk, dv of a causal GQA forward, its own delta
     pass included); K9 and K10 on the SFT run's first batch; K12 and K13 at
     one rank's CP shape (B=1, Tl=8,192), rank 0's diagonal and off-diagonal
-    ring steps. Each given the lse of its forward. Prints one JSON line."""
+    ring steps; K3, K4 and row_delta at the calibration shape (B=4, H=8,
+    T=751, dh 64, full lengths), beside SDPA's backward given the rel-pos
+    bias. Each given the lse of its forward. Prints one JSON line."""
     from nemo_tpu_torch.ops.flash_attention import (
         _k5_launch, _k8_launch, _k11_launch, flash_dkv, flash_dq, flash_pos_dkv, flash_pos_dq,
-        flash_seg_dkv, flash_seg_dq, pos_delta, pos_tile_ranges, row_delta, seg_tile_ranges)
+        flash_seg_dkv, flash_seg_dq, pos_delta, pos_tile_ranges, relpos_flash_attention,
+        relpos_flash_dkv, relpos_flash_dq, row_delta, seg_tile_ranges)
 
     out, timed = _timing_start()
     gen = torch.Generator().manual_seed(0)
+    p32, base = relpos_backward_inputs(gen, FIT_BATCH)
+    qu, qv, k, v, do = (t.to("cuda", torch.bfloat16).transpose(1, 2) for t in base)
+    p = p32.to("cuda", torch.bfloat16).transpose(0, 1)
+    lens = torch.full((FIT_BATCH,), qu.shape[2], dtype=torch.int32, device="cuda")
+    args = (qu, qv, k, v, p, lens, 0.125)
+    o, lse = relpos_flash_attention(*args)
+    delta = row_delta(o, do)
+    timed("k3", lambda: relpos_flash_dq(*args, lse, delta, do))
+    timed("k4", lambda: relpos_flash_dkv(*args, lse, delta, do))
+    timed("row_delta_relpos", lambda: row_delta(o, do))
+    bias = relpos_bias(qv, p, lens, 0.125, torch.bfloat16)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (qu, k, v))
+    o_lib = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=bias, scale=0.125)
+    timed("sdpa_backward_relpos",
+          lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do, retain_graph=True))
+    del o_lib, bias, ql, kl, vl
     for name, (H, G, dh) in (("", (32, 8, 64)), ("_dh128", (12, 12, 128))):
         q, k, v, do = _gqa_inputs(gen, LLM_B, H, G, LLM_S, dh, torch.bfloat16)
         scale = 1.0 / math.sqrt(dh)
         o, lse = _k5_launch(q, k, v, scale, True, None)
         o = o.transpose(1, 2)
         args = (q, k, v, scale, True, None, lse, row_delta(o, do), do)
-        out[f"k6{name}_ms"] = timed(lambda: flash_dq(*args))
-        out[f"k7{name}_ms"] = timed(lambda: flash_dkv(*args))
-        out[f"row_delta{name}_ms"] = timed(lambda: row_delta(o, do))
+        timed(f"k6{name}", lambda: flash_dq(*args))
+        timed(f"k7{name}", lambda: flash_dkv(*args))
+        timed(f"row_delta{name}", lambda: row_delta(o, do))
         ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
         o_lib = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, scale=scale,
                                                enable_gqa=True)
-        out[f"sdpa_backward{name}_ms"] = timed(
-            lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do, retain_graph=True))
+        timed(f"sdpa_backward{name}",
+              lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do, retain_graph=True))
         del o_lib, ql, kl, vl
     q, k, v, do = _gqa_inputs(gen, LLM_B, 32, 8, LLM_S, 64, torch.bfloat16)
     seg = _sft_first_segments()
@@ -1788,8 +1855,8 @@ def time_backward() -> int:
     o, lse = _k8_launch(q, k, v, seg, ranges, 0.125, True, None)
     o = o.transpose(1, 2)
     args = (q, k, v, seg, 0.125, True, None, lse, row_delta(o, do), do, ranges)
-    out["k9_ms"] = timed(lambda: flash_seg_dq(*args))
-    out["k10_ms"] = timed(lambda: flash_seg_dkv(*args))
+    timed("k9", lambda: flash_seg_dq(*args))
+    timed("k10", lambda: flash_seg_dkv(*args))
     Tl = CP_S // 2
     q, k, v, do = _gqa_inputs(gen, CP_B, 32, 8, Tl, 64, torch.bfloat16)
     for step, (qpos, kpos, _, _) in ((s, position_layouts(Tl)[s])
@@ -1798,8 +1865,8 @@ def time_backward() -> int:
         o, lse = _k11_launch(q, k, v, qpos, kpos, 0.125, True, None, r)
         o = o.transpose(1, 2)
         args = (q, k, v, qpos, kpos, 0.125, True, None, lse, pos_delta(o, do), do, r)
-        out[f"k12_{step}_ms"] = timed(lambda: flash_pos_dq(*args))
-        out[f"k13_{step}_ms"] = timed(lambda: flash_pos_dkv(*args))
+        timed(f"k12_{step}", lambda: flash_pos_dq(*args))
+        timed(f"k13_{step}", lambda: flash_pos_dkv(*args))
     print(json.dumps(out), flush=True)
     return 0
 
@@ -1815,7 +1882,8 @@ def main() -> int:
     parser.add_argument("--time-forward", action="store_true",
                         help="only time the bf16 forward kernels K5, K8 and K11")
     parser.add_argument("--time-backward", action="store_true",
-                        help="only time the bf16 backward kernels K6, K7, K9, K10, K12 and K13")
+                        help="only time the bf16 backward kernels K3, K4, K6, K7, K9, K10, "
+                             "K12 and K13")
     parser.add_argument("--tree", default=None,
                         help="with --time-forward or --time-backward: the checkout whose "
                              "nemo_tpu_torch to time")

@@ -85,6 +85,26 @@ inline int encode_bthd(CUtensorMap* map, const void* ptr, int B, int T, int head
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// An fp32 tensor [rows, heads, D] (contiguous, 16-byte aligned) as a rank-3
+// map whose box is 32 columns (128 bytes, the swizzle span) of one head by
+// `box_rows` rows, in the 128-byte swizzle: the target of tma_reduce_add_3d,
+// which skips the box's rows past `rows` (a box that starts at a negative
+// row faults: error 715 on the H100). Returns a cudaError_t.
+inline int encode_rows_f32(CUtensorMap* map, const void* ptr, int rows, int heads, int D,
+                           int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)rows};
+  const cuuint64_t strides[2] = {4ull * D, 4ull * D * heads};  // bytes
+  const cuuint32_t box[3] = {32, 1, (cuuint32_t)box_rows};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // ---------------------------------------------------------------- device
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -128,6 +148,52 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// TMA reduction: add the fp32 box at shared address src (two 32-column boxes
+// of a [rows][64] tile are two calls) into `map` at (c0 column, c1 head, c2
+// row), in a bulk group; the source may be rewritten after bulk_wait_read
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map, uint32_t src, int c0,
+                                                  int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.tile.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// the bulk groups this thread committed have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// make this thread's writes to shared memory visible to the async proxy
+// (wgmma and TMA reading them), before the barrier that orders the read
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// named barrier `id` (1-15; 0 is __syncthreads) of `n` threads
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+// arrive at named barrier `id` of `n` threads without waiting
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// byte offset of bf16 element (r, c) of a [rows][64] tile in the 128-byte
+// swizzle (the layout TMA writes and wgmma reads), for tiles the threads write
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return r * BOX_ROW_BYTES + ((((c >> 3) ^ r) & 7) << 4) + ((c & 7) << 1);
+}
+// the same for fp32 element (r, c) of a [rows][64] tile kept as two boxes of
+// 32 columns (rows x 128 bytes each), the layout of encode_rows_f32's box
+__device__ __forceinline__ uint32_t sw128_f32(int r, int c, int rows) {
+  const int cc = c & 31;
+  return (c >> 5) * rows * BOX_ROW_BYTES + r * BOX_ROW_BYTES + ((((cc >> 2) ^ r) & 7) << 4) +
+         ((cc & 3) << 2);
 }
 
 // wgmma descriptor of a 128-byte-swizzled tile at shared address `addr`
@@ -322,6 +388,20 @@ __device__ __forceinline__ void product_rs(float (&d)[N / 8][4], const uint32_t 
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk)
     wgmma_rs<N, 1>(d, a[kk], desc_sw128(b_at + kk * 2 * ATOM, K * BOX_ROW_BYTES), 1);
+  wgmma_commit();
+}
+
+// d[64 x N] (+)= A B: A [64][K] at a_at, K-major in shared memory (as TMA or
+// the threads wrote it), and B [K][N] at b_at, MN-major as in product_rs;
+// accumulate = 0 overwrites d.
+template <int N, int K>
+__device__ __forceinline__ void product_ss_mn(float (&d)[N / 8][4], uint32_t a_at, uint32_t b_at,
+                                              int accumulate) {
+  constexpr uint32_t ABOX = 64 * BOX_ROW_BYTES;
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    wgmma_ss<N, 1>(d, desc_sw128(a_at + (kk / 4) * ABOX + (kk % 4) * 32, 0),
+                   desc_sw128(b_at + kk * 2 * ATOM, K * BOX_ROW_BYTES), kk > 0 || accumulate);
   wgmma_commit();
 }
 

@@ -6,9 +6,11 @@
 //   tb = 0: b [N][64], K-major (as k for s = q k^T): c = a b^T
 //   tb = 1: b [64][N], MN-major (as v for o += p v): c = a b, N / 64 boxes
 //
-// with a from shared memory (areg = 0, as q) or as register A fragments read
-// from device memory (areg = 1, as the probabilities). chip_smoke.py holds c
-// against torch.matmul.
+// with a from shared memory (areg = 0, as q), as register A fragments read
+// from device memory (areg = 1, as the probabilities), or from shared memory
+// that the threads wrote in the 128-byte swizzle (areg = 2, as the dS band
+// of relpos_flash_bwd.cu, made visible to wgmma by fence.proxy.async).
+// chip_smoke.py holds c against torch.matmul.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -40,8 +42,8 @@ __global__ void __launch_bounds__(128) check_kernel(const __grid_constant__ CUte
   }
   __syncthreads();
   if (tid == 0) {
-    hopper::mbar_arrive_tx(bar, ABYTES + N * hopper::BOX_ROW_BYTES);
-    hopper::tma_load_4d(sa, &ta, bar, 0, 0, 0, 0);
+    hopper::mbar_arrive_tx(bar, (AREG == 2 ? 0 : ABYTES) + N * hopper::BOX_ROW_BYTES);
+    if (AREG != 2) hopper::tma_load_4d(sa, &ta, bar, 0, 0, 0, 0);
     if (TB == 0) {
       hopper::tma_load_4d(sb, &tb, bar, 0, 0, 0, 0);  // N rows of 64
     } else {
@@ -50,9 +52,16 @@ __global__ void __launch_bounds__(128) check_kernel(const __grid_constant__ CUte
     }
   }
   hopper::mbar_wait(bar, 0);
+  if (AREG == 2) {  // the threads write a, swizzled
+    uint8_t* sa_ptr = smem_raw + (sa - raw);
+    for (int idx = tid; idx < 64 * 64; idx += 128)
+      *reinterpret_cast<bf16*>(sa_ptr + hopper::sw128(idx / 64, idx % 64)) = a[idx];
+    hopper::fence_proxy_async();
+    __syncthreads();
+  }
 
   uint32_t fa[4][4];  // a's rows 16 warp + g (+ 8) as A fragments, read by AREG = 1
-  if (AREG) {
+  if (AREG == 1) {
     const int ra = 16 * warp + g, rb = ra + 8;
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks)
@@ -66,7 +75,7 @@ __global__ void __launch_bounds__(128) check_kernel(const __grid_constant__ CUte
   for (int ks = 0; ks < 4; ++ks) {
     const uint64_t db = TB == 0 ? desc_sw128(sb + ks * 32, 0)
                                 : desc_sw128(sb + ks * 2 * ATOM, ABYTES);
-    if (AREG)
+    if (AREG == 1)
       hopper::wgmma_rs<N, TB>(d, fa[ks], db, ks);
     else
       hopper::wgmma_ss<N, TB>(d, desc_sw128(sa + ks * 32, 0), db, ks);
@@ -101,21 +110,26 @@ int run(const void* a, const void* b, void* c, cudaStream_t s) {
 }  // namespace
 
 // a [64][64] bf16; b [n][64] (tb 0) or [64][n] (tb 1) bf16; c [64][n] fp32;
-// every pointer 16-byte aligned. n 64 or 128. Returns a cudaError_t.
+// every pointer 16-byte aligned. n 64 or 128; areg 0 (a by TMA), 1 (a in
+// registers) or 2 (a written by the threads). Returns a cudaError_t.
 extern "C" int hopper_check(int n, int tb, int areg, const void* a, const void* b, void* c,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((n != 64 && n != 128) || (tb != 0 && tb != 1) || (areg != 0 && areg != 1))
+  if ((n != 64 && n != 128) || (tb != 0 && tb != 1) || areg < 0 || areg > 2)
     return (int)cudaErrorInvalidValue;
-  switch ((n == 128) * 4 + tb * 2 + areg) {
+  switch ((n == 128) * 6 + tb * 3 + areg) {
     case 0: return run<64, 0, 0>(a, b, c, s);
     case 1: return run<64, 0, 1>(a, b, c, s);
-    case 2: return run<64, 1, 0>(a, b, c, s);
-    case 3: return run<64, 1, 1>(a, b, c, s);
-    case 4: return run<128, 0, 0>(a, b, c, s);
-    case 5: return run<128, 0, 1>(a, b, c, s);
-    case 6: return run<128, 1, 0>(a, b, c, s);
-    case 7: return run<128, 1, 1>(a, b, c, s);
+    case 2: return run<64, 0, 2>(a, b, c, s);
+    case 3: return run<64, 1, 0>(a, b, c, s);
+    case 4: return run<64, 1, 1>(a, b, c, s);
+    case 5: return run<64, 1, 2>(a, b, c, s);
+    case 6: return run<128, 0, 0>(a, b, c, s);
+    case 7: return run<128, 0, 1>(a, b, c, s);
+    case 8: return run<128, 0, 2>(a, b, c, s);
+    case 9: return run<128, 1, 0>(a, b, c, s);
+    case 10: return run<128, 1, 1>(a, b, c, s);
+    case 11: return run<128, 1, 2>(a, b, c, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -108,12 +108,17 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def wgmma_tile_product(a, b, b_mn_major: bool, a_in_registers: bool):
+A_SOURCES = ("tma", "registers", "threads")  # hopper_check's areg 0, 1, 2
+
+
+def wgmma_tile_product(a, b, b_mn_major: bool, a_source: str):
     """c [64, N] fp32 = a [64, 64] · b' on the card by one warpgroup: a and b
-    bf16 CUDA tensors loaded by TMA, four wgmma m64nNk16 steps (N = 64 or
+    bf16 CUDA tensors, b loaded by TMA, four wgmma m64nNk16 steps (N = 64 or
     128), the unit check of `hopper.cuh`. b is [N, 64] (K-major, c = a b^T)
-    or, with `b_mn_major`, [64, N] (MN-major, c = a b); a is read from shared
-    memory or, with `a_in_registers`, as register fragments."""
+    or, with `b_mn_major`, [64, N] (MN-major, c = a b). `a_source` says how a
+    reaches wgmma: "tma" (loaded into shared memory by TMA), "registers"
+    (as register A fragments) or "threads" (stored into shared memory by the
+    threads in the 128-byte swizzle, `hopper.cuh:sw128`)."""
     import torch
 
     n = b.shape[1] if b_mn_major else b.shape[0]
@@ -123,11 +128,14 @@ def wgmma_tile_product(a, b, b_mn_major: bool, a_in_registers: bool):
             or not (a.is_cuda and b.is_cuda)):
         raise ValueError("wgmma_tile_product: a [64, 64] and b [N, 64] or [64, N] bf16 on the "
                          "card, N 64 or 128")
+    if a_source not in A_SOURCES:
+        raise ValueError(f"wgmma_tile_product: a_source is one of {A_SOURCES}")
     a, b = a.contiguous(), b.contiguous()
     c = torch.empty(64, n, dtype=torch.float32, device=a.device)
     fn = library("hopper_check").hopper_check
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
-    check(fn(n, int(b_mn_major), int(a_in_registers), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-             torch.cuda.current_stream(a.device).cuda_stream), "wgmma_tile_product")
+    check(fn(n, int(b_mn_major), A_SOURCES.index(a_source), a.data_ptr(), b.data_ptr(),
+             c.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream),
+          "wgmma_tile_product")
     return c

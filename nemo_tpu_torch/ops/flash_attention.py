@@ -275,8 +275,11 @@ relpos_flash_dq.launches = 0
 
 def relpos_flash_dkv(qu, qv, k, v, p, lengths, scale, lse, delta, do):
     """K4 → (dk, dv [B, H, T, dh], dp [H, 2T-1, dh]); arguments as
-    `relpos_flash_dq`. dp is summed over the batch with fp32 atomics, so its
-    last bits change from run to run. CPU tensors take the plain backward."""
+    `relpos_flash_dq`. dp is summed over the batch in fp32 across blocks (in
+    bf16 by TMA reductions, plus atomics for the one chunk a (b, h) that
+    starts before p's first row, where T is no multiple of 64; in fp32 by
+    atomics), so its last bits change from run to run; dk and dv do not. CPU
+    tensors take the plain backward."""
     if _device("relpos_flash_dkv", qu) == "cpu":
         return _backward_plain(qu, qv, k, v, p, lengths, scale, lse, delta, do)[2:]
     dk, dv, dp32 = _bwd_launch("relpos_flash_bwd_dkv", qu, qv, k, v, p, lengths, scale, lse,
@@ -303,7 +306,7 @@ def _bwd_launch(fn: str, qu, qv, k, v, p, lengths, scale, lse, delta, do, n_out:
     p_rhd = _p_rhd(fn, p)
     lens = lengths.to(device=qu.device, dtype=torch.int32).contiguous()
     outs = [torch.empty((B, T, H, dh), dtype=dtype, device=qu.device) for _ in range(2)]
-    if n_out == 3:  # dp, summed by atomics
+    if n_out == 3:  # dp, summed into across blocks
         outs.append(torch.zeros((2 * T - 1, H, dh), dtype=torch.float32, device=qu.device))
     err = getattr(_lib("relpos_flash_bwd"), fn)(
         _DTYPES[dtype], *(t.data_ptr() for t in bthd[:4]), p_rhd.data_ptr(), bthd[4].data_ptr(),

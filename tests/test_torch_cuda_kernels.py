@@ -43,18 +43,21 @@ def cuda():
 
 @pytest.mark.parametrize("n", [64, 128])
 @pytest.mark.parametrize("b_mn_major", [False, True])
-@pytest.mark.parametrize("a_in_registers", [False, True])
-def test_wgmma_tile_product_matches_matmul(cuda, n, b_mn_major, a_in_registers):
+@pytest.mark.parametrize("a_source", ["tma", "registers", "threads"])
+def test_wgmma_tile_product_matches_matmul(cuda, n, b_mn_major, a_source):
     """The TMA and wgmma wrappers of csrc/hopper.cuh (the bf16 flash
-    forward's): one warpgroup's m64nNk16 steps over TMA-loaded bf16 tiles
-    against torch.matmul; the bf16 products are exact in fp32, only the fp32
-    sums' order and rounding differ."""
+    kernels'): one warpgroup's m64nNk16 steps over bf16 tiles against
+    torch.matmul, a loaded by TMA (as q), as register fragments (as P) or
+    stored by the threads in the 128-byte swizzle (as K3's and K4's dS
+    band); the bf16 products are exact in fp32, only the fp32 sums' order
+    and rounding differ."""
     from nemo_tpu_torch.csrc.loader import wgmma_tile_product
 
-    g = torch.Generator().manual_seed(n + 2 * b_mn_major + a_in_registers)
+    g = torch.Generator().manual_seed(
+        n + 2 * b_mn_major + {"tma": 0, "registers": 1, "threads": 10}[a_source])
     a = torch.randn(64, 64, generator=g).to(cuda, torch.bfloat16)
     b = torch.randn(*((64, n) if b_mn_major else (n, 64)), generator=g).to(cuda, torch.bfloat16)
-    c = wgmma_tile_product(a, b, b_mn_major, a_in_registers)
+    c = wgmma_tile_product(a, b, b_mn_major, a_source)
     ref = a.float() @ (b.float() if b_mn_major else b.float().T)
     torch.testing.assert_close(c, ref, atol=1e-3, rtol=1e-4)
 
@@ -145,14 +148,21 @@ def test_small_model_on_cuda_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("T,lengths", [(64, [64, 64]), (151, [151, 77]), (200, [1, 133]),
-                                       (751, [751, 700])])
-def test_relpos_flash_backward_kernels_match_plain(cuda, dtype, tol, T, lengths):
+@pytest.mark.parametrize("T,lengths,H", [(64, [64, 64], 3), (151, [151, 77], 3),
+                                         (200, [1, 133], 3), (751, [751, 700], 3),
+                                         (128, [128, 128], 3), (129, [129, 65], 3),
+                                         (1000, [1000, 1], 3), (200, [200, 70], 1),
+                                         (25, [25, 10], 3)])
+def test_relpos_flash_backward_kernels_match_plain(cuda, dtype, tol, T, lengths, H):
     """K3 (dqu, dqv) and K4 (dk, dv, dp) against the plain backward, each
     within tol of its max-abs value: fp32 differs by the order of sums (dp
-    by atomics, whose order changes from run to run); bf16 also by the
-    kernels' rounding of P and dS to bf16 before each product."""
-    B, H = len(lengths), 3
+    is summed across blocks in an order that changes from run to run); bf16
+    also by the kernels' rounding of P and dS to bf16 before each product.
+    The shapes meet the bf16 kernels' tiling: 128-row blocks whole (128),
+    with one row (129) or one warpgroup (200) past T, p's band past both of
+    its ends, a block of keys wholly past a length of 1 (1000), one head, and
+    a clip shorter than one tile (25 frames, 1 s)."""
+    B = len(lengths)
     args = [a.to(cuda, dtype) if torch.is_tensor(a) and a.is_floating_point() else
             (a.to(cuda) if torch.is_tensor(a) else a)
             for a in _attention_inputs(B, H, T, lengths, seed=T + 1)]
@@ -749,6 +759,26 @@ def test_positions_backward_with_more_keys_than_rows(cuda, H, G, dh, dtype, gtol
         assert x.shape == r.shape and x.dtype == dtype, name
         _assert_rows_close(x, r, gtol, ntol, name)
     assert bool((out[0][:, :, dead] == 0).all())
+
+
+def test_bf16_relpos_backward_kernels_are_deterministic(cuda):
+    """Two launches of the bf16 K3 and K4 on the same inputs give the same
+    bits for dqu, dqv, dk and dv (each block sums its own rows and keys in
+    registers); dp, summed across blocks by TMA reductions, may differ in its
+    last bits and is held to the plain backward by the test above."""
+    lengths = [751, 700, 613, 500]
+    args = [a.to(cuda, torch.bfloat16) if torch.is_tensor(a) and a.is_floating_point() else
+            (a.to(cuda) if torch.is_tensor(a) else a)
+            for a in _attention_inputs(len(lengths), 8, 751, lengths, seed=11)]
+    o, lse = relpos_flash_attention(*args)
+    do = torch.randn(o.shape, generator=torch.Generator().manual_seed(12)).to(cuda, torch.bfloat16)
+    delta = row_delta(o, do)
+    first = (*relpos_flash_dq(*args, lse, delta, do), *relpos_flash_dkv(*args, lse, delta, do)[:2])
+    second = (*relpos_flash_dq(*args, lse, delta, do), *relpos_flash_dkv(*args, lse, delta, do)[:2])
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dqu", "dqv", "dk", "dv"), first, second):
+        assert torch.isfinite(x.float()).all() and x.abs().sum() > 0, name
+        assert torch.equal(x, y), name
 
 
 @pytest.mark.parametrize("form", ["causal", "packed", "positions"])

@@ -62,13 +62,13 @@ def test_wgmma_tile_product_runs_on_the_card_or_raises():
 
     a, b = torch.zeros(64, 64, dtype=torch.bfloat16), torch.zeros(128, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="on the card"):
-        wgmma_tile_product(a, b, False, False)
+        wgmma_tile_product(a, b, False, "tma")
     with pytest.raises(ValueError, match="bf16"):
-        wgmma_tile_product(a.float(), b.float(), False, True)
+        wgmma_tile_product(a.float(), b.float(), False, "registers")
     with pytest.raises(ValueError, match="N 64 or 128"):
-        wgmma_tile_product(a, b[:96], False, False)
+        wgmma_tile_product(a, b[:96], False, "tma")
     with pytest.raises(ValueError, match="N 64 or 128"):
-        wgmma_tile_product(a, b, True, False)  # MN-major b is [64, N]
+        wgmma_tile_product(a, b, True, "tma")  # MN-major b is [64, N]
 
 
 def test_model_without_device_needs_cuda(monkeypatch):
