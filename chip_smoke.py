@@ -15,8 +15,9 @@ at 16,384 tokens through the position-masked flash kernels K11-K13.
                                      # only CP training over processes, one a card
                                      # (NCCL), against every rank in one process
     python3 chip_smoke.py --time-forward [--tree DIR]
-                                     # only the bf16 forward kernels K5, K8 and K11
-                                     # of this checkout (or of DIR) timed, one JSON
+                                     # only the bf16 forward kernels K1, K2, K5, K8
+                                     # and K11 of this checkout (or of DIR) timed,
+                                     # beside SDPA and the cuDNN pair, one JSON
                                      # line: run two checkouts in turns to compare
     python3 chip_smoke.py --time-backward [--tree DIR]
                                      # the same for the bf16 backward kernels K3,
@@ -28,13 +29,15 @@ Phases, each printing a line; any failure raises and exits non-zero:
 1. the card's name and power limit (nvidia-smi), then the build of every
    kernel source (`nemo_tpu_torch/csrc/*.cu`, one nvcc each, in parallel),
    then the unit check of the TMA and wgmma wrappers (`csrc/hopper.cuh`,
-   which the bf16 kernels K3-K13 are built from): one warpgroup's m64nNk16
+   which the bf16 kernels K1-K13 are built from): one warpgroup's m64nNk16
    products of TMA-loaded (or thread-written) tiles against torch.matmul;
 2. K1, the rel-pos flash attention, against its plain version at the
    transcription shape (B=32, H=8, T=751, dh=64), in bf16 and fp32, with its
-   time, the plain version's and SDPA's (given the precomputed additive bias);
+   time, the plain version's and SDPA's (given the precomputed additive
+   bias), and the kernel's and SDPA's device times (`device_ms`);
 3. K2, the fused subsampling, against its plain version (the cuDNN conv
-   pair in fp32) at the transcription shape (x [32, 3001, 80], C=512);
+   pair in fp32) at the transcription shape (x [32, 3001, 80], C=512), with
+   its time and device time beside the bf16 cuDNN pair's;
 4. K3 and K4, the rel-pos flash backward (dq side; dk/dv and dp side),
    against the plain backward at the calibration shape (B=4, H=8, T=751,
    dh=64), ragged and full lengths, bf16 and fp32, with their times, the
@@ -276,6 +279,15 @@ def relpos_backward_inputs(gen: torch.Generator, Bc: int, H: int = 8, T: int = 7
     return p32, [torch.randn(Bc, T, H, dh, generator=gen) for _ in range(5)]
 
 
+def subsampling_inputs(gen: torch.Generator, T: int = 3001, Fi: int = 80, C: int = 512):
+    """fp32 inputs of K2 at the transcription shape, on the CPU: x [B, T, Fi],
+    w1 [3, 3, 1, C], b1, w2 [3, 3, C, C], b2"""
+    return (torch.randn(B, T, Fi, generator=gen), torch.randn(3, 3, 1, C, generator=gen) / 3.0,
+            0.1 * torch.randn(C, generator=gen),
+            torch.randn(3, 3, C, C, generator=gen) / math.sqrt(9 * C),
+            0.1 * torch.randn(C, generator=gen))
+
+
 def speechlike(batch: int, n: int, rng: np.random.RandomState) -> np.ndarray:
     """Pitch-modulated harmonics, an AM envelope and pauses, peak-normalised
     (a copy of bench.py's `_speechlike`), as int16 PCM."""
@@ -313,11 +325,12 @@ def phase_hopper_check(gen: torch.Generator) -> None:
     bf16 tiles against torch.matmul, N = 64 and 128, b K-major (as k) and
     MN-major (as v), a from shared memory (as q), from registers (as P) and
     from shared memory the threads wrote in the swizzle (as K3's and K4's dS
-    band).
+    band); and K2's forms, N = 256 and 128 with a written by the threads
+    with no swizzle (its h1 patch) and N = 32 with both so (conv1).
     The products of bf16 values are exact in fp32; only the order and
     rounding of the fp32 sums differ: atol 1e-3 + rtol 1e-4 (a wrong
     descriptor or swizzle moves entries by O(1))."""
-    from nemo_tpu_torch.csrc.loader import wgmma_tile_product
+    from nemo_tpu_torch.csrc.loader import PLAIN_FORMS, wgmma_tile_product
 
     for n in (64, 128):
         for mn in (False, True):
@@ -330,6 +343,14 @@ def phase_hopper_check(gen: torch.Generator) -> None:
                 ref = a.float() @ (b.float() if mn else b.float().T)
                 compare(f"wgmma m64n{n}k16, b {'MN' if mn else 'K'}-major, a from {source}", c,
                         ref, 1e-3, 1e-4)
+    for n, layout, source in PLAIN_FORMS:  # K2's: no swizzle, n 32 and 256
+        a = torch.randn(64, 64, generator=gen).to("cuda", torch.bfloat16)
+        mn = layout == "mn"
+        b = torch.randn(*((64, n) if mn else (n, 64)), generator=gen).to("cuda", torch.bfloat16)
+        c = wgmma_tile_product(a, b, mn, source, b_plain=layout == "k_plain")
+        torch.cuda.synchronize()
+        ref = a.float() @ (b.float() if mn else b.float().T)
+        compare(f"wgmma m64n{n}k16, b {layout}, a from {source}", c, ref, 1e-3, 1e-4)
 
 
 def phase_k1(gen: torch.Generator) -> dict:
@@ -365,19 +386,23 @@ def phase_k1(gen: torch.Generator) -> dict:
         del o_ref, lse_ref
         args = (qu, qv, k, v, p, lens, scale)  # the main path's lengths: full 30 s clips
         ms = cuda_ms(lambda: relpos_flash_attention(*args), iters=10)
+        dev_ms = device_ms(lambda: relpos_flash_attention(*args), iters=10)
         plain_ms = cuda_ms(lambda: relpos_flash_attention_plain(*args), iters=3)
         # SDPA as a yardstick, given the rel-pos term and the key mask as one
         # precomputed additive bias [B, H, T, T]
         bias = relpos_bias(qv, p, lens, scale, dtype)
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qu, k, v, attn_mask=bias, scale=scale), iters=5)
+        def sdpa():
+            return F.scaled_dot_product_attention(qu, k, v, attn_mask=bias, scale=scale)
+
+        library_ms, library_dev_ms = cuda_ms(sdpa, iters=5), device_ms(sdpa, iters=5)
         del bias
         elt = qu.element_size()
         n_bytes = elt * (5 * B * T * H * dh + (2 * T - 1) * H * dh) + 4 * B + 4 * B * H * T
         n_ops = 6 * H * dh * T * float(lens.sum())
         bound_ms, bound_by = bound(n_bytes, n_ops, dtype)
-        log(f"K1 {str(dtype)[6:]}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms(SDPA+bias)={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by})")
+        log(f"K1 {str(dtype)[6:]}: kernel_ms={ms:.4f} (device {dev_ms:.4f}) "
+            f"plain_ms={plain_ms:.4f} library_ms(SDPA+bias)={library_ms:.4f} (device "
+            f"{library_dev_ms:.4f}) bound_ms={bound_ms:.4f} ({bound_by})")
         row.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, library_ms=library_ms)  # bf16, the main path's type, last
     return row
@@ -388,11 +413,7 @@ def phase_k2(gen: torch.Generator) -> dict:
                                                        fused_subsampling_x4_plain)
 
     T, Fi, C = 3001, 80, 512
-    x32 = torch.randn(B, T, Fi, generator=gen)
-    w1_32 = torch.randn(3, 3, 1, C, generator=gen) / 3.0
-    b1_32 = 0.1 * torch.randn(C, generator=gen)
-    w2_32 = torch.randn(3, 3, C, C, generator=gen) / math.sqrt(9 * C)
-    b2_32 = 0.1 * torch.randn(C, generator=gen)
+    x32, w1_32, b1_32, w2_32, b2_32 = subsampling_inputs(gen, T, Fi, C)
     row = {"name": "fused_subsampling_x4", "route": "cuda",
            "source": "nemo_tpu_torch/csrc/fused_subsampling.cu",
            "replaces": "nemo_tpu/ops/subsampling_kernel.py:34"}
@@ -406,22 +427,25 @@ def phase_k2(gen: torch.Generator) -> dict:
         err = compare(f"K2 {str(dtype)[6:]}", out, ref, atol, rtol)
         del out, ref
         ms = cuda_ms(lambda: fused_subsampling_x4(*args), iters=3)
+        dev_ms = device_ms(lambda: fused_subsampling_x4(*args), iters=3)
         plain_ms = cuda_ms(lambda: fused_subsampling_x4_plain(*args), iters=5)
         # the library yardstick: the cuDNN conv pair alone in the kernel's
         # dtype, NCHW, without the plain version's casts and layout copies
         x4, w1, b1, w2, b2 = args[0][:, None], args[1].permute(3, 2, 0, 1).contiguous(), \
             args[2], args[3].permute(3, 2, 0, 1).contiguous(), args[4]
-        library_ms = cuda_ms(lambda: F.conv2d(F.conv2d(x4, w1, b1, 2, 1).relu_(), w2, b2, 2, 1)
-                             .relu_(), iters=5)
+        def pair():
+            return F.conv2d(F.conv2d(x4, w1, b1, 2, 1).relu_(), w2, b2, 2, 1).relu_()
+
+        library_ms, library_dev_ms = cuda_ms(pair, iters=5), device_ms(pair, iters=5)
         elt = args[0].element_size()
         T2, F2, T4, F4 = 1501, 40, 751, 20
         n_bytes = elt * (B * T * Fi + 9 * C + C + 9 * C * C + C + B * T4 * F4 * C)
         n_ops = 2 * B * T4 * F4 * C * 9 * C + 2 * B * T2 * F2 * C * 9
         bound_ms, bound_by = bound(n_bytes, n_ops, dtype)
-        log(f"K2 {str(dtype)[6:]}: kernel_ms={ms:.4f} "
+        log(f"K2 {str(dtype)[6:]}: kernel_ms={ms:.4f} (device {dev_ms:.4f}) "
             f"plain_ms(fp32 cuDNN pair + layout)={plain_ms:.4f} "
-            f"library_ms(cuDNN pair in {str(dtype)[6:]})={library_ms:.4f} "
-            f"bound_ms={bound_ms:.4f} ({bound_by})")
+            f"library_ms(cuDNN pair in {str(dtype)[6:]})={library_ms:.4f} (device "
+            f"{library_dev_ms:.4f}) bound_ms={bound_ms:.4f} ({bound_by})")
         row.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, library_ms=library_ms)
     return row
@@ -1765,21 +1789,42 @@ def _sft_first_segments() -> torch.Tensor:
 
 
 def time_forward() -> int:
-    """--time-forward: only the bf16 forward kernels K5, K8 and K11 of the
-    `nemo_tpu_torch` on sys.path (another checkout with --tree), each timed
-    by CUDA events and by torch.profiler over 50 launches after 3 warm-up
-    ones (`_timing_start`: keys `<kernel>_ms` and `<kernel>_device_ms`) at
-    the shape of its path: K5 at B=8, H=32 over G=8, S=2048, dh 64, causal
+    """--time-forward: only the bf16 forward kernels K1, K2, K5, K8 and K11
+    of the `nemo_tpu_torch` on sys.path (another checkout with --tree), each
+    timed by CUDA events and by torch.profiler over 50 launches after 3
+    warm-up ones (`_timing_start`: keys `<kernel>_ms` and
+    `<kernel>_device_ms`) at the shape of its path: K1 and K2 at the
+    transcription shape (B=32 x 30 s, full lengths), beside SDPA given the
+    rel-pos bias (`sdpa_relpos`) and the bf16 cuDNN conv pair
+    (`cudnn_pair_bf16`); K5 at B=8, H=32 over G=8, S=2048, dh 64, causal
     (and at dh 128, 12 heads over 12, GPT-551M's head), beside SDPA's
     forward; K8 on the SFT run's first batch; K11 at one rank's CP shape
     (B=1, Tl=8,192), rank 0's diagonal and off-diagonal ring steps. Prints
     one JSON line. Run it for two trees in turns (parent, change, change,
     parent) to compare them on one card."""
     from nemo_tpu_torch.ops.flash_attention import (_k5_launch, _k8_launch, _k11_launch,
-                                                    pos_tile_ranges, seg_tile_ranges)
+                                                    pos_tile_ranges, relpos_flash_attention,
+                                                    seg_tile_ranges)
+    from nemo_tpu_torch.ops.subsampling_kernel import fused_subsampling_x4
 
     out, timed = _timing_start()
     gen = torch.Generator().manual_seed(0)
+    p32, base = relpos_backward_inputs(gen, B)
+    qu, qv, k, v = (t.to("cuda", torch.bfloat16).transpose(1, 2) for t in base[:4])
+    p = p32.to("cuda", torch.bfloat16).transpose(0, 1)
+    lens = torch.full((B,), qu.shape[2], dtype=torch.int32, device="cuda")
+    timed("k1", lambda: relpos_flash_attention(qu, qv, k, v, p, lens, 0.125))
+    bias = relpos_bias(qv, p, lens, 0.125, torch.bfloat16)
+    timed("sdpa_relpos", lambda: F.scaled_dot_product_attention(qu, k, v, attn_mask=bias,
+                                                                scale=0.125))
+    del bias, qu, qv, k, v, p, base
+    x, w1, b1, w2, b2 = (t.to("cuda", torch.bfloat16) for t in subsampling_inputs(gen))
+    timed("k2", lambda: fused_subsampling_x4(x, w1, b1, w2, b2))
+    x4 = x[:, None]
+    w1c, w2c = (w.permute(3, 2, 0, 1).contiguous() for w in (w1, w2))
+    timed("cudnn_pair_bf16", lambda: F.conv2d(F.conv2d(x4, w1c, b1, 2, 1).relu_(), w2c, b2, 2, 1)
+          .relu_())
+    del x, x4, w1, w2, w1c, w2c
     for name, (H, G, dh) in (("k5", (32, 8, 64)), ("k5_dh128", (12, 12, 128))):
         q, k, v, _ = _gqa_inputs(gen, LLM_B, H, G, LLM_S, dh, torch.bfloat16)
         scale = 1.0 / math.sqrt(dh)
@@ -1880,7 +1925,7 @@ def main() -> int:
                         help="only the process-group form of CP training, one process a card: "
                              "torchrun --nproc-per-node N chip_smoke.py --cp-processes")
     parser.add_argument("--time-forward", action="store_true",
-                        help="only time the bf16 forward kernels K5, K8 and K11")
+                        help="only time the bf16 forward kernels K1, K2, K5, K8 and K11")
     parser.add_argument("--time-backward", action="store_true",
                         help="only time the bf16 backward kernels K3, K4, K6, K7, K9, K10, "
                              "K12 and K13")

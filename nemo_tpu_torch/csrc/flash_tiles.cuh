@@ -293,6 +293,17 @@ inline bool aligned16(const void* const* ptrs, int n) {
   return true;
 }
 
+// A persistent grid: one block a multiprocessor, or an item where there are
+// fewer items (blocks take items by flash::tc::snake_item). Returns a
+// cudaError_t.
+inline int persistent_grid(int n_items, int& grid) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  grid = n_items < sms ? n_items : sms;
+  return (int)e;
+}
+
 // launch `kernel` on grid (grid_x, grid_y, B) with `smem` bytes of dynamic
 // shared memory; returns a cudaError_t
 template <typename K>

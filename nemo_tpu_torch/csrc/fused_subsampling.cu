@@ -1,4 +1,5 @@
-// Fused conv-ReLU-conv-ReLU subsampling (x4) for Hopper (sm_90a), fp32 or bf16.
+// Fused conv-ReLU-conv-ReLU subsampling (x4) for Hopper (sm_90a), fp32 or bf16:
+// K2.
 //
 // Replaces the TPU kernel nemo_tpu/ops/subsampling_kernel.py:_kernel
 // (fused_subsampling_x4). It computes the two 3x3 stride-2 convolutions of
@@ -10,32 +11,36 @@
 //
 // written as [B, T4, F4*C], flattened (f, c) like the JAX reshape. h1 is
 // rounded to the input type (bf16 or fp32) before conv2, as the plain version
-// does; every sum is accumulated in fp32.
+// does; every sum is accumulated in fp32. conv2 is an implicit GEMM of M =
+// B*T4*F4 output positions by N = C output channels over K = 9*C; h1 never
+// touches device memory.
 //
-// conv2 is an implicit GEMM of M = T4*F4 output positions (per batch row) by
-// N = C output channels over K = 9*C. A block owns (b, a tile of consecutive
-// positions m = t4*F4 + f4, a tile of output channels) and loops over chunks
-// of 16 input channels: for each chunk it computes the conv1 patch that its
-// positions read (h1 rows 2*t4_lo-1 .. 2*t4_hi+1, all F2 columns plus the
-// padding column) into shared memory, 9 MACs an element, and stages the chunk
-// of w2; then it accumulates the chunk's 9 taps. h1 never touches device
-// memory; it is recomputed once per tile of output channels.
+// Bound on the H100: 2 * B * T4 * F4 * 9 * C * C operations for conv2 (2.3e12
+// at B=32, 30 s, C=512: 2.3 ms at the bf16 tensor-core peak) against ~0.5 GB
+// of bf16 output, so the operations bound it. Second, the L2: a block reads
+// all of w2 for its TN output channels (9 C TN bf16, 2.36 MB at C=512, TN =
+// 256) for 128 positions, 128 flops a byte, 19.0 GB from L2 a launch at the
+// main path's shape.
 //
-// Bound on the H100: 2 * B * T4 * F4 * 9 * C * C operations for conv2
-// (2.3e12 at B=32, 30 s, C=512) against ~0.5 GB of bf16 output, so the
-// operations bound it (2.3 ms at the bf16 tensor-core peak).
-//
-// - bf16 (the main path): tensor cores through mma.sync m16n8k16 (fp32
-//   accumulators), 64 positions x 256 channels a block (128 where C is not a
-//   multiple of 256), 8 warps of 32 x 64 (32 x 32). The A fragments are gathered
-//   straight from the h1 patch (one 32-bit load per pair of channels), so no
-//   im2col copy is made; the B fragments come from the w2 chunk, staged by
-//   cp.async while conv1 runs, through ldmatrix.trans. The input rows the
-//   block needs are staged once, in fp32; each thread computes conv1 for 4
-//   channels of a cell, so each input value read serves 4 MACs.
+// - bf16 (the main path; csrc/hopper.cuh, TMA and wgmma, no mma.sync): a
+//   block of 384 threads, a producer warpgroup that hands its registers to
+//   two consumer warpgroups (setmaxnreg 40 / 232), a persistent grid over
+//   items of 128 GEMM rows (whole output rows: 6 rows of F4 + 1 = 21 at F4 =
+//   20) by TN = 256 output channels (128 where C is no multiple of 256). The
+//   producer loads w2 by TMA into a ring of 5 stages, one tap of 32 input
+//   channels by TN output channels a stage (MN-major, 128-byte swizzle).
+//   conv2 is m64nTNk16 wgmma SS, both operands from shared memory: h1 is kept
+//   a chunk of 32 channels at a time as four parity planes with no swizzle
+//   (hopper.cuh:desc_plain), so each tap's A operand is a window of 128
+//   consecutive rows of one plane, read in place (no im2col). conv1 runs on
+//   the tensor cores too, as a K = 16 product of x's 3 x 3 patches (with a
+//   1 for the bias) by w1 and b1, m64n32k16 a tile of 64 cells, the next
+//   chunk's tiles issued with the current chunk's conv2 products into the
+//   next of three patch buffers; two taps of products stay in flight. The
+//   epilogue stages relu(acc) (b2 is the accumulators' start) through a free
+//   patch buffer and writes whole rows by 16-byte stores. See wg:: below.
 // - fp32 (the exactness check): scalar fp32 FMAs, 64 positions x 128
 //   channels a block, each thread an 8 x 4 tile.
-// wgmma and TMA pipelining come later.
 //
 // Layouts: x [B, T, F]; w1 [3, 3, C] (HWIO with I = 1); b1 [C];
 // w2 [3, 3, C, C] (HWIO); b2 [C]; out [B, T4, F4 * C]. C % 128 == 0.
@@ -43,7 +48,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
-#include "mma_bf16.cuh"
+#include "flash_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -161,175 +167,368 @@ __global__ void __launch_bounds__(NT, 2) kernel(
 
 }  // namespace f32
 
-// ------------------------------------------------------- bf16 tensor-core path
+// ------------------------------------------------ bf16 path: TMA and wgmma
 
-namespace tc {
+namespace wg {
 
-constexpr int TM = 64;   // output positions per block
-constexpr int NT = 256;  // 8 warps: 2 along positions x 4 along channels
-constexpr int HP = 20;   // bf16 stride of a patch cell: 16 channels + pad (conflict-free)
+using bf16 = __nv_bfloat16;
+using hopper::ATOM;
 
-// shared memory: the w2 chunk [9*CK][TN+8] bf16, the h1 patch [R*W cells][HP]
-// bf16, the input rows [2R+1][F+2] fp32 (a zero column each side)
-__host__ inline size_t smem_bytes(int TN, int F, int F4) {
-  const int R = patch_rows(TM, F4);
-  return (size_t)(9 * CK * (TN + 8) + R * (2 * F4 + 1) * HP) * sizeof(__nv_bfloat16) +
-         (size_t)(2 * R + 1) * (F + 2) * sizeof(float);
-}
+constexpr int WGS = 2;               // consumer warpgroups, 64 GEMM rows each
+constexpr int NT = 128 * (WGS + 1);  // and a producer warpgroup, one thread of it at work
+constexpr int PRODUCER_REGS = 40;    // registers a thread, after the split (setmaxnreg):
+constexpr int CONSUMER_REGS = 232;   // 128 x 40 + 256 x 232 = 384 x 168 at launch
+constexpr int TM = 64 * WGS;         // GEMM rows a block
+constexpr int KC = 32;               // input channels a chunk
+constexpr int CELLS = 640;           // patch cells a chunk: 10 conv1 tiles of 64
+constexpr int TILES = CELLS / 64 / WGS;  // conv1 tiles a warpgroup a chunk
+constexpr int FW_MAX = 31;           // output columns an item: a plane row of <= 32 cells
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// Work item: (batch row b, R4 output rows from t4_lo, FW output columns from
+// f0, TN output channels from n0). Its GEMM row m = t4r PW + fr (PW = FW + 1)
+// is output (t4_lo + t4r, f0 + fr); rows with fr = FW, or past the item, are
+// computed and dropped.
+//
+// The h1 patch of a chunk of KC channels is kept as four parity planes, so
+// that each of conv2's 9 taps reads its A operand as a window of 128
+// consecutive rows of one plane: plane 2 rp + cp holds h1 rows 2 (t4_lo + a)
+// - 1 + rp (a < R4 + 1) by columns 2 (f0 + u) - 1 + cp (u < PW), cell
+// (2 rp + cp) RP PW + a PW + u (RP = R4 + 1). Tap (di, df) of GEMM row m
+// reads plane (di == 1, df == 1) at cell m + (di == 2) PW + (df == 2). Cells
+// are [KC / 8][CELLS][8] bf16 (K-major core matrices with no swizzle,
+// hopper.cuh:desc_plain), so a window may start at any row.
+struct Item {
+  int b, t4_lo, f0, n0;
+};
+struct Shape {
+  int Tn, F, C, T2, F2, T4, F4, FW, PW, R4, RP, n_tg, n_fg, n_nt;
+  // item `it`: the output channel tiles of one patch side by side, then its
+  // column groups, row groups and batch rows
+  __device__ __forceinline__ Item item(int it, int TN) const {
+    Item x;
+    x.n0 = it % n_nt * TN;
+    it /= n_nt;
+    x.f0 = it % n_fg * FW;
+    it /= n_fg;
+    x.t4_lo = it % n_tg * R4;
+    x.b = it / n_tg;
+    return x;
+  }
+};
 
 template <int TN>
-__global__ void __launch_bounds__(NT, 2) kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w1,
-    const __nv_bfloat16* __restrict__ b1, const __nv_bfloat16* __restrict__ w2,
-    const __nv_bfloat16* __restrict__ b2, __nv_bfloat16* __restrict__ out, int Tn, int F, int C,
-    int T2, int F2, int T4, int F4) {
-  constexpr int WS = TN + 8;    // bf16 stride of a staged w2 row (conflict-free ldmatrix)
-  constexpr int NTW = TN / 32;  // n-tiles of 8 per warp: the warp tile is 32 x TN/4
-  extern __shared__ float4 smem4[];
-  const int R = patch_rows(TM, F4), W = 2 * F4 + 1, cells = R * W, XW = F + 2;
-  __nv_bfloat16* sW = reinterpret_cast<__nv_bfloat16*>(smem4);  // [9*CK][WS]: rows (tap, k)
-  __nv_bfloat16* sH = sW + 9 * CK * WS;                            // [cells][HP]
-  float* sX = reinterpret_cast<float*>(sH + cells * HP);           // [2R+1][XW]
+struct Layout {
+  static constexpr int STAGES = TN == 256 ? 5 : 8;
+  static constexpr uint32_t BOXB = KC * hopper::BOX_ROW_BYTES;  // w2: 64 channels x KC rows
+  static constexpr uint32_t STAGE = (TN / 64) * BOXB;           // one tap of a chunk
+  static constexpr uint32_t PATCH = CELLS * KC * 2;             // a chunk's h1 patch
+  static constexpr uint32_t XCOL = CELLS * 16 * 2;              // x patches: [2][CELLS][8]
+  static constexpr uint32_t W1 = KC * 16 * 2;                   // w1 and b1: [2][KC][8]
+  static constexpr uint32_t PATCHES = STAGES * STAGE;           // three patch buffers
+  static constexpr uint32_t XC = PATCHES + 3 * PATCH;
+  static constexpr uint32_t W1S = XC + XCOL;                    // three w1 buffers
+  static constexpr uint32_t B2 = W1S + 3 * W1;                  // the item's b2 in fp32
+  static constexpr uint32_t BARS = B2 + TN * 4;                 // full, empty
+  static constexpr uint32_t BYTES = BARS + 8 * 2 * STAGES + ATOM;  // + alignment slack
+};
 
-  const int m0 = blockIdx.x * TM, n0 = blockIdx.y * TN, b = blockIdx.z;
-  const int M = T4 * F4;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 1, wn = warp >> 1;  // the warp's positions wm*32.., channels wn*TN/4..
-  const int t4_lo = m0 / F4;
-  const int t1_lo = 2 * t4_lo - 1;
-  const int tx_lo = 2 * t1_lo - 1;
+template <int TN>
+__global__ void __launch_bounds__(NT, 1) kernel(
+    const __grid_constant__ CUtensorMap tw2, const bf16* __restrict__ x,
+    const bf16* __restrict__ w1, const bf16* __restrict__ b1, const bf16* __restrict__ b2,
+    bf16* __restrict__ out, const Shape sh, int B) {
+  using L = Layout<TN>;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + ATOM - 1) & ~(ATOM - 1);
+  uint8_t* const sm = smem_raw + (base - raw);
+  auto full = [&](int s) { return base + L::BARS + 8 * s; };
+  auto empty = [&](int s) { return base + L::BARS + 8 * (STAGES + s); };
+  const int C = sh.C, NC = C / KC;
+  const int n_items = B * sh.n_tg * sh.n_fg * sh.n_nt;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(full(s), 1);         // the TMA bytes
+      hopper::mbar_init(empty(s), 4 * WGS);  // every consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
 
-  // the input rows tx_lo .. tx_lo + 2R, zero outside [0, Tn) x [0, F)
-  const __nv_bfloat16* xb = x + (long long)b * Tn * F;
-  for (int idx = tid; idx < (2 * R + 1) * XW; idx += NT) {
-    const int r = idx / XW, col = idx - r * XW;
-    const int tx = tx_lo + r, fx = col - 1;
-    sX[idx] = (tx >= 0 && tx < Tn && fx >= 0 && fx < F)
-                  ? __bfloat162float(xb[(long long)tx * F + fx]) : 0.f;
+  if (warp < 4) {
+    // the producer: w2 [9 C][C] by TMA, a stage a (chunk, tap): KC input
+    // channels by TN output channels, TN / 64 boxes, MN-major for wgmma
+    hopper::reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x != 0) return;
+    int n = 0;  // stages filled
+    for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
+      const int it = flash::tc::snake_item(r);
+      if (it >= n_items) continue;
+      const int n0 = sh.item(it, TN).n0;
+      for (int c = 0; c < NC; ++c)
+        for (int tap = 0; tap < 9; ++tap, ++n) {
+          const int s = n % STAGES, use = n / STAGES;
+          if (use > 0) hopper::mbar_wait(empty(s), (use - 1) & 1);  // the stage is read out
+          const uint32_t st = base + s * L::STAGE;
+          hopper::mbar_arrive_tx(full(s), L::STAGE);
+          for (int bx = 0; bx < TN / 64; ++bx)
+            hopper::tma_load_4d(st + bx * L::BOXB, &tw2, full(s), n0 + 64 * bx, 0,
+                                tap * C + c * KC, 0);
+        }
+    }
+    return;
   }
 
-  // patch cell of each of this lane's 4 rows (2 m-tiles x rows g, g+8) at
-  // tap (0, 0): row 2*(t4 - t4_lo), column 2*f4 (column j holds f1 = j - 1)
-  int cell[2][2];
+  hopper::reg_alloc<CONSUMER_REGS>();
+  const int w = (warp >> 2) - 1, wi = warp & 3, g = lane >> 2, t = lane & 3;
+  const int ct = threadIdx.x - 128;  // 0 .. 255 over both consumer warpgroups
+  const int PW = sh.PW, RP = sh.RP, plane = RP * PW;
+  float* const b2s = reinterpret_cast<float*>(sm + L::B2);
+  auto sync = [] { hopper::bar_sync(1, 128 * WGS); };  // both consumer warpgroups
+  auto release = [&](uint32_t bar) {  // this warp is done with what `bar` guards
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(bar);
+  };
+  // Each item's inputs besides w2 are staged by the threads (global loads,
+  // whose latency would stall the products): x's patches, conv1's B operand
+  // of chunks 0 and 1 and b2, for the first item before the loop and for
+  // the next during the last chunk of an item, which reads none of them;
+  // conv1's B operand of chunk c + 2 is loaded into registers at the start
+  // of chunk c and stored at its end.
+  //
+  // conv1's B operand for chunk c, row idx of [2][KC][8]: the taps of
+  // channel c KC + n, b1 as the tenth (x's tenth column is 1 on the cells
+  // conv1 computes), zeros after
+  auto load_w1 = [&](int c, int idx) {
+    const int j = idx / KC, ch = c * KC + idx % KC;
+    uint4 v;
+    uint32_t* const vv = &v.x;
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+    for (int e = 0; e < 4; ++e) {
+      float pr[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int mm = min(m0 + wm * 32 + mt * 16 + g + 8 * h, M - 1);
-      const int t4 = mm / F4, f4 = mm - t4 * F4;
-      cell[mt][h] = 2 * (t4 - t4_lo) * W + 2 * f4;
-    }
-  float acc[2][NTW][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NTW; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
-
-  // B fragments by ldmatrix.x4.trans: lane L addresses w2 row k = L % 8 + 8 (L / 8 % 2)
-  // at channel + 8 (L / 16), giving two n-tiles of 8 (B[k][n] stored n-contiguous)
-  const uint32_t sw_lane =
-      smem_u32(sW + ((lane & 7) + 8 * ((lane >> 3) & 1)) * WS + wn * (TN / 4) + 8 * (lane >> 4));
-  const int cq = tid & 3;  // conv1: this thread computes channels 4cq .. 4cq+3 of the chunk
-
-  for (int c0 = 0; c0 < C; c0 += CK) {
-    __syncthreads();  // the previous chunk is no longer read (and sX is written)
-    // w2 rows (tap, c0 + k), channels n0 .. n0 + TN: copied asynchronously
-    // while conv1 runs
-    for (int idx = tid; idx < 9 * CK * (TN / 8); idx += NT) {
-      const int row = idx / (TN / 8), c8 = idx % (TN / 8);
-      const int tap = row / CK, k = row % CK;
-      const __nv_bfloat16* src = w2 + ((long long)tap * C + c0 + k) * C + n0 + 8 * c8;
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                       smem_u32(sW + row * WS + 8 * c8)),
-                   "l"(src));
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-
-    float wc[9][4], bc[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      bc[q] = __bfloat162float(b1[c0 + 4 * cq + q]);
-#pragma unroll
-      for (int k9 = 0; k9 < 9; ++k9) wc[k9][q] = __bfloat162float(w1[k9 * C + c0 + 4 * cq + q]);
-    }
-    for (int cl = tid >> 2; cl < cells; cl += NT / 4) {
-      const int r = cl / W, col = cl - r * W;
-      const int t1 = t1_lo + r, f1 = col - 1;
-      float a[4] = {0.f, 0.f, 0.f, 0.f};
-      if (t1 >= 0 && t1 < T2 && f1 >= 0 && f1 < F2) {
-        // input row tx - tx_lo = 2r + di, column fx + 1 = 2 col + df - 2
-        const float* xr = sX + 2 * r * XW + 2 * col - 2;
-#pragma unroll
-        for (int di = 0; di < 3; ++di)
-#pragma unroll
-          for (int df = 0; df < 3; ++df) {
-            const float xv = xr[di * XW + df];
-#pragma unroll
-            for (int q = 0; q < 4; ++q) a[q] = fmaf(xv, wc[di * 3 + df][q], a[q]);
-          }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) a[q] = fmaxf(a[q] + bc[q], 0.f);
+      for (int z = 0; z < 2; ++z) {
+        const int kk = 8 * j + 2 * e + z;
+        pr[z] = kk < 9 ? __bfloat162float(w1[kk * C + ch])
+                       : (kk == 9 ? __bfloat162float(b1[ch]) : 0.f);
       }
-      *reinterpret_cast<uint2*>(sH + cl * HP + 4 * cq) =
-          make_uint2(pack_bf16x2(a[0], a[1]), pack_bf16x2(a[2], a[3]));
+      vv[e] = pack_bf16x2(pr[0], pr[1]);
     }
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    __syncthreads();
+    return v;
+  };
+  auto store_w1 = [&](int slot, int idx, uint4 v) {
+    *reinterpret_cast<uint4*>(sm + L::W1S + slot * L::W1 + idx * 16) = v;
+  };
+  // cell q of x's patches ([2][CELLS][8]): the 3 x 3 input values of the
+  // cell's conv1 output (zeros where the input is padding) and a 1 for the
+  // bias; all zeros where the cell is conv2's padding
+  auto stage_cell = [&](const Item& item, int q) {
+    float v[16];
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) v[kk] = 0.f;
+    const int pl = q / plane, a = (q % plane) / PW, u = q % PW;
+    const int y = 2 * (item.t4_lo + a) - 1 + (pl >> 1);  // h1 row and column
+    const int xx = 2 * (item.f0 + u) - 1 + (pl & 1);
+    if (pl < 4 && y >= 0 && y < sh.T2 && xx >= 0 && xx < sh.F2) {
+      const bf16* xb = x + (long long)item.b * sh.Tn * sh.F;
+#pragma unroll
+      for (int di = 0; di < 3; ++di)
+#pragma unroll
+        for (int df = 0; df < 3; ++df) {
+          const int tx = 2 * y + di - 1, fx = 2 * xx + df - 1;
+          if (tx >= 0 && tx < sh.Tn && fx >= 0 && fx < sh.F)
+            v[3 * di + df] = __bfloat162float(xb[(long long)tx * sh.F + fx]);
+        }
+      v[9] = 1.f;
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      *reinterpret_cast<uint4*>(sm + L::XC + (j * CELLS + q) * 16) =
+          make_uint4(pack_bf16x2(v[8 * j], v[8 * j + 1]), pack_bf16x2(v[8 * j + 2], v[8 * j + 3]),
+                     pack_bf16x2(v[8 * j + 4], v[8 * j + 5]),
+                     pack_bf16x2(v[8 * j + 6], v[8 * j + 7]));
+  };
+  // step `part` (0 .. 4) of staging an item: warpgroup 0 x's patches, 128
+  // cells a step; warpgroup 1 conv1's B operand of chunks 0 and 1 (step 0)
+  // and b2 (step 1)
+  auto stage_item = [&](const Item& item, int part) {
+    const int i = threadIdx.x % 128;
+    if (w == 0) {
+      if (128 * part + i < CELLS) stage_cell(item, 128 * part + i);
+    } else if (part == 0) {  // chunk i / (2 KC) into buffer i / (2 KC)
+      const int c = i / (2 * KC), idx = i % (2 * KC);
+      if (c < NC) store_w1(c, idx, load_w1(c, idx));
+    } else if (part == 1) {
+      for (int nn = i; nn < TN; nn += 128) b2s[nn] = __bfloat162float(b2[item.n0 + nn]);
+    }
+  };
+  // conv1 tile `tile` of chunk c (64 cells x KC channels: x patches times
+  // w1 buffer `slot`) into the accumulator c1
+  auto conv1 = [&](float (&c1)[KC / 8][4], int tile, int slot) {
+    hopper::wgmma_ss<KC, 0>(
+        c1, hopper::desc_plain(base + L::XC + tile * 64 * 16, CELLS * 16, 128),
+        hopper::desc_plain(base + L::W1S + slot * L::W1, KC * 16, 128), 0);
+  };
+  // h1 = relu(c1), rounded to bf16, into patch buffer `pb` at the tile's cells
+  auto store_h1 = [&](const float (&c1)[KC / 8][4], int tile, int pb) {
+    uint8_t* const patch = sm + L::PATCHES + pb * L::PATCH;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int q = 64 * tile + 16 * wi + g + 8 * hh;
+#pragma unroll
+      for (int i = 0; i < KC / 8; ++i)
+        *reinterpret_cast<uint32_t*>(patch + ((i * CELLS + q) * 8 + 2 * t) * 2) =
+            pack_bf16x2(fmaxf(c1[i][2 * hh], 0.f), fmaxf(c1[i][2 * hh + 1], 0.f));
+    }
+  };
 
+  if (flash::tc::snake_item(0) < n_items)  // the first item's inputs
+    for (int part = 0; part < 5; ++part) stage_item(sh.item(flash::tc::snake_item(0), TN), part);
+  hopper::fence_proxy_async();
+  int n = 0;  // stages consumed
+  for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
+    const int it = flash::tc::snake_item(r);
+    if (it >= n_items) continue;
+    const Item item = sh.item(it, TN);
+    const int it_next = flash::tc::snake_item(r + 1);  // past n_items: no next item
+    const Item next_item = sh.item(it_next < n_items ? it_next : it, TN);
+    sync();  // the item's inputs are staged; the last item's products and epilogue are done
+    float c1[3][KC / 8][4], acc[TN / 8][4];
+    {  // chunk 0's patch, before any product of conv2: this warpgroup's tiles at once
+      float c1s[TILES][KC / 8][4];
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int toff = (tap / 3) * W + (tap % 3);
-      uint32_t a[2][4];
+      for (int tl = 0; tl < TILES; ++tl) conv1(c1s[tl], TILES * w + tl, 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const __nv_bfloat16* r0 = sH + (cell[mt][0] + toff) * HP + 2 * t;
-        const __nv_bfloat16* r1 = sH + (cell[mt][1] + toff) * HP + 2 * t;
-        a[mt][0] = ld_bf16x2(r0);
-        a[mt][1] = ld_bf16x2(r1);
-        a[mt][2] = ld_bf16x2(r0 + 8);
-        a[mt][3] = ld_bf16x2(r1 + 8);
-      }
-#pragma unroll
-      for (int np = 0; np < NTW / 2; ++np) {
-        uint32_t bq[4];
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-            : "=r"(bq[0]), "=r"(bq[1]), "=r"(bq[2]), "=r"(bq[3])
-            : "r"(sw_lane + 2 * (tap * CK * WS + 16 * np)));
-        const uint32_t lo[2] = {bq[0], bq[1]}, hi[2] = {bq[2], bq[3]};
-        mma_bf16_16816(acc[0][2 * np], a[0], lo);
-        mma_bf16_16816(acc[1][2 * np], a[1], lo);
-        mma_bf16_16816(acc[0][2 * np + 1], a[0], hi);
-        mma_bf16_16816(acc[1][2 * np + 1], a[1], hi);
+      for (int tl = 0; tl < TILES; ++tl) {
+        hopper::fence_regs(c1s[tl]);
+        store_h1(c1s[tl], TILES * w + tl, 0);
       }
     }
-  }
+    hopper::fence_proxy_async();
+    sync();
+    // conv2's sums start from b2
+#pragma unroll
+    for (int i = 0; i < TN / 8; ++i) {
+      const float2 bias = *reinterpret_cast<const float2*>(b2s + 8 * i + 2 * t);
+      acc[i][0] = acc[i][2] = bias.x;
+      acc[i][1] = acc[i][3] = bias.y;
+    }
 
+    // Chunk c: conv2's 9 taps from patch buffer c % 3, two k-steps of 16
+    // channels a tap, one commit group a tap, two taps in flight: a tap
+    // waits for the products of the tap two before it and then gives their
+    // stage back. With taps 0 .. TILES - 1 go this warpgroup's conv1 tiles
+    // of chunk c + 1 (into buffer (c + 1) % 3, from three sets of registers),
+    // stored two taps later. Three buffers: chunk c + 1's conv1 writes a
+    // buffer no product still reads (chunk c - 2's, done before either
+    // warpgroup passed the last barrier).
+    int prev1 = -1, prev2 = -1;  // the stages of the last two taps, in flight
+    for (int c = 0; c < NC; ++c) {
+      const uint32_t patch = base + L::PATCHES + (c % 3) * L::PATCH;
+      const bool next = c + 1 < NC, ahead = c + 2 < NC && ct < 2 * KC;
+      const bool last = !next && it_next < n_items;  // stage the next item's inputs
+      uint4 w1_ahead;
+      if (ahead) w1_ahead = load_w1(c + 2, ct);
 #pragma unroll
-  for (int nt = 0; nt < NTW; ++nt) {
-    const int n = n0 + wn * (TN / 4) + nt * 8 + 2 * t;
-    const float bias0 = __bfloat162float(b2[n]), bias1 = __bfloat162float(b2[n + 1]);
+      for (int tap = 0; tap < 9; ++tap, ++n) {
+        const int s = n % STAGES;
+        hopper::mbar_wait(full(s), (n / STAGES) & 1);
+        const int di = tap / 3, df = tap % 3;
+        const int a0 = (2 * (di == 1) + (df == 1)) * plane + (di == 2) * PW + (df == 2) + 64 * w;
+        hopper::wgmma_fence();
+        if (next && tap < TILES) conv1(c1[tap % 3], TILES * w + tap, (c + 1) % 3);
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm * 32 + mt * 16 + g + 8 * h;
-        if (m >= M) continue;
-        *reinterpret_cast<uint32_t*>(out + ((long long)b * M + m) * C + n) =
-            pack_bf16x2(fmaxf(acc[mt][nt][2 * h] + bias0, 0.f),
-                        fmaxf(acc[mt][nt][2 * h + 1] + bias1, 0.f));
+        for (int kk = 0; kk < KC / 16; ++kk)
+          hopper::wgmma_ss<TN, 1>(
+              acc, hopper::desc_plain(patch + (2 * kk * CELLS + a0) * 16, CELLS * 16, 128),
+              hopper::desc_sw128(base + s * L::STAGE + kk * 2 * ATOM, L::BOXB), 1);
+        hopper::wgmma_commit();
+        if (last && tap < 5) stage_item(next_item, tap);
+        hopper::wgmma_wait<2>();  // the taps before the last two are done, conv1 tiles too
+        if (next && tap >= 2 && tap - 2 < TILES) {
+          hopper::fence_regs(c1[(tap - 2) % 3]);
+          store_h1(c1[(tap - 2) % 3], TILES * w + tap - 2, (c + 1) % 3);
+        }
+        if (prev2 >= 0) release(empty(prev2));
+        prev2 = prev1;
+        prev1 = s;
       }
+      if (ahead) store_w1((c + 2) % 3, ct, w1_ahead);
+      hopper::fence_proxy_async();
+      sync();  // chunk c + 1's patch is whole
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    release(empty(prev2));
+    release(empty(prev1));
+
+    // out = relu(acc) in bf16 at the item's valid positions, staged through
+    // a patch buffer that no product reads any more (chunk NC's for
+    // warpgroup 0, chunk NC + 1's for warpgroup 1; chunk NC - 1's is still
+    // read), rows of TN + 8 channels (conflict-free stores of the
+    // accumulator layout), then written a row at a time by 16-byte stores
+    {
+      constexpr int LDO = TN * 2 + 16;  // bytes a staged row
+      uint8_t* const stage = sm + L::PATCHES + ((NC + w) % 3) * L::PATCH;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int rr = 16 * wi + g + 8 * hh;
+#pragma unroll
+        for (int i = 0; i < TN / 8; ++i)
+          *reinterpret_cast<uint32_t*>(stage + rr * LDO + (8 * i + 2 * t) * 2) =
+              pack_bf16x2(fmaxf(acc[i][2 * hh], 0.f), fmaxf(acc[i][2 * hh + 1], 0.f));
+      }
+      hopper::bar_sync(2 + w, 128);  // this warpgroup's rows are staged
+      for (int idx = threadIdx.x % 128; idx < 64 * (TN / 8); idx += 128) {
+        const int rr = idx / (TN / 8), cc = idx % (TN / 8);
+        const int m = 64 * w + rr, t4r = m / PW, fr = m % PW;
+        const int t4 = item.t4_lo + t4r, f4 = item.f0 + fr;
+        if (t4r >= sh.R4 || fr >= sh.FW || t4 >= sh.T4 || f4 >= sh.F4) continue;
+        *reinterpret_cast<uint4*>(out + (((long long)item.b * sh.T4 + t4) * sh.F4 + f4) * C +
+                                  item.n0 + 8 * cc) =
+            *reinterpret_cast<const uint4*>(stage + rr * LDO + 16 * cc);
+      }
+    }
   }
 }
 
-}  // namespace tc
+// w2 as a tensor map ([9 C][C]: boxes of 64 output channels by KC rows of
+// one tap) and the launch: a persistent grid, one block a multiprocessor
+template <int TN>
+int launch(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
+           void* out, int B, int Tn, int F, int C, cudaStream_t stream) {
+  Shape sh;
+  sh.Tn = Tn;
+  sh.F = F;
+  sh.C = C;
+  sh.T2 = (Tn - 1) / 2 + 1;
+  sh.T4 = (sh.T2 - 1) / 2 + 1;
+  sh.F2 = (F - 1) / 2 + 1;
+  sh.F4 = (sh.F2 - 1) / 2 + 1;
+  sh.FW = sh.F4 < FW_MAX ? sh.F4 : FW_MAX;
+  sh.PW = sh.FW + 1;
+  sh.R4 = TM / sh.PW;
+  sh.RP = sh.R4 + 1;
+  sh.n_tg = (sh.T4 + sh.R4 - 1) / sh.R4;
+  sh.n_fg = (sh.F4 + sh.FW - 1) / sh.FW;
+  sh.n_nt = C / TN;
+  CUtensorMap mw2;
+  int err = hopper::encode_bthd(&mw2, w2, 1, 9 * C, 1, C, KC);
+  const long long n_items = (long long)B * sh.n_tg * sh.n_fg * sh.n_nt;
+  if (err == 0 && n_items > 0x7fffffff) err = (int)cudaErrorInvalidValue;
+  int grid = 0;
+  if (err == 0) err = flash::persistent_grid((int)n_items, grid);
+  if (err != 0) return err;
+  void* args[] = {&mw2, &x, &w1, &b1, &b2, &out, &sh, &B};
+  return flash::launch(kernel<TN>, Layout<TN>::BYTES, NT, grid, 1, 1, stream, args);
+}
+
+}  // namespace wg
 
 template <typename T>
 int launch(void (*kernel)(const T*, const T*, const T*, const T*, const T*, T*, int, int, int,
@@ -363,14 +562,11 @@ extern "C" int fused_subsampling_x4(int dtype, const void* x, const void* w1, co
     return launch<float>(f32::kernel, f32::smem_bytes(F4), f32::TM, f32::TN, f32::NT, x, w1,
                          b1, w2, b2, out, B, Tn, F, C, s);
   if (dtype == 1) {
-    if (reinterpret_cast<uintptr_t>(out) % 4 != 0 || reinterpret_cast<uintptr_t>(w2) % 16 != 0)
+    if (reinterpret_cast<uintptr_t>(out) % 16 != 0 || reinterpret_cast<uintptr_t>(w2) % 16 != 0)
       return (int)cudaErrorMisalignedAddress;
-    // 256 output channels a block where C allows, so conv1 is recomputed C/256 times
-    if (C % 256 == 0)
-      return launch<__nv_bfloat16>(tc::kernel<256>, tc::smem_bytes(256, F, F4), tc::TM, 256,
-                                   tc::NT, x, w1, b1, w2, b2, out, B, Tn, F, C, s);
-    return launch<__nv_bfloat16>(tc::kernel<128>, tc::smem_bytes(128, F, F4), tc::TM, 128,
-                                 tc::NT, x, w1, b1, w2, b2, out, B, Tn, F, C, s);
+    // 256 output channels a block where C allows, so conv1 is computed C / 256 times
+    if (C % 256 == 0) return wg::launch<256>(x, w1, b1, w2, b2, out, B, Tn, F, C, s);
+    return wg::launch<128>(x, w1, b1, w2, b2, out, B, Tn, F, C, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks as small PTX wrappers: TMA tensor maps and
 // tile loads, mbarriers, and warpgroup MMA (wgmma) reading tiles that TMA
-// wrote in the 128-byte swizzle. Used by flash_fwd.cu (K5, K8 and K11),
-// flash_bwd.cu (K6, K7, K9, K10, K12 and K13) and hopper_check.cu (the unit
-// check of these wrappers against torch.matmul).
+// wrote in the 128-byte swizzle, or that the threads wrote with no swizzle
+// (desc_plain). Used by relpos_flash.cu (K1), relpos_flash_bwd.cu (K3, K4),
+// fused_subsampling.cu (K2), flash_fwd.cu (K5, K8 and K11), flash_bwd.cu
+// (K6, K7, K9, K10, K12 and K13) and hopper_check.cu (the unit check of
+// these wrappers against torch.matmul).
 //
 // A tile in shared memory. TMA copies a box of 64 bf16 columns (128 bytes,
 // the swizzle span) by R rows to R x 128 bytes at a 1024-byte-aligned
@@ -202,6 +204,19 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lead_byte
          ((uint64_t)(ATOM >> 4) << 32) | (1ull << 62);
 }
 
+// wgmma descriptor of a K-major tile with no swizzle: core matrices of 8
+// rows x 16 bytes (8 bf16 of the reduction axis), each 128 contiguous bytes;
+// `lead_bytes` from one core matrix to the next along K, `stride_bytes` from
+// one group of 8 rows to the next (layout 0 in bits 62-63). A tile kept as
+// [K / 8][rows][8] has lead_bytes = rows x 16 and stride_bytes = 128, and
+// any row may start it: fused_subsampling.cu's conv2 reads each tap's A as a
+// window of rows of one such tile, and its conv1 both operands.
+__device__ __forceinline__ uint64_t desc_plain(uint32_t addr, uint32_t lead_bytes,
+                                               uint32_t stride_bytes) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lead_bytes >> 4) << 16) |
+         ((uint64_t)(stride_bytes >> 4) << 32);
+}
+
 // warp specialisation: a warpgroup gives registers back to the block's pool
 // (dealloc) or takes them (alloc); all its 128 threads execute it
 template <int R>
@@ -298,6 +313,75 @@ __device__ __forceinline__ void wgmma_ss_n128(
 }
 
 template <int TB>
+__device__ __forceinline__ void wgmma_ss_n32(
+    float (&d)[4][4], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, %19;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n256(
+    float (&d)[32][4], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, %131;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
+        "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
+        "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
+        "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
+        "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
+        "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
+        "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
+        "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
+        "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
 __device__ __forceinline__ void wgmma_rs_n64(
     float (&d)[8][4], const uint32_t (&a)[4], uint64_t b, int scale_d) {
   asm volatile(
@@ -352,9 +436,11 @@ __device__ __forceinline__ void wgmma_rs_n128(
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4], uint64_t a, uint64_t b,
                                          int scale_d) {
-  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
-  if constexpr (N == 64) wgmma_ss_n64<TB>(d, a, b, scale_d);
-  else wgmma_ss_n128<TB>(d, a, b, scale_d);
+  static_assert(N == 32 || N == 64 || N == 128 || N == 256, "wgmma_ss: N is 32, 64, 128 or 256");
+  if constexpr (N == 32) wgmma_ss_n32<TB>(d, a, b, scale_d);
+  else if constexpr (N == 64) wgmma_ss_n64<TB>(d, a, b, scale_d);
+  else if constexpr (N == 128) wgmma_ss_n128<TB>(d, a, b, scale_d);
+  else wgmma_ss_n256<TB>(d, a, b, scale_d);
 }
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&a)[4], uint64_t b,

@@ -108,26 +108,36 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-A_SOURCES = ("tma", "registers", "threads")  # hopper_check's areg 0, 1, 2
+A_SOURCES = ("tma", "registers", "threads", "plain")  # hopper_check's areg 0, 1, 2, 3
+# the (N, b layout, a source) forms hopper_check takes besides N 64 and 128 with a
+# by TMA, registers or threads and b K- or MN-major by TMA: fused_subsampling.cu's
+PLAIN_FORMS = ((256, "mn", "tma"), (256, "mn", "plain"), (128, "mn", "plain"),
+               (32, "k_plain", "plain"))
 
 
-def wgmma_tile_product(a, b, b_mn_major: bool, a_source: str):
+def wgmma_tile_product(a, b, b_mn_major: bool, a_source: str, b_plain: bool = False):
     """c [64, N] fp32 = a [64, 64] · b' on the card by one warpgroup: a and b
-    bf16 CUDA tensors, b loaded by TMA, four wgmma m64nNk16 steps (N = 64 or
-    128), the unit check of `hopper.cuh`. b is [N, 64] (K-major, c = a b^T)
-    or, with `b_mn_major`, [64, N] (MN-major, c = a b). `a_source` says how a
-    reaches wgmma: "tma" (loaded into shared memory by TMA), "registers"
-    (as register A fragments) or "threads" (stored into shared memory by the
-    threads in the 128-byte swizzle, `hopper.cuh:sw128`)."""
+    bf16 CUDA tensors, four wgmma m64nNk16 steps, the unit check of
+    `hopper.cuh`. b is [N, 64] (K-major, c = a b^T) or, with `b_mn_major`,
+    [64, N] (MN-major, c = a b), loaded by TMA; with `b_plain`, [N, 64]
+    K-major written by the threads with no swizzle (`hopper.cuh:desc_plain`).
+    `a_source` says how a reaches wgmma: "tma" (loaded into shared memory by
+    TMA), "registers" (as register A fragments), "threads" (stored into
+    shared memory by the threads in the 128-byte swizzle, `hopper.cuh:sw128`)
+    or "plain" (stored by the threads with no swizzle). N is 64 or 128 for
+    the first three sources with b by TMA, and the forms of `PLAIN_FORMS`."""
     import torch
 
     n = b.shape[1] if b_mn_major else b.shape[0]
+    layout = "mn" if b_mn_major else ("k_plain" if b_plain else "k")
     want = (64, n) if b_mn_major else (n, 64)
-    if (a.shape != (64, 64) or tuple(b.shape) != want or n not in (64, 128)
+    classic = n in (64, 128) and not b_plain and a_source in A_SOURCES[:3]
+    if (a.shape != (64, 64) or tuple(b.shape) != want
+            or not (classic or (n, layout, a_source) in PLAIN_FORMS)
             or a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16
             or not (a.is_cuda and b.is_cuda)):
         raise ValueError("wgmma_tile_product: a [64, 64] and b [N, 64] or [64, N] bf16 on the "
-                         "card, N 64 or 128")
+                         "card, N 64 or 128 or a form of PLAIN_FORMS")
     if a_source not in A_SOURCES:
         raise ValueError(f"wgmma_tile_product: a_source is one of {A_SOURCES}")
     a, b = a.contiguous(), b.contiguous()
@@ -135,7 +145,8 @@ def wgmma_tile_product(a, b, b_mn_major: bool, a_source: str):
     fn = library("hopper_check").hopper_check
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
-    check(fn(n, int(b_mn_major), A_SOURCES.index(a_source), a.data_ptr(), b.data_ptr(),
+    tb = 2 if b_plain else int(b_mn_major)
+    check(fn(n, tb, A_SOURCES.index(a_source), a.data_ptr(), b.data_ptr(),
              c.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream),
           "wgmma_tile_product")
     return c

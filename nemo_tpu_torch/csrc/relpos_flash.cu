@@ -1,4 +1,5 @@
-// Rel-pos flash attention forward for Hopper (sm_90a), fp32 or bf16 inputs.
+// Rel-pos flash attention forward for Hopper (sm_90a), fp32 or bf16 inputs:
+// K1.
 //
 // Replaces the TPU kernel nemo_tpu/ops/flash_attention.py:_fwd_kernel as
 // nemo_tpu/ops/attention.py:_relpos_flash calls it (non-causal, G = H, with
@@ -10,27 +11,31 @@
 //   s[i,j] = -1e30                                          otherwise
 //   o_i    = softmax_j(s[i,:]) v ;  lse_i = log sum_j exp s[i,j]
 //
-// One block owns (b, h, a tile of BQ = 64 query rows) and loops over tiles of
-// BKV = 64 keys with an online softmax; the loop stops at the last tile that
-// holds a valid key (ceil(len_b / 64) tiles). The rows of p that a (query
-// tile, key tile) pair needs are the BQ + BKV - 1 = 127 consecutive rows
-// r0 .. r0+126, r0 = T - BQ - i0 + j0 (local row q = j - i + 63): they are
-// staged in shared memory beside the key tile.
+// Key tiles stop at the last one that holds a valid key (ceil(len_b / 64)).
+// The term of (i, j) runs along diagonals of p, which no matrix layout reads:
+// the rows of p that a 64 x 64 tile pair needs are the 127 consecutive rows
+// r0 .. r0+126, r0 = T - 64 - i0 + j0 (local row q = j - i + 63).
 //
-// Bound on the H100: 6 * B * H * T * len * dh operations (q.k, q.p, p.v) over
-// ~125 MB of q/k/v/o traffic at the main-path shape, so the operations bound
-// it (0.056 ms at the bf16 tensor-core peak).
+// Bound on the H100: 6 * B * H * T * len * dh operations (q.k, q.p, p.v)
+// against ~125 MB of q/k/v/o traffic at the main path's shape (B=32, H=8,
+// T=751), so the operations bound it: 0.056 ms at the bf16 tensor-core peak.
 //
-// - bf16 (the main path): tensor cores through mma.sync m16n8k16 (fp32
-//   accumulators), 4 warps of 16 query rows. Per key tile a warp computes
-//   qu.k^T (16 x 64) and qv.p^T over the 80 rows of p its 16 rows reach
-//   (16 x 80), writes the latter to shared memory and reads each score's
-//   rel-pos term back at its diagonal (column j - i + 15), then p.v with the
-//   probabilities rounded to bf16 straight from the score registers and v's
-//   fragments read by ldmatrix.trans from its row-major tile.
+// - bf16 (the main path; csrc/hopper.cuh, TMA and wgmma, no mma.sync): the
+//   causal forward's shape (flash_fwd.cu) with K3's band (relpos_flash_bwd.cu).
+//   A block of 384 threads: a producer warpgroup that hands its registers to
+//   two consumer warpgroups of 64 query rows (setmaxnreg 40 / 232) and loads
+//   qu, qv once an item and k, v and the 192 rows of p of each key tile by
+//   TMA into a ring of 3 stages; a persistent grid over the (query tile of
+//   128, h, b) items. s = qu k^T and one new 64 x 64 chunk of qv p^T a tile
+//   by wgmma SS (consecutive key tiles reach overlapping chunks, so each
+//   chunk is computed once, not 1.25 times as over 80 rows of p a warp),
+//   the chunk skewed into a ring of scores in shared memory at each score's
+//   diagonal and read back as plain rows; the online softmax in registers;
+//   o += P v by wgmma RS (P rounded to bf16 in registers, v MN-major), one
+//   tile behind, so that it runs back to back with the next tile's two
+//   products. See wg:: below.
 // - fp32 (the exactness check): scalar fp32 FMAs from shared-memory tiles,
 //   16 x 16 threads with 4 x 4 scores each.
-// wgmma, TMA and double buffering come later.
 //
 // Layouts: qu, qv, k, v and o are [B, T, H, 64] (the Linear outputs viewed
 // per head); p is [2T-1, H, 64]; lengths is [B] int32; lse is [B, H, T] fp32.
@@ -38,7 +43,9 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
-#include "mma_bf16.cuh"
+#include "flash_tiles.cuh"
+#include "hopper.cuh"
+#include "relpos_band.cuh"
 
 namespace {
 
@@ -205,202 +212,299 @@ __global__ void __launch_bounds__(NT, 2) kernel(
 
 }  // namespace f32
 
-// ------------------------------------------------------- bf16 tensor-core path
+// ------------------------------------------------ bf16 path: TMA and wgmma
 
-namespace tc {
-
-constexpr int NT = 128;       // 4 warps x 16 query rows
-constexpr int LDS = D + 8;    // bf16 stride of the K, V and p tiles (conflict-free fragments)
-constexpr int NP = 128;       // p rows staged per tile pair (BQ + BKV - 1 of them are read)
-constexpr int NBD = 80;       // p rows a warp reads: 16 rows x 64 keys span 79 distances
-constexpr int LDB = NBD + 4;  // fp32 stride of a warp's rel-pos tile
-
-// shared memory: K [BKV][LDS], V [BKV][LDS], p [NP][LDS] in bf16; one
-// [16][LDB] fp32 rel-pos tile per warp
-constexpr size_t SMEM = (2 * BKV + NP) * LDS * sizeof(__nv_bfloat16) +
-                        (NT / 32) * 16 * LDB * sizeof(float);
+namespace wg {
 
 using bf16 = __nv_bfloat16;
+using flash::tc::ex2;
+using flash::tc::pack_p;
+using hopper::product_rs;
+using hopper::product_ss;
 
-// rows [row0, row0 + n) of a [rows, H, 64] bf16 tensor (row stride rs) at
-// head offset `hoff` into shared memory [n][LDS]; rows outside [0, rows) are 0
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ src, int row0,
-                                           int n, int rows, long long rs, long long hoff) {
-  for (int idx = threadIdx.x; idx < n * (D / 8); idx += NT) {
-    const int r = idx / (D / 8), c = idx % (D / 8), t = row0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (t >= 0 && t < rows) val = *reinterpret_cast<const uint4*>(src + t * rs + hoff + 8 * c);
-    *reinterpret_cast<uint4*>(dst + r * LDS + 8 * c) = val;
-  }
-}
+constexpr int WGS = 2;               // consumer warpgroups, 64 query rows each
+constexpr int NT = 128 * (WGS + 1);  // and a producer warpgroup, one thread of it at work
+constexpr int PRODUCER_REGS = 40;    // registers a thread, after the split (setmaxnreg):
+constexpr int CONSUMER_REGS = 232;   // 128 x 40 + 256 x 232 = 384 x 168 at launch
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr uint32_t BOX64 = 64 * hopper::BOX_ROW_BYTES;  // a bf16 box of 64 rows, 8 KB
 
-__global__ void __launch_bounds__(NT, 3) kernel(
-    const bf16* __restrict__ qu, const bf16* __restrict__ qv, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ p, const int* __restrict__ lengths,
-    bf16* __restrict__ o, float* __restrict__ lse, int H, int Tn, float scale) {
-  extern __shared__ float4 smem4[];
-  bf16* sK = reinterpret_cast<bf16*>(smem4);  // [BKV][LDS]: k_j, d contiguous
-  bf16* sV = sK + BKV * LDS;                  // [BKV][LDS]: v_j, d contiguous
-  bf16* sP = sV + BKV * LDS;                  // [NP][LDS]: p rows r0 + q, d contiguous
+// A block of 384 threads owns 128 query rows of one (b, h), a consumer
+// warpgroup 64 of them (rows i0 + 64 w), in a persistent grid over the
+// (query tile, h, b) items. The producer's first thread loads qu and qv once
+// an item and, per key tile kt of 64 keys up to the last valid key, k, v and
+// the 192 rows of p from T - 128 - i0 + 64 kt (both warpgroups' band chunks
+// kt and kt + 1, which overlap) by TMA into a ring of stages; rows before
+// p's first or past its last read as zeros.
+//
+// The band (relpos_band.cuh, shared with K3): warpgroup w's chunk kt of qv
+// p^T reads the stage's p box 1 - w, chunk kt + 1 box 2 - w; a tile computes
+// the new chunk kt + 1 (tile 0 chunk 0 first) and scatters it into its G
+// ring, from which the tile's scores take their rel-pos terms.
+//
+// A tile: s = qu k^T and the new band chunk by wgmma SS, then the online
+// softmax in registers (2^x, the running max in raw units), then o += P v by
+// wgmma RS (P rounded to bf16 in registers, v MN-major). P v of a tile is
+// issued with the next tile's two products, so the tensor cores run them
+// back to back; the stage goes back once its P v is done.
+struct Layout {
+  static constexpr int STAGES = 3;
+  static constexpr uint32_t Q = 2 * WGS * BOX64;   // qu, qv: a box a warpgroup each
+  static constexpr uint32_t STAGE = 5 * BOX64;     // k, v, then 192 rows of p
+  static constexpr uint32_t G = Q + STAGES * STAGE;
+  static constexpr uint32_t GBYTES = 64 * 128 * 4;  // a warpgroup's G ring
+  static constexpr uint32_t BARS = G + WGS * GBYTES;  // q loaded, q free, full, empty
+  static constexpr uint32_t BYTES = BARS + 8 * (2 + 2 * STAGES) + hopper::ATOM;  // + alignment
+};
 
-  const int i0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+__global__ void __launch_bounds__(NT, 1) fwd_kernel(
+    const __grid_constant__ CUtensorMap tqu, const __grid_constant__ CUtensorMap tqv,
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tp, const int* __restrict__ lengths,
+    bf16* __restrict__ o, float* __restrict__ lse, int B, int H, int Tn, float scale) {
+  using L = Layout;
+  constexpr int STAGES = L::STAGES;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + hopper::ATOM - 1) & ~(hopper::ATOM - 1);
+  uint8_t* const sm = smem_raw + (base - raw);
+  const uint32_t q_loaded = base + L::BARS, q_free = q_loaded + 8;
+  auto full = [&](int s) { return base + L::BARS + 8 * (2 + s); };
+  auto empty = [&](int s) { return base + L::BARS + 8 * (2 + STAGES + s); };
+
+  // work item it: 128 query rows from i0 of head h, batch row b
+  const int n_q = (Tn + 127) / 128, n_items = n_q * H * B;
+  auto item_of = [&](int it, int& i0, int& h, int& b) {
+    const int rem = it % (H * B);
+    i0 = it / (H * B) * 128;
+    h = rem % H;
+    b = rem / H;
+  };
+  auto length = [&](int b) { return min(max(lengths[b], 0), Tn); };
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  float* sB = reinterpret_cast<float*>(sP + NP * LDS) + warp * 16 * LDB;  // [16][LDB]
-  const int len = min(max(lengths[b], 0), Tn);
-  const long long rs = (long long)H * D;  // stride of t
-  const long long bbase = (long long)b * Tn * rs;
-  const long long hoff = (long long)h * D;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_loaded, 1);
+    hopper::mbar_init(q_free, 4 * WGS);  // every consumer warp
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(full(s), 1);         // the TMA bytes
+      hopper::mbar_init(empty(s), 4 * WGS);  // every consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
 
-  // this warp's query rows i0 + 16 warp + (g, g+8), as A fragments for the 4 k-steps
-  uint32_t fu[4][4], fv[4][4];
-  {
-    const int ia = i0 + 16 * warp + g, ib = ia + 8;
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = (e & 1) ? ib : ia;
-        const int d = 16 * ks + 2 * t + 8 * (e >> 1);
-        const long long off = bbase + i * rs + hoff + d;
-        fu[ks][e] = (i < Tn) ? ld_bf16x2(qu + off) : 0u;
-        fv[ks][e] = (i < Tn) ? ld_bf16x2(qv + off) : 0u;
+  if (warp < 4) {
+    hopper::reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x != 0) return;
+    int n = 0, k = 0;  // stages filled, items taken
+    for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
+      const int it = flash::tc::snake_item(r);
+      if (it >= n_items) continue;
+      int i0, h, b;
+      item_of(it, i0, h, b);
+      if (k > 0) hopper::mbar_wait(q_free, (k - 1) & 1);  // the last item is done with q
+      hopper::mbar_arrive_tx(q_loaded, L::Q);
+      for (int w = 0; w < WGS; ++w) {
+        hopper::tma_load_4d(base + w * BOX64, &tqu, q_loaded, 0, h, i0 + 64 * w, b);
+        hopper::tma_load_4d(base + (WGS + w) * BOX64, &tqv, q_loaded, 0, h, i0 + 64 * w, b);
       }
+      const int nk = (length(b) + 63) / 64;
+      for (int kt = 0; kt < nk; ++kt, ++n) {
+        const int s = n % STAGES, use = n / STAGES;
+        if (use > 0) hopper::mbar_wait(empty(s), (use - 1) & 1);  // the stage is read out
+        const uint32_t st = base + L::Q + s * L::STAGE;
+        hopper::mbar_arrive_tx(full(s), L::STAGE);
+        hopper::tma_load_4d(st, &tk, full(s), 0, h, 64 * kt, b);
+        hopper::tma_load_4d(st + BOX64, &tv, full(s), 0, h, 64 * kt, b);
+        for (int x = 0; x < 3; ++x)  // rows past either end of p read as zeros
+          hopper::tma_load_4d(st + (2 + x) * BOX64, &tp, full(s), 0, h,
+                              Tn - 128 - i0 + 64 * kt + 64 * x, 0);
+      }
+      ++k;
+    }
+    return;
   }
 
-  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, acc[8][4];
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-
-  const int q_lo = BQ - 16 - 16 * warp;  // first p row (local) this warp reads
-  // v's B fragments by ldmatrix.x4.trans: lane L addresses key row L % 8 + 8 (L / 8 % 2)
-  // at column 8 (L / 16), giving two d-tiles of 8 (B[j][d] stored d-contiguous)
-  const uint32_t sv_lane = static_cast<uint32_t>(__cvta_generic_to_shared(
-      sV + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LDS + 8 * (lane >> 4)));
-  const int n_kv = (len + BKV - 1) / BKV;
-  for (int kt = 0; kt < n_kv; ++kt) {
-    const int j0 = kt * BKV;
-    __syncthreads();  // the previous tile is no longer read
-    stage_rows(sK, k + bbase, j0, BKV, Tn, rs, hoff);
-    stage_rows(sV, v + bbase, j0, BKV, Tn, rs, hoff);
-    stage_rows(sP, p, Tn - BQ - i0 + j0, NP, 2 * Tn - 1, rs, hoff);
-    __syncthreads();
-
-    // s = qu k^T (16 x 64) and bd = qv p^T over this warp's 80 p rows
-    float s[8][4], bd[10][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < 10; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) bd[nt][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const bf16* kr = sK + (8 * nt + g) * LDS + 16 * ks + 2 * t;
-        const uint32_t bb[2] = {ld_bf16x2(kr), ld_bf16x2(kr + 8)};
-        mma_bf16_16816(s[nt], fu[ks], bb);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 10; ++nt) {
-        const bf16* pr = sP + (q_lo + 8 * nt + g) * LDS + 16 * ks + 2 * t;
-        const uint32_t bb[2] = {ld_bf16x2(pr), ld_bf16x2(pr + 8)};
-        mma_bf16_16816(bd[nt], fv[ks], bb);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < 10; ++nt) {
-      *reinterpret_cast<float2*>(sB + g * LDB + 8 * nt + 2 * t) =
-          make_float2(bd[nt][0], bd[nt][1]);
-      *reinterpret_cast<float2*>(sB + (g + 8) * LDB + 8 * nt + 2 * t) =
-          make_float2(bd[nt][2], bd[nt][3]);
-    }
+  // consumer warpgroup w: query rows i0 + 64 w .. + 63 of each item; this
+  // thread's local rows rl and rl + 8 (global ia, ib)
+  hopper::reg_alloc<CONSUMER_REGS>();
+  const int w = (warp >> 2) - 1, g = lane >> 2, t = lane & 3, rl = 16 * (warp & 3) + g;
+  const float scale2 = scale * LOG2E;  // P = 2^((s - m) scale2), s and m in raw units
+  const long long rs = (long long)H * 64;
+  float* const G = reinterpret_cast<float*>(sm + L::G + w * L::GBYTES);
+  const uint32_t qu_at = base + w * BOX64, qv_at = base + (WGS + w) * BOX64;
+  auto release = [&](uint32_t bar) {  // this warp is done with what `bar` guards
     __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(bar);
+  };
+  // band chunk m (64 x 64 accumulator) into the G ring
+  auto scatter = [&](const float (&bd)[8][4], int m) { relpos::scatter_band(G, bd, m, rl, g, t); };
 
-    // scores: row r of the warp, key jl of the tile reads its rel-pos term at
-    // p row q = jl - (16 warp + r) + 63, i.e. column jl - r + 15 of sB
-    float mx[2] = {NEG, NEG};
+  // Tile kt's scores: sc (qu k^T) plus the band terms from G, -1e30 on keys
+  // past the length; then the online softmax in registers: sc becomes P =
+  // 2^((s - m) scale2), m (raw units) and this lane's share of l are
+  // updated, and alpha is the factor the rows' accumulators take
+  auto softmax_tile = [&](float (&sc)[8][4], int kt, int len, float (&m)[2], float (&l)[2],
+                          float (&alpha)[2]) {
+    const float* grow[2] = {relpos::band_row(G, rl, kt), relpos::band_row(G, rl + 8, kt)};
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = g + 8 * (e >> 1), jl = 8 * nt + 2 * t + (e & 1);
-        const float val = (s[nt][e] + sB[r * LDB + jl - r + 15]) * scale;
-        s[nt][e] = (j0 + jl < len) ? val : NEG;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+      for (int hh = 0; hh < 2; ++hh) {
+        const float2 gv = *reinterpret_cast<const float2*>(grow[hh] + ((8 * nt + 2 * t) ^ (8 * g)));
+        sc[nt][2 * hh] += gv.x;
+        sc[nt][2 * hh + 1] += gv.y;
       }
-    __syncwarp();  // sB is read; the next tile's writes come after __syncthreads
-
-    // online softmax over the 4 lanes that share a row
-    float alpha[2], ps[2] = {0.f, 0.f};
+    const int kmax = len - 64 * kt;  // keys c < kmax are valid
+    if (__builtin_expect(kmax < 64, 0)) {
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-      const float m_new = fmaxf(m[hh], mx[hh]);
-      alpha[hh] = __expf(m[hh] - m_new);
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nt][e] = 8 * nt + 2 * t + (e & 1) < kmax ? sc[nt][e] : NEG;
+    }
+    float mx[2][2] = {{NEG, NEG}, {NEG, NEG}};  // [row][even, odd block]: two chains
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1][nt & 1] = fmaxf(mx[e >> 1][nt & 1], sc[nt][e]);
+    float ms2[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {  // over the 4 lanes that share a row
+      float x = fmaxf(mx[hh][0], mx[hh][1]);
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+      const float m_new = fmaxf(m[hh], x);
+      alpha[hh] = ex2((m[hh] - m_new) * scale2);
+      ms2[hh] = m_new * scale2;
       m[hh] = m_new;
     }
+    float ps[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[nt][e] = __expf(s[nt][e] - m[e >> 1]);
-        ps[e >> 1] += s[nt][e];
+        sc[nt][e] = ex2(fmaf(sc[nt][e], scale2, -ms2[e >> 1]));
+        ps[e >> 1][nt & 1] += sc[nt][e];
       }
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + ps[hh];  // this lane's share
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      acc[dt][0] *= alpha[0];
-      acc[dt][1] *= alpha[0];
-      acc[dt][2] *= alpha[1];
-      acc[dt][3] *= alpha[1];
-    }
+    for (int hh = 0; hh < 2; ++hh) l[hh] = l[hh] * alpha[hh] + (ps[hh][0] + ps[hh][1]);
+  };
 
-    // acc += probabilities (bf16, from the score registers) x v
+  int n = 0, k = 0;  // stages consumed, items taken
+  for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
+    const int it = flash::tc::snake_item(r);
+    if (it >= n_items) continue;
+    int i0, h, b;
+    item_of(it, i0, h, b);
+    const int len = length(b), nk = (len + 63) / 64;
+    const int ia = i0 + 64 * w + rl, ib = ia + 8;
+    float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, acc[8][4], sc[8][4], bd[8][4], alpha[2];
+    uint32_t pa[4][4];  // the held tile's probabilities as A fragments
+    flash::tc::zero<8>(acc);
+    hopper::mbar_wait(q_loaded, k & 1);
+    if (nk > 0) {
+      // One tile behind, as flash_fwd.cu's: P v of a tile is issued with the
+      // next tile's s and band chunk; the first tile is peeled (band chunks
+      // 0 and 1, scores, no P v yet).
+      int s = n % STAGES;
+      hopper::mbar_wait(full(s), (n / STAGES) & 1);
+      uint32_t k_at = base + L::Q + s * L::STAGE;
+      uint32_t old_at = k_at + (3 - w) * BOX64;  // chunk kt of this warpgroup; kt + 1 follows
+      hopper::wgmma_fence();
+      product_ss<64, 64>(bd, qv_at, old_at);  // chunk 0
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(bd);
+      scatter(bd, 0);
+      hopper::wgmma_fence();
+      product_ss<64, 64>(sc, qu_at, k_at);             // s = qu k^T
+      product_ss<64, 64>(bd, qv_at, old_at + BOX64);  // chunk 1 of qv p^T
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(bd);
+      scatter(bd, 1);
+      __syncwarp();
+      softmax_tile(sc, 0, len, m, l, alpha);  // acc is 0: nothing to rescale
+      pack_p<64>(pa, sc);
+      int held = s;
+      for (int kt = 1; kt < nk; ++kt) {
+        s = ++n % STAGES;
+        hopper::mbar_wait(full(s), (n / STAGES) & 1);
+        k_at = base + L::Q + s * L::STAGE;
+        old_at = k_at + (3 - w) * BOX64;
+        hopper::wgmma_fence();
+        product_ss<64, 64>(sc, qu_at, k_at);
+        product_ss<64, 64>(bd, qv_at, old_at + BOX64);  // chunk kt + 1
+        product_rs<64, 64>(acc, pa, base + L::Q + held * L::STAGE + BOX64);  // o += P v
+        hopper::wgmma_wait<1>();  // the scores and the band chunk are in
+        hopper::fence_regs(sc);
+        hopper::fence_regs(bd);
+        scatter(bd, kt + 1);
+        __syncwarp();
+        softmax_tile(sc, kt, len, m, l, alpha);
+        hopper::wgmma_wait<0>();  // the held tile's P v is in
+        hopper::fence_regs(acc);
+        hopper::fence_regs(pa);
+        release(empty(held));
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t a[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {
-        uint32_t bq[4];
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-            : "=r"(bq[0]), "=r"(bq[1]), "=r"(bq[2]), "=r"(bq[3])
-            : "r"(sv_lane + 2 * (16 * kk * LDS + 16 * dp)));
-        const uint32_t lo[2] = {bq[0], bq[1]}, hi[2] = {bq[2], bq[3]};
-        mma_bf16_16816(acc[2 * dp], a, lo);
-        mma_bf16_16816(acc[2 * dp + 1], a, hi);
+        for (int dt = 0; dt < 8; ++dt) {
+          acc[dt][0] *= alpha[0];
+          acc[dt][1] *= alpha[0];
+          acc[dt][2] *= alpha[1];
+          acc[dt][3] *= alpha[1];
+        }
+        pack_p<64>(pa, sc);
+        held = s;
       }
+      ++n;
+      release(q_free);  // every product of the item that reads qu and qv is done
+      hopper::wgmma_fence();
+      product_rs<64, 64>(acc, pa, base + L::Q + held * L::STAGE + BOX64);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      release(empty(held));
+    } else {
+      release(q_free);
     }
-  }
 
+    // o = acc / l; lse = m scale + log l (a row with no valid key: o = 0,
+    // lse = -1e30, as the fp32 path gives)
+    float inv[2];
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    float lt = l[hh];
-    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
-    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
-    const int i = i0 + 16 * warp + g + 8 * hh;
-    if (i >= Tn) continue;
-    const float lv = fmaxf(lt, 1e-30f), inv = 1.f / lv;
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt)
-      *reinterpret_cast<uint32_t*>(o + bbase + i * rs + hoff + 8 * dt + 2 * t) =
-          pack_bf16x2(acc[dt][2 * hh] * inv, acc[dt][2 * hh + 1] * inv);
-    if (t == 0) lse[((long long)b * H + h) * Tn + i] = m[hh] + logf(lv);
+    for (int hh = 0; hh < 2; ++hh) {
+      float lt = l[hh];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      const float lv = fmaxf(lt, 1e-30f);
+      inv[hh] = 1.f / lv;
+      const int i = hh ? ib : ia;
+      if (t == 0 && i < Tn)
+        lse[((long long)b * H + h) * Tn + i] = (nk > 0 ? m[hh] * scale : NEG) + logf(lv);
+    }
+    flash::tc::store_rows<8>(o + (long long)b * Tn * rs + (long long)h * 64, acc, ia, ib, Tn, rs,
+                             t, inv);
+    ++k;
   }
 }
 
-}  // namespace tc
+// the tensor maps and the launch, on a persistent grid
+int launch(const void* qu, const void* qv, const void* k, const void* v, const void* p,
+           const int* lengths, void* o, float* lse, int B, int H, int Tn, float scale,
+           cudaStream_t stream) {
+  CUtensorMap mqu, mqv, mk, mv, mp;
+  int err = hopper::encode_bthd(&mqu, qu, B, Tn, H, D, 64);
+  if (err == 0) err = hopper::encode_bthd(&mqv, qv, B, Tn, H, D, 64);
+  if (err == 0) err = hopper::encode_bthd(&mk, k, B, Tn, H, D, 64);
+  if (err == 0) err = hopper::encode_bthd(&mv, v, B, Tn, H, D, 64);
+  if (err == 0) err = hopper::encode_bthd(&mp, p, 1, 2 * Tn - 1, H, D, 64);
+  int grid = 0;
+  if (err == 0) err = flash::persistent_grid((Tn + 127) / 128 * H * B, grid);
+  if (err != 0) return err;
+  bf16* out = static_cast<bf16*>(o);
+  void* args[] = {&mqu, &mqv, &mk, &mv, &mp, &lengths, &out, &lse, &B, &H, &Tn, &scale};
+  return flash::launch(fwd_kernel, Layout::BYTES, NT, grid, 1, 1, stream, args);
+}
+
+}  // namespace wg
 
 template <typename T>
 int launch(void (*kernel)(const T*, const T*, const T*, const T*, const T*, const int*, T*,
@@ -438,8 +542,7 @@ extern "C" int relpos_flash_fwd(int dtype, const void* qu, const void* qv, const
     const void* tensors[] = {qu, qv, k, v, p, o};
     for (const void* ptr : tensors)
       if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return (int)cudaErrorMisalignedAddress;
-    return launch<__nv_bfloat16>(tc::kernel, tc::SMEM, tc::NT, qu, qv, k, v, p, len, o, l, B, H,
-                                 Tn, scale, s);
+    return wg::launch(qu, qv, k, v, p, len, o, l, B, H, Tn, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

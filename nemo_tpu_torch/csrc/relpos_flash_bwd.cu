@@ -50,6 +50,7 @@
 
 #include "flash_tiles.cuh"
 #include "hopper.cuh"
+#include "relpos_band.cuh"
 
 namespace {
 
@@ -434,15 +435,7 @@ __global__ void __launch_bounds__(NT, 1) dq_kernel(
   const uint32_t do_at = base + (2 * WGS + w) * BOX64;
 
   // band chunk m (64 x 64 accumulator) into the G ring
-  auto scatter = [&](const float (&bd)[8][4], int m) {
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = rl + 8 * (e >> 1), key = 64 * m + 8 * nt + 2 * t + (e & 1) + i - 63;
-        G[i * 128 + ((key & 127) ^ (8 * g))] = bd[nt][e];
-      }
-  };
+  auto scatter = [&](const float (&bd)[8][4], int m) { relpos::scatter_band(G, bd, m, rl, g, t); };
   // dS of tile kt (or zeros) into the band ring
   auto band_tile = [&](const float (&ds)[8][4], int kt, bool zeros) {
 #pragma unroll
@@ -502,7 +495,7 @@ __global__ void __launch_bounds__(NT, 1) dq_kernel(
       scatter(bd, kt + 1);
       __syncwarp();
       // P = exp(scale (qu.k + qv.p) - lse), 0 on keys past the length
-      const float* grow[2] = {G + rl * 128 + 64 * (kt & 1), G + (rl + 8) * 128 + 64 * (kt & 1)};
+      const float* grow[2] = {relpos::band_row(G, rl, kt), relpos::band_row(G, rl + 8, kt)};
       const int kmax = len - 64 * kt;  // keys c < kmax are valid
       if (__builtin_expect(kmax < 64, 0)) {
 #pragma unroll
@@ -892,18 +885,6 @@ __global__ void __launch_bounds__(NT, 1) dkv_kernel(
   if (issuer) hopper::bulk_wait_read();  // the staging outlives no reduction
 }
 
-// A persistent grid: one block a multiprocessor (or an item, where there
-// are fewer items), items in a snake order. On these kernels one block an
-// item measured the same at the calibration shape (192 items of equal work)
-// on the H100: K3 0.6 % faster, K4 within the spread of two runs.
-inline int grid_of(int n_items, int& grid) {
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  grid = n_items < sms ? n_items : sms;
-  return (int)e;
-}
-
 // the tensor maps and the launch; dp == nullptr: K3 (dqu, dqv into out0,
 // out1), else K4 (dk, dv into out0, out1, dp added to)
 int launch(void* qu, void* qv, void* k, void* v, void* p, void* dout, void* lse, void* delta,
@@ -917,8 +898,11 @@ int launch(void* qu, void* qv, void* k, void* v, void* p, void* dout, void* lse,
   if (err == 0) err = hopper::encode_bthd(&mp, p, 1, 2 * Tn - 1, H, D, 64);
   if (err == 0) err = hopper::encode_bthd(&mdo, dout, B, Tn, H, D, 64);
   if (err == 0 && dp != nullptr) err = hopper::encode_rows_f32(&mdp, dp, 2 * Tn - 1, H, D, 64);
+  // a persistent grid, items in a snake order; one block an item measured
+  // the same at the calibration shape (192 items of equal work) on the
+  // H100: K3 0.6 % faster, K4 within the spread of two runs
   int grid = 0;
-  if (err == 0) err = grid_of((Tn + 127) / 128 * H * B, grid);
+  if (err == 0) err = flash::persistent_grid((Tn + 127) / 128 * H * B, grid);
   if (err != 0) return err;
   if (dp == nullptr) {
     void* args[] = {&mqu, &mqv, &mk,  &mv,   &mp, &mdo, &lse, &delta, &lengths,

@@ -62,6 +62,24 @@ def test_wgmma_tile_product_matches_matmul(cuda, n, b_mn_major, a_source):
     torch.testing.assert_close(c, ref, atol=1e-3, rtol=1e-4)
 
 
+@pytest.mark.parametrize("n,b_layout,a_source", [(256, "mn", "tma"), (256, "mn", "plain"),
+                                                  (128, "mn", "plain"), (32, "k_plain", "plain")])
+def test_wgmma_plain_tile_forms_match_matmul(cuda, n, b_layout, a_source):
+    """The wgmma forms of the bf16 fused subsampling (K2): m64n256k16 and
+    m64n128k16 with b MN-major by TMA (w2) and a written by the threads with
+    no swizzle (the h1 patch, hopper.cuh:desc_plain), and m64n32k16 with
+    both operands so (conv1's x patches and w1)."""
+    from nemo_tpu_torch.csrc.loader import wgmma_tile_product
+
+    g = torch.Generator().manual_seed(n + len(b_layout) + len(a_source))
+    a = torch.randn(64, 64, generator=g).to(cuda, torch.bfloat16)
+    mn = b_layout == "mn"
+    b = torch.randn(*((64, n) if mn else (n, 64)), generator=g).to(cuda, torch.bfloat16)
+    c = wgmma_tile_product(a, b, mn, a_source, b_plain=b_layout == "k_plain")
+    ref = a.float() @ (b.float() if mn else b.float().T)
+    torch.testing.assert_close(c, ref, atol=1e-3, rtol=1e-4)
+
+
 def _attention_inputs(B, H, T, lengths, seed):
     dh = 64
     g = torch.Generator().manual_seed(seed)
@@ -74,8 +92,14 @@ def _attention_inputs(B, H, T, lengths, seed):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("T,lengths", [(64, [64, 64]), (151, [151, 77]), (200, [1, 133]),
-                                       (751, [751, 700])])
+                                       (751, [751, 700]), (100, [100, 37]), (257, [1, 257]),
+                                       (129, [129, 1])])
 def test_relpos_flash_kernel_matches_plain(cuda, dtype, tol, T, lengths):
+    """K1 against its plain version. T under one 128-row query tile (64,
+    100: the band's p rows start before row 0 there, and in every last query
+    tile where T is no multiple of 128), T = 128 k + 1 (129, 257: a last tile
+    of one row), a row of length 1 beside a full one, and the main path's
+    T = 751."""
     B, H = len(lengths), 3
     args = [a.to(cuda, dtype) if torch.is_tensor(a) and a.is_floating_point() else
             (a.to(cuda) if torch.is_tensor(a) else a)
@@ -102,8 +126,13 @@ def _subsampling_inputs(B, T, F, C, seed):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("B,T,F,C", [(2, 99, 80, 128), (1, 130, 81, 256), (3, 64, 40, 128),
-                                     (1, 3001, 80, 512)])
+                                     (1, 3001, 80, 512), (2, 50, 4, 128), (1, 40, 160, 256),
+                                     (1, 33, 80, 384)])
 def test_fused_subsampling_kernel_matches_plain(cuda, dtype, tol, B, T, F, C):
+    """K2 against its plain version. Output positions no multiple of a
+    block's (T4 F4 = 500, 726 at 6 and 5 output rows a block), F = 81 (F4 =
+    21, odd), F4 = 1 (F = 4), F4 = 40 (column groups of 31), C = 128 and 384
+    (tiles of 128 output channels), and the main path's shape."""
     args = [a.to(cuda, dtype) for a in _subsampling_inputs(B, T, F, C, seed=T)]
     launches = fused_subsampling_x4.launches
     out = fused_subsampling_x4(*args)
@@ -759,6 +788,23 @@ def test_positions_backward_with_more_keys_than_rows(cuda, H, G, dh, dtype, gtol
         assert x.shape == r.shape and x.dtype == dtype, name
         _assert_rows_close(x, r, gtol, ntol, name)
     assert bool((out[0][:, :, dead] == 0).all())
+
+
+def test_bf16_forward_kernels_k1_k2_are_deterministic(cuda):
+    """Two launches of the bf16 K1 and K2 on the same inputs give the same
+    bits: neither sums across blocks (no atomics)."""
+    lengths = [751, 700, 613, 1]
+    args = [a.to(cuda, torch.bfloat16) if torch.is_tensor(a) and a.is_floating_point() else
+            (a.to(cuda) if torch.is_tensor(a) else a)
+            for a in _attention_inputs(len(lengths), 8, 751, lengths, seed=13)]
+    first, second = relpos_flash_attention(*args), relpos_flash_attention(*args)
+    sub = [a.to(cuda, torch.bfloat16) for a in _subsampling_inputs(2, 3001, 80, 512, seed=14)]
+    out1, out2 = fused_subsampling_x4(*sub), fused_subsampling_x4(*sub)
+    torch.cuda.synchronize()
+    for name, x, y in (("o", first[0], second[0]), ("lse", first[1], second[1]),
+                       ("subsampling", out1, out2)):
+        assert torch.isfinite(x.float()).all() and x.abs().sum() > 0, name
+        assert torch.equal(x, y), name
 
 
 def test_bf16_relpos_backward_kernels_are_deterministic(cuda):
