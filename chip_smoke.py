@@ -5,12 +5,15 @@ through the four hand-written kernels K1-K4, as bench.py's primary line runs
 them; then Llama-3.2-1B training through the causal GQA flash kernels K5-K7;
 then packed full-parameter SFT of Llama-3.2-1B through the segment-masked
 flash kernels K8-K10; then context-parallel (ring) training of Llama-3.2-1B
-at 16,384 tokens through the position-masked flash kernels K11-K13.
+at 16,384 tokens through the position-masked flash kernels K11-K13; then
+Conformer-Transducer-Large RNNT tone calibration and label-looping greedy
+transcription through K1-K4, as bench.py:bench_rnnt runs them.
 
     python3 chip_smoke.py            # from the repository root; needs one CUDA card
     python3 chip_smoke.py --profile  # and torch.profiler breakdowns of one batch,
                                      # of calibration steps, of LLM training steps,
-                                     # of SFT steps and of CP training steps
+                                     # of SFT steps, of CP training steps, of one
+                                     # RNNT batch and of RNNT head-fit steps
     torchrun --nproc-per-node 2 chip_smoke.py --cp-processes
                                      # only CP training over processes, one a card
                                      # (NCCL), against every rank in one process
@@ -115,12 +118,35 @@ Phases, each printing a line; any failure raises and exits non-zero:
    S=16,384, cp 2, every rank in one process, B=1, seed 0: the first
    batch's loss within 2e-3 relative of cp 1 (K5-K7) on the same weights,
    2 warm-up and 20 timed steps: tokens/s, ms/step, MFU, peak memory; K11
-   128, K12 and K13 64 launches a step, none of K1-K10.
+   128, K12 and K13 64 launches a step, none of K1-K10;
+18. the RNNT model in fp32: one seeded Conformer-Transducer-Large with both
+   kernel flags, on the card (K1 18 and K2 1 launches a forward) and on the
+   CPU (plain versions), at B=2 x 5 s (one ragged): the encoder output on
+   valid frames and the joint logits along the CPU's greedy path within
+   1e-3; the greedy tokens equal up to the first difference, allowed only
+   at a near-tie (2e-3) of the CPU's top-2 joint logits;
+19. the RNNT loss in fp32 on the planes of `fused_log_probs`, card against
+   CPU, at B=4, T'=751, U=40, V+1=29: the value within 1e-5 relative, the
+   prediction and joint gradients within 1e-4 of each leaf's max;
+20. RNNT calibration (bench.py:bench_rnnt): Conformer-Transducer-Large bf16,
+   both flags; rounds of 150 framewise steps (through a linear probe, the
+   training forward through the conv pair) and 150 head-only RNNT steps
+   (the encoder frozen, through K1 and K2) at B=4 x 30 s, U=40, each round
+   ended by the blank-bias trim, until a held-out probe decodes >= 20
+   tokens/utt (at most 3 rounds): framewise and head-fit ms/step, the trim,
+   peak memory; K1-K4 launches against the steps and decodes;
+21. the RNNT main path: `transcribe_staged` of the calibrated model, B=32 x
+   30 s int16 held-out tone batches, one warm and 3 timed:
+   conformer_transducer_rnnt_transcribe_rtfx, ms/batch, label-looping loops
+   per batch, peak memory, more than 20 tokens/utt; K1 18 and K2 1 launches
+   a batch.
 
 With --profile, one more batch of the transcription path, 6 more calibration
-steps, 2 more LLM training steps, 2 more SFT steps and 2 more CP training
-steps run under torch.profiler, and their device time by kernel and the card's busy share of
-the wall time are printed. It ends with a JSON line of the kernels and then
+steps, 2 more LLM training steps, 2 more SFT steps, 2 more CP training steps,
+one more RNNT batch (and its encoder and whole decode by the host's clock)
+and 6 more RNNT head-fit steps run under torch.profiler, and their device
+time by kernel and the card's busy share of the wall time are printed. It
+ends with a JSON line of the kernels and then
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 TF32 is off for the comparisons. Nothing of JAX or `nemo_tpu` is imported.
 """
@@ -128,6 +154,7 @@ TF32 is off for the comparisons. Nothing of JAX or `nemo_tpu` is imported.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import logging
@@ -1706,6 +1733,368 @@ def phase_cp_training(counters: dict, profile: bool) -> dict:
     return launches
 
 
+def _rnnt_model(dtype: str, device):
+    from nemo_tpu_torch.models.asr.configs import conformer_transducer
+    from nemo_tpu_torch.models.asr.rnnt_models import EncDecRNNTModel
+
+    cfg = conformer_transducer("large", compute_dtype=dtype)
+    cfg.encoder.update(att_impl="decomposed_flash", fused_subsampling=True)
+    return EncDecRNNTModel(cfg, device=device, seed=0)
+
+
+def greedy_path(model, e: torch.Tensor, n: int, tokens: torch.Tensor, count: int):
+    """Replay one row's label-looping decode from its tokens: the (frame,
+    label) points where the decoder evaluated the joint, in order, and the
+    joint logits there (`model`'s prediction net over the tokens and its
+    joint on `e`, the row's projected encoder output [T', J]). Raises if the replay's
+    argmax decisions do not give back `tokens`."""
+    joint, blank = model.joint, model.blank_id
+    pp = joint.project_pred(model.prediction(tokens[None, :count].long())[0])  # [U+1, J]
+    t = u = sym = 0
+    points, rows = [], []
+    while t < n:
+        logits = joint.from_projected(e[t], pp[u])
+        points.append((t, u))
+        rows.append(logits)
+        k = int(logits.argmax())
+        if k != blank and sym < model.max_symbols:
+            if u >= count or k != int(tokens[u]):
+                raise AssertionError(f"the replay emits {k} at frame {t}, label {u}, where the "
+                                     "decode did not")
+            u, sym = u + 1, sym + 1
+        else:
+            t, sym = t + 1, 0
+    if u != count:
+        raise AssertionError(f"the replay emits {u} labels, the decode {count}")
+    return points, torch.stack(rows)
+
+
+def blank_shift(model, enc: torch.Tensor, n: torch.Tensor, candidates: int = 16) -> float:
+    """An offset for the blank logit's bias that makes a random-init
+    transducer emit blanks as well as labels (unshifted it floods,
+    max_symbols labels every frame). The margins of the best label over
+    blank where the unshifted greedy decode of `enc` [B, T', H] (`n` valid
+    frames a row) evaluated the joint (replayed by `greedy_path`) are
+    sorted; of the offsets at the midpoints of `candidates` evenly spaced
+    pairs of consecutive margins (so that none of those points becomes a
+    tie), the one whose decode is furthest from both ends in its least
+    balanced row: the largest min over rows of min(tokens, T' x max_symbols
+    - tokens). The model's bias is left as it was."""
+    tokens, counts = model.greedy_decode(enc, n)
+    e = model.joint.project_enc(enc)
+    logits = torch.cat([greedy_path(model, e[b], t, tokens[b], int(counts[b]))[1]
+                        for b, t in enumerate(n.tolist())])
+    bias, blank = model.joint.out_proj.bias, model.blank_id
+    margin = (logits[:, :blank].max(-1).values - logits[:, blank]).sort().values.double()
+    cap, base = n.long() * model.max_symbols, float(bias[blank])
+    best = (-1, 0.0)
+    for i in np.linspace(0, len(margin) - 2, candidates).round().astype(int).tolist():
+        shift = float(margin[i] + margin[i + 1]) / 2
+        bias[blank] = base + shift
+        _, c = model.greedy_decode(enc, n)
+        best = max(best, (int(torch.minimum(c.long(), cap - c.long()).min()), shift))
+    bias[blank] = base
+    return best[1]
+
+
+def phase_rnnt_exactness(k1, k2, tol: float = 1e-3) -> dict:
+    """18. One seeded Conformer-Transducer-Large with both flags, fp32, on
+    the card and on the CPU, at B=2 x 5 s (one ragged), the blank bias of
+    both shifted by the CPU's `blank_shift` so that the decode both emits
+    and advances (each row of the CPU's decode holds more than 0 and fewer
+    than T' x max_symbols tokens): the encoder output on valid frames
+    within `tol`; the joint logits along the CPU's greedy path within `tol`
+    (the card's joint at the CPU's (frame, label) points); the card's tokens
+    equal to the CPU's up to the first difference, and that only at a point
+    of the CPU's path where its top-2 logits are within 2 tol of each other
+    (phase 5's near-tie rule). Returns both models, by device."""
+    pcm = torch.from_numpy(speechlike(2, int(5 * SR), np.random.RandomState(3)))
+    lens = torch.tensor([5 * SR, 61000], dtype=torch.int32)
+    out, launches, models, projected = {}, {}, {}, {}
+    for device in ("cuda", "cpu"):
+        model = _rnnt_model("float32", device)
+        with torch.no_grad():
+            k1.launches = k2.launches = 0
+            enc, n = model.encode(*model.mel_features(pcm.to(device), lens.to(device)))
+            launches[device] = (k1.launches, k2.launches)
+            projected[device] = (enc, n, model.joint.project_enc(enc))
+        models[device] = model
+    with torch.no_grad():
+        shift = blank_shift(models["cpu"], *projected["cpu"][:2])
+    for device, model in models.items():
+        with torch.no_grad():
+            model.joint.out_proj.bias[model.blank_id] += shift
+        tokens, counts = model.decode(pcm.to(device), lens.to(device))
+        enc, n, e = projected[device]
+        out[device] = [x.cpu() for x in (enc.float(), n, tokens, counts)] + [e]
+    if launches != {"cuda": (18, 1), "cpu": (0, 0)}:
+        raise AssertionError(f"launches per encoder forward: {launches}")
+    (enc, n, tokens, counts, e), (ref, ref_n, ref_tokens, ref_counts, ref_e) = (out["cuda"],
+                                                                             out["cpu"])
+    if not torch.equal(n, ref_n):
+        raise AssertionError(f"frame lengths differ: {n} vs {ref_n}")
+    cap = ref_n * models["cpu"].max_symbols
+    if not bool(((ref_counts > 0) & (ref_counts < cap)).all()):
+        raise AssertionError(f"the CPU's decode is degenerate after the blank shift {shift:+.4f}: "
+                             f"tokens {ref_counts.tolist()} of at most {cap.tolist()}")
+    enc_err = max(float((enc[b, :t] - ref[b, :t]).abs().max()) for b, t in enumerate(n.tolist()))
+    logit_err, points, same = 0.0, 0, []
+    for b, t in enumerate(n.tolist()):
+        with torch.no_grad():
+            path, ref_logits = greedy_path(models["cpu"], ref_e[b], t, ref_tokens[b],
+                                           int(ref_counts[b]))
+            ts, us = (torch.tensor(x) for x in zip(*path))
+            m = models["cuda"]
+            pp = m.joint.project_pred(m.prediction(ref_tokens[b:b + 1, :int(ref_counts[b])]
+                                                .long().cuda())[0])
+            logits = m.joint.from_projected(e[b, ts.cuda()], pp[us.cuda()]).cpu()
+        logit_err = max(logit_err, float((logits - ref_logits).abs().max()))
+        points += len(path)
+        got, want = tokens[b, :int(counts[b])], ref_tokens[b, :int(ref_counts[b])]
+        k = min(len(got), len(want))
+        diff = (got[:k] != want[:k]).nonzero()
+        first = int(diff[0]) if len(diff) else (k if len(got) != len(want) else None)
+        same.append(first is None)
+        if first is not None:  # allowed only at a near-tie of the CPU's joint at label `first`
+            top2 = ref_logits[us == first].topk(2, dim=-1).values
+            if not bool(((top2[:, 0] - top2[:, 1]) < 2 * tol).any()):
+                raise AssertionError(f"row {b}: tokens differ at label {first}, not at a "
+                                     "near-tie of the CPU's joint")
+    log(f"rnnt fp32, cuda (kernels) vs cpu (plain), B=2 x 5 s, blank bias shifted by "
+        f"{shift:+.4f}: max_abs_enc_diff={enc_err:.3e}, max_abs_joint_logit_diff="
+        f"{logit_err:.3e} at the CPU's {points} path points (tolerance {tol:g}), tokens "
+        f"{ref_counts.tolist()} (cpu) and {counts.tolist()} (cuda) of at most {cap.tolist()}, "
+        f"identical rows {sum(same)}/2")
+    if enc_err > tol or logit_err > tol or not torch.isfinite(enc).all():
+        raise AssertionError("whole-model RNNT outputs disagree")
+    return models
+
+
+def phase_rnnt_loss(models, tol: float = 1e-4) -> None:
+    """19. The RNNT loss on the planes of `fused_log_probs`, fp32, on the
+    card and on the CPU, at B=4, T'=751, U=40, V+1=29 (ragged frames and
+    targets), with phase 18's prediction nets and joints: the value within
+    1e-5 relative; the gradients of every prediction and joint leaf within
+    `tol` of the leaf's max-abs value. The value is each device's own pass.
+    In the pass whose gradients are compared, the CPU takes the card's
+    enc_proj and pred_proj outputs as its values (its gradients still flow
+    through its own layers), as phase 6 gives both encoders the CPU's mel
+    features: a joint ReLU whose pre-activation lies within the two devices'
+    GEMM rounding (~1e-6) of 0 opens on one device only, and among this
+    size's 79 M pre-activations such gates moved enc_proj's weight gradient by
+    3.4e-4 to 1.9e-3 of its max (measured on one H100). Also the card's
+    time of one loss forward and backward (the head fit's loss)."""
+    from nemo_tpu_torch.ops.rnnt import rnnt_loss_from_log_probs
+
+    gen = torch.Generator().manual_seed(4)
+    Bl, T, U = 4, 751, 40
+    enc = torch.randn(Bl, T, 512, generator=gen)
+    targets = torch.randint(0, 28, (Bl, U), generator=gen)
+    f_len = torch.tensor([751, 751, 600, 413])
+    t_len = torch.tensor([40, 40, 31, 17])
+    value, grads, card = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        model = models[device]
+        leaves = [p for name, p in model.named_parameters()
+                  if name.split(".")[0] in ("prediction", "joint")]
+
+        def loss_fn():
+            lp_b, lp_l = model.joint.fused_log_probs(
+                enc.to(device), model.prediction(targets.to(device)), targets.to(device), 16)
+            return rnnt_loss_from_log_probs(lp_b, lp_l, f_len.to(device),
+                                            t_len.to(device) + 1).mean()
+
+        with torch.no_grad():
+            value[device] = float(loss_fn())
+        hooks = []
+        for name in ("enc_proj", "pred_proj"):
+            if device == "cuda":
+                def hook(mod, args, out, name=name):
+                    card[name] = out.detach().cpu()
+            else:
+                def hook(mod, args, out, name=name):
+                    return out + (card[name] - out).detach()
+            hooks.append(getattr(model.joint, name).register_forward_hook(hook))
+        grads[device] = [g.cpu() for g in torch.autograd.grad(loss_fn(), leaves)]
+        for h in hooks:
+            h.remove()
+        if device == "cuda":
+            ms = cuda_ms(lambda: torch.autograd.grad(loss_fn(), leaves), iters=5)
+    worst = max(float((g - r).abs().max()) / (float(r.abs().max()) + 1e-30)
+                for g, r in zip(grads["cuda"], grads["cpu"]))
+    rel = abs(value["cuda"] - value["cpu"]) / abs(value["cpu"])
+    log(f"rnnt loss fp32 B={Bl}, T'={T}, U={U}: {value['cuda']:.6f} (cuda) vs {value['cpu']:.6f} "
+        f"(cpu), rel diff {rel:.2e} (tolerance 1e-5); {len(leaves)} prediction and joint "
+        f"gradients, worst max_abs_err {worst:.2e} of the leaf's max (tolerance {tol:g}); "
+        f"{ms:.2f} ms a loss forward + backward on the card (chunks of 16 frames)")
+    if rel > 1e-5 or worst > tol:
+        raise AssertionError("the RNNT loss or its gradients disagree")
+
+
+RNNT_UTT_TOKENS, RNNT_FIT_STEPS, RNNT_DENSITY_FLOOR, RNNT_TIMED = 40, 150, 20.0, 3
+
+
+@contextlib.contextmanager
+def rnnt_calls(model):
+    """Record, in order, `model.decode`'s calls as ("decode", the decoder's
+    loop count) and `fit_synthetic_asr`'s (the head fit that ends each
+    `framewise_calibrate` of a transducer) as ("fit", seconds on the card's
+    clock) while the block runs."""
+    from nemo_tpu_torch.models.asr import synthetic
+
+    calls, decode, fit = [], model.decode, synthetic.fit_synthetic_asr
+
+    def counted_decode(*args, **kw):
+        out = decode(*args, **kw)
+        calls.append(("decode", model.last_loop_iterations))
+        return out
+
+    def timed_fit(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fit(*args, **kw)
+        torch.cuda.synchronize()
+        calls.append(("fit", time.perf_counter() - t0))
+        return out
+
+    model.decode, synthetic.fit_synthetic_asr = counted_decode, timed_fit
+    try:
+        yield calls
+    finally:
+        del model.decode
+        synthetic.fit_synthetic_asr = fit
+
+
+def phase_rnnt_calibration(counters: dict):
+    """20. bench.py:bench_rnnt's calibration on the port: Conformer-Transducer-
+    Large bf16, both flags, rounds of 150 framewise steps and 150 head-fit
+    steps at B=4 x 30 s, U=40, each followed by the blank-bias trim, until a
+    held-out probe decodes >= 20 tokens/utt (at most 3 rounds). Launches:
+    K1 18 a framewise step, a head-fit step and a decode (the trim's and the
+    probe's); K2 1 a head-fit step and a decode (the framewise forward takes
+    the conv pair); K3 and K4 18 a framewise step."""
+    from nemo_tpu_torch.models.asr.synthetic import calibrated_tone_batches
+
+    model = _rnnt_model("bfloat16", None)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with rnnt_calls(model) as calls:
+        staged, density, rounds = calibrated_tone_batches(
+            model, B, SECS, RNNT_UTT_TOKENS, RNNT_TIMED, fit_steps=RNNT_FIT_STEPS,
+            density_floor=RNNT_DENSITY_FLOOR, fit_batch=FIT_BATCH, log=log)
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    fits = [i for i, (kind, _) in enumerate(calls) if kind == "fit"]
+    if len(fits) != len(rounds):
+        raise AssertionError(f"{len(fits)} head fits in {len(rounds)} calibration rounds")
+    ends = fits[1:] + [len(calls)]
+    for i, r in enumerate(rounds):  # a round: its framewise steps, its head fit, its decodes
+        r["head_fit_s"] = calls[fits[i]][1]
+        r["framewise_s"] = r["seconds"] - r["head_fit_s"]
+        r["decodes"] = sum(kind == "decode" for kind, _ in calls[fits[i]:ends[i]])
+        log(f"rnnt calibration round {i}: framewise {1e3 * r['framewise_s'] / r['steps']:.2f} "
+            f"ms/step, head fit {1e3 * r['head_fit_s'] / r['steps']:.2f} ms/step (B={FIT_BATCH} "
+            f"x {SECS:g} s, U={RNNT_UTT_TOKENS}), final framewise loss {r['loss']:.4f}, trim "
+            f"delta {r['trim_delta']:+.4f} -> {r['trim_density']:.1f} tokens/utt, probe density "
+            f"{r['density']:.1f} tokens/utt, {r['decodes']} decodes, "
+            f"peak_mem={r['peak_mem_gib']:.2f} GiB")
+    steps = RNNT_FIT_STEPS * len(rounds)
+    decodes = sum(r["decodes"] for r in rounds)
+    want = {"k1": 18 * (2 * steps + decodes), "k2": steps + decodes, "k3": 18 * steps,
+            "k4": 18 * steps}
+    log(f"rnnt calibration: {len(rounds)} round(s), {steps} framewise and {steps} head-fit "
+        f"steps, {decodes} decodes, {wall:.1f} s in all, probe density {density:.1f} "
+        f"tokens/utt, launches {launches}")
+    if launches != want:
+        raise AssertionError(f"rnnt calibration launch counts {launches}, expected {want}")
+    return model, staged
+
+
+def phase_rnnt_main_path(model, staged, k1, k2, profile: bool) -> None:
+    """21. `transcribe_staged` of the calibrated transducer over held-out tone
+    batches (B=32 x 30 s int16, make_eval_batch seeds 100 + i): one warm
+    batch and 3 timed ones; more than 20 tokens/utt (bench.py:214), K1 18
+    and K2 1 launches a batch."""
+    model.transcribe_staged(staged[:1])  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = k2.launches = 0
+    with rnnt_calls(model) as calls:
+        t0 = time.perf_counter()
+        texts = model.transcribe_staged(staged[1:])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {"k1": k1.launches, "k2": k2.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rtfx = B * SECS * RNNT_TIMED / wall
+    density = sum(map(len, texts)) / len(texts)
+    iters = [loops for _, loops in calls]
+    log(f"rnnt main path, transcribe_staged bf16 B={B} x {SECS:g} s, calibrated weights, "
+        f"held-out tone audio, {RNNT_TIMED} timed batches: "
+        f"conformer_transducer_rnnt_transcribe_rtfx={rtfx:.1f}, "
+        f"{1e3 * wall / RNNT_TIMED:.1f} ms/batch, {density:.1f} tokens/utt, label-looping "
+        f"loops per batch {iters}, peak_mem={peak:.2f} GiB, launches K1={launches['k1']} "
+        f"K2={launches['k2']}")
+    if len(texts) != B * RNNT_TIMED or len(iters) != RNNT_TIMED or not all(
+            isinstance(s, str) for s in texts):
+        raise AssertionError("transcribe_staged returned the wrong number of texts")
+    if density <= RNNT_DENSITY_FLOOR:
+        raise AssertionError(f"rnnt decode density {density:.1f} <= {RNNT_DENSITY_FLOOR}")
+    want = {"k1": 18 * RNNT_TIMED, "k2": RNNT_TIMED}
+    if launches != want:
+        raise AssertionError(f"rnnt launch counts {launches}, expected {want}")
+    if profile:
+        profile_rnnt(model, staged[1:2])
+
+
+def profile_rnnt(model, staged) -> None:
+    """Where an RNNT batch's time goes: the encoder alone (mel, encoder,
+    enc_proj) against the whole decode, by the host's clock after a sync;
+    then one batch under torch.profiler (device time by kernel, the card's
+    idle share) and 6 head-fit steps (after the main path: they move the
+    weights)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nemo_tpu_torch.models.asr.synthetic import fit_synthetic_asr
+
+    sig, lens, _ = staged[0]
+
+    def encoder_only():
+        with torch.inference_mode():
+            enc, _ = model.encode(*model.mel_features(sig, lens))
+            model.joint.project_enc(enc)
+
+    walls = {}
+    for name, fn in (("encoder", encoder_only), ("decode", lambda: model.decode(sig, lens))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        walls[name] = 1e3 * (time.perf_counter() - t0) / 3
+    log(f"profile, one RNNT batch by the host's clock: encoder {walls['encoder']:.2f} ms, whole "
+        f"decode {walls['decode']:.2f} ms, so the label-looping loop "
+        f"{walls['decode'] - walls['encoder']:.2f} ms ({model.last_loop_iterations} loops, "
+        f"{1e3 * (walls['decode'] - walls['encoder']) / model.last_loop_iterations:.1f} us each)")
+    profile_batch(model, staged)
+    steps = 6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit_synthetic_asr(model, steps=steps, batch=FIT_BATCH, secs=SECS,
+                          utt_tokens=RNNT_UTT_TOKENS, lr=3e-3, seed=7)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    log(f"profile, RNNT head-fit step (B={FIT_BATCH} x {SECS:g} s, U={RNNT_UTT_TOKENS}): wall "
+        f"{wall_ms:.2f} ms, kernels {busy_ms:.2f} ms in {len(kernels) / steps:.0f} device "
+        f"operations, card idle {100 - 100 * busy_ms / wall_ms:.1f} % of the wall time")
+
+
 def cp_processes() -> int:
     """The process-group form under torchrun (one process a card, NCCL):
     Llama-3.2-1B at S = 16,384, cp = the number of processes, B=1, every rank
@@ -1919,8 +2308,9 @@ def time_backward() -> int:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile one transcription batch, calibration steps and "
-                             "LLM, SFT and CP training steps")
+                        help="also profile one transcription batch, calibration steps, "
+                             "LLM, SFT and CP training steps, one RNNT batch and RNNT head-fit "
+                             "steps")
     parser.add_argument("--cp-processes", action="store_true",
                         help="only the process-group form of CP training, one process a card: "
                              "torchrun --nproc-per-node N chip_smoke.py --cp-processes")
@@ -2001,6 +2391,13 @@ def main() -> int:
     for row, key in zip(cp_rows, ("k11", "k12", "k13")):
         row["launches"] = cp_launches[key]
     rows += cp_rows
+    torch.cuda.empty_cache()
+    rnnt_models = phase_rnnt_exactness(k1, k2)
+    phase_rnnt_loss(rnnt_models)
+    del rnnt_models
+    model, staged = phase_rnnt_calibration({"k1": k1, "k2": k2, "k3": k3, "k4": k4})
+    phase_rnnt_main_path(model, staged, k1, k2, args.profile)
+    del model, staged
     log(f"total: {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

@@ -13,7 +13,11 @@ port's parameters, whose names mirror the JAX tree. Only layouts change:
 - LayerNorm / BatchNorm `scale`, `bias` → `weight`, `bias`; BatchNorm
   `batch_stats` `mean`, `var` → `running_mean`, `running_var`
 - any other parameter (`pos_bias_u`, `pos_bias_v`, `linear_pos.kernel`,
-  GPT's `embedding` and RMSNorm `scale`) as is
+  GPT's and the RNNT prediction net's `embedding`, RMSNorm `scale`) as is
+- the RNNT prediction net's LSTM (flax's OptimizedLSTMCell) as eight
+  Linear layers named as its Dense leaves: `lstm{i}/{ii,if,ig,io}/kernel`
+  (no bias) and `lstm{i}/{hi,hf,hg,ho}/{kernel,bias}`; the joint's three
+  Dense layers as Linear layers
 - a GPT model's layers (a ModuleList, `layers.{i}`) come from the scanned
   tree (`layers/...`, each leaf with a leading layer axis) or the unrolled
   one (`layer{i}/...`); export writes the form of the model's config

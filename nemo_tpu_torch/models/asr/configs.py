@@ -1,4 +1,5 @@
-"""Conformer-CTC config builder (counterpart of nemo_tpu/models/asr/configs.py)."""
+"""Conformer-CTC and Conformer-Transducer configs (counterpart of
+nemo_tpu/models/asr/configs.py)."""
 
 from __future__ import annotations
 
@@ -65,3 +66,20 @@ def conformer_ctc(
         ),
         decoder=dict(feat_in=d_model, vocabulary=labels),
     )
+
+
+def conformer_transducer(
+    size: str = "large",
+    labels: Optional[List[str]] = None,
+    compute_dtype: str = "float32",
+    decoding_strategy: str = "greedy_batch",
+) -> ConfigDict:
+    """Conformer-Transducer: the `conformer_ctc` encoder + an LSTM prediction
+    network (pred_hidden 640, 1 layer) + an additive joint (joint_hidden
+    640), greedy label-looping decode by default (the JAX config's
+    arguments). The kernel flags are set on `cfg.encoder` by the caller."""
+    cfg = conformer_ctc(size, labels, compute_dtype=compute_dtype)
+    cfg.decoder = ConfigDict(pred_hidden=640, pred_rnn_layers=1, vocabulary=cfg.labels)
+    cfg.joint = ConfigDict(joint_hidden=640)
+    cfg.decoding = ConfigDict(strategy=decoding_strategy, max_symbols=10)
+    return cfg
