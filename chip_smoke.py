@@ -7,13 +7,17 @@ then packed full-parameter SFT of Llama-3.2-1B through the segment-masked
 flash kernels K8-K10; then context-parallel (ring) training of Llama-3.2-1B
 at 16,384 tokens through the position-masked flash kernels K11-K13; then
 Conformer-Transducer-Large RNNT tone calibration and label-looping greedy
-transcription through K1-K4, as bench.py:bench_rnnt runs them.
+transcription through K1-K4, as bench.py:bench_rnnt runs them; then LLM
+serving: the KV cache, int8 PTQ, the continuous-batching engine at
+bench.py:bench_decode's geometry and the OpenAI-compatible server on
+Llama-3.2-1B (its scoring forward through K5).
 
     python3 chip_smoke.py            # from the repository root; needs one CUDA card
     python3 chip_smoke.py --profile  # and torch.profiler breakdowns of one batch,
                                      # of calibration steps, of LLM training steps,
                                      # of SFT steps, of CP training steps, of one
-                                     # RNNT batch and of RNNT head-fit steps
+                                     # RNNT batch, of RNNT head-fit steps and of
+                                     # decode steps
     torchrun --nproc-per-node 2 chip_smoke.py --cp-processes
                                      # only CP training over processes, one a card
                                      # (NCCL), against every rank in one process
@@ -60,8 +64,9 @@ Phases, each printing a line; any failure raises and exits non-zero:
    than 50 chars/utt (bench.py:132), K1 18 and K2 1 launch a batch;
 9. K5, K6 and K7, the causal GQA flash forward and backward, against their
    plain versions at B=2, S=2048 (H=32 over G=8 at dh 64, with no window and
-   a window of 512; H=G=12 at dh 128, GPT-551M's head), bf16 and fp32, and
-   their times at the training shape (B=8, H=32, G=8, S=2048, dh 64) beside
+   a window of 512; H=G=12 at dh 128, GPT-551M's head), bf16 and fp32, K5
+   also at B=1, S=256, H=32 over G=8 at dh 64 (what `LLMServer.score` gives
+   it in phase 24), and their times at the training shape (B=8, H=32, G=8, S=2048, dh 64) beside
    the plain versions' and SDPA's (is_causal, enable_gqa); o and each
    gradient are held row by row (one query's o or dq, one key's dk or dv)
    and by their relative norm, since causal rows shrink along the sequence;
@@ -139,12 +144,37 @@ Phases, each printing a line; any failure raises and exits non-zero:
    30 s int16 held-out tone batches, one warm and 3 timed:
    conformer_transducer_rnnt_transcribe_rtfx, ms/batch, label-looping loops
    per batch, peak memory, more than 20 tokens/utt; K1 18 and K2 1 launches
-   a batch.
+   a batch;
+22. serving in fp32 at the decode bench's width (scripts/decode_throughput.py:
+   hidden 2048, 16 heads x dh 128, FFN 8192, vocab 32,000), depth cut to 2
+   layers, card against CPU, in two modes (bf16 weights and cache; int8 PTQ
+   and the int8 cache): 4 ragged slots, prefill_slot, 16 decode_step calls
+   and decode_steps(16), the CPU replaying the card's roundings (greedy
+   tokens, cache writes, the bf16 value product), each checked against its
+   own; the logits of every forward within 1e-3 of each row's max;
+23. the decode bench on the port (bench.py:bench_decode,
+   gpt1b_decode_tokens_per_sec_chip): the bench's model at full width and
+   depth from seed 0, int8 PTQ + int8 KV and then bf16, 8 slots, 48-token
+   prompts, max_len 1024, one KV bucket of 306: tokens/s and ms a step of
+   the median of 2 timed decode_steps chunks of 64 after a warm one, ms a
+   step of 16 decode_step calls, the weight bytes, the roofline at 3.35
+   TB/s and its share, peak memory;
+24. `LLMServer` on Llama-3.2-1B (flash backend, int8 PTQ weights, int8 KV)
+   on an ephemeral port: 8 concurrent /v1/completions sharing a 32-token
+   prefix (the prefix cache must hold it), a streamed /v1/chat/completions,
+   the scoring form of /v1/completions on 200 tokens (K5 16 launches, none
+   of the other kernels), each answer's shape and token count checked, the
+   greedy answers held to the engine's own run of the same prompts (a
+   served token that differs must have a logit within 1e-2 of the row's
+   max-abs below the engine's max), and the served log-probabilities to the
+   same model's score with K5's plain version in K5's place; the wall time
+   of each request.
 
 With --profile, one more batch of the transcription path, 6 more calibration
 steps, 2 more LLM training steps, 2 more SFT steps, 2 more CP training steps,
-one more RNNT batch (and its encoder and whole decode by the host's clock)
-and 6 more RNNT head-fit steps run under torch.profiler, and their device
+one more RNNT batch (and its encoder and whole decode by the host's clock),
+6 more RNNT head-fit steps and one more decode bench chunk of each mode run
+under torch.profiler, and their device
 time by kernel and the card's busy share of the wall time are printed. It
 ends with a JSON line of the kernels and then
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -164,6 +194,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -173,6 +204,7 @@ import torch.nn.functional as F
 # (NVIDIA's data sheet): the bound of each kernel is reckoned from these
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+CARD = "cuda"  # the device of the card side of every check
 
 B, SECS, SR = 32, 30.0, 16000
 TIMED_BATCHES = 5
@@ -772,7 +804,9 @@ def _gqa_inputs(gen: torch.Generator, B_: int, H: int, G: int, T: int, dh: int, 
 def phase_k5_k7(gen: torch.Generator):
     """K5, K6 and K7 against their plain versions at B=2, S=2048 (Llama's
     32 heads over 8 kv heads at dh 64, with no window and a window of 512;
-    GPT-551M's 12 heads at dh 128), then their times at the training shape."""
+    GPT-551M's 12 heads at dh 128); K5 also at the shape `LLMServer.score`
+    gives it (B=1, S=256, Llama's heads); then their times at the training
+    shape."""
     from nemo_tpu_torch.ops.flash_attention import (_k5_launch, flash_attention,
                                                     flash_attention_backward_plain,
                                                     flash_attention_plain, flash_dkv, flash_dq,
@@ -810,6 +844,16 @@ def phase_k5_k7(gen: torch.Generator):
         if dtype == torch.bfloat16:
             for key, err in (("k5", err5), ("k6", grad_errs[0]), ("k7", max(grad_errs[1:]))):
                 errs[key] = max(errs.get(key, 0.0), err)
+    for dtype in (torch.float32, torch.bfloat16):  # the serving path's score (phase 24)
+        tol, ntol = ((1e-4, 1e-4), 1e-5) if dtype == torch.float32 else ((1e-2, 2e-2), 1e-2)
+        q, k, v, _ = _gqa_inputs(gen, 1, 32, 8, SCORE_S, 64, dtype)
+        what = f"{str(dtype)[6:]} B=1 S={SCORE_S} H=32 G=8 dh=64 (score)"
+        o, (o_ref, lse_ref) = flash_attention(q, k, v, 0.125), flash_attention_plain(q, k, v, 0.125)
+        err5 = compare(f"K5 {what}", o, o_ref, *tol)
+        compare_rows(f"K5 {what} by row", o, o_ref, tol[1], ntol)
+        compare(f"K5 {what} lse", _k5_launch(q, k, v, 0.125, True, None)[1], lse_ref, 1e-3, 1e-4)
+        if dtype == torch.bfloat16:
+            errs["k5"] = max(errs["k5"], err5)
 
     H, G, dh = 32, 8, 64
     scale, pairs = 1.0 / math.sqrt(dh), LLM_B * H * LLM_S * (LLM_S + 1) / 2
@@ -2095,6 +2139,495 @@ def profile_rnnt(model, staged) -> None:
         f"operations, card idle {100 - 100 * busy_ms / wall_ms:.1f} % of the wall time")
 
 
+# LLM serving at bench.py:bench_decode's geometry (scripts/decode_throughput.py:23-110): slots,
+# max_len, prompt tokens, the one prefill bucket, tokens a decode_steps call, timed calls, and
+# the one KV bucket that covers the run (decode_throughput.py:58)
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_PROMPT, SERVE_BUCKET, SERVE_CHUNK, SERVE_TIMED = (
+    8, 1024, 48, 64, 64, 2)
+SERVE_KV_BUCKET = SERVE_PROMPT + SERVE_CHUNK * (2 + SERVE_TIMED) + 2
+SERVE_STEPS = 16  # decode_step calls (phases 22, 23) and decode_steps tokens (phase 22)
+# the LLMServer cell: slots, max_len, the shared prefix, tokens an answer, the scored prompt
+SERVER_SLOTS, SERVER_MAX_LEN, SERVER_PREFIX, SERVER_TOKENS, SCORE_TOKENS = 8, 512, 32, 16, 200
+SCORE_S = 256  # the scored prompt padded to a power of two: K5's shape in LLMServer.score
+# nats, the served log-probabilities against the plain attention's (read 6.258e-2 on an H100
+# 80GB HBM3 at 700 W: bf16 attention outputs rounded otherwise, carried through 16 layers)
+SCORE_TOL = 0.1
+SERVE_KERNEL_KINDS = (
+    ("GEMM", ("nvjet", "gemm", "cutlass", "sm90_", "gemv")), ("softmax", ("softmax",)),
+    ("index and scatter", ("index", "scatter", "gather")), ("reductions", ("reduce_kernel",)),
+    ("casts and copies", ("copy", "Memcpy", "Memset", "fill")), ("cat", ("CatArray",)),
+    ("elementwise", ("elementwise",)))
+
+
+def _decode_cfg(**kw):
+    """The bench's model (scripts/decode_throughput.py:35-40): 16 layers,
+    hidden 2048, FFN 8192, 16 heads x dh 128 (MHA), vocab 32,000, an untied
+    head, the einsum attention; bf16 compute on fp32 parameters."""
+    from nemo_tpu_torch.models.llm.config import GPTConfig
+
+    return GPTConfig(**{"num_layers": 16, "hidden_size": 2048, "ffn_hidden_size": 8192,
+                        "num_attention_heads": 16, "kv_channels": 128, "vocab_size": 32000,
+                        "seq_length": SERVE_MAX_LEN, "scan_layers": False,
+                        "attention_backend": "xla", **kw})
+
+
+def _seed_params(cfg, device: str):
+    """The JAX-layout parameter tree of a port model built on `device` from
+    seed 0, as tensors there (the bench seeds its weights too)."""
+    from nemo_tpu_torch.interop.jax_params import export_jax_variables
+    from nemo_tpu_torch.models.llm.gpt import build_model
+
+    model = build_model(cfg, torch.device(device), seed=0)
+    return export_jax_variables(model, as_tensors=True)["params"]
+
+
+def _gap(row: torch.Tensor, token: int) -> float:
+    """How far the logit of `token` lies below the max of `row`, as a share
+    of the row's max-abs: 0 for the greedy token, under a tolerance for a
+    token that another rounding of the same row could have picked."""
+    row = row.float()
+    return float((row.max() - row[int(token)]) / row.abs().max())
+
+
+def _record_logits(model) -> list:
+    """Every forward's logits of `model`, on the host, in order."""
+    out = []
+    model.register_forward_hook(lambda m, args, res: out.append(res[0].float().cpu()))
+    return out
+
+
+@contextlib.contextmanager
+def _replay(run: dict, card: Optional[dict], model, bf16_products: bool, tol: float):
+    """While the block runs, record (card is None) or replay (the CPU, given
+    the card's record) every rounding of the serving path that sees its
+    input's last bits: the greedy tokens (`generate._temp_sample`; the
+    CPU's own may differ only where the card's token has a CPU logit within
+    `tol` of the row's max-abs below the row's max), what each forward writes into the cache
+    (`gpt._to_cache`; int8 entries by at most 1, scales within 1e-5
+    relative, bf16 values by one step of their row's max-abs) and, with `bf16_products`, the
+    attention's bf16 value product (o_proj's input, within one bf16 step of
+    its row's max-abs: its bf16 probabilities round at ties too, and a
+    sum that cancels moves by more than one step of its own). The CPU checks its own value, counts the
+    differences and goes on with the card's, so that the logits compare
+    the arithmetic alone."""
+    from nemo_tpu_torch.models.llm import generate, gpt
+
+    to_cache, temp_sample = gpt._to_cache, generate._temp_sample
+    for key in ("tokens", "stored", "attn"):
+        run[key] = []
+    run.update(ties=0, flips=0, entries=0, attn_flips=0, attn_entries=0, attn_rel=0.0,
+               store_rel=0.0)
+
+    def take(key, ours):
+        """ours, recorded on the card; the card's matching value on the CPU"""
+        if card is None:
+            run[key].append(ours)
+            return None
+        run[key].append(None)
+        return card[key][len(run[key]) - 1]
+
+    def sample(logits, *args, **kw):
+        ours = temp_sample(logits, *args, **kw)
+        theirs = take("tokens", ours.cpu())
+        if theirs is None:
+            return ours
+        for r in np.flatnonzero((ours.cpu() != theirs).numpy()):
+            if _gap(logits[r], theirs[r]) > tol:
+                raise AssertionError(f"serving exactness: the card's greedy token lies "
+                                     f"{_gap(logits[r], theirs[r]):.3e} of the row's max-abs "
+                                     f"below the CPU's max")
+            run["ties"] += 1
+        return theirs.to(ours.device)
+
+    def stored(x, c):
+        ours = to_cache(x, c)
+        host = ({k: t.cpu() for k, t in ours.items()} if isinstance(ours, dict) else ours.cpu())
+        theirs = take("stored", host)
+        if theirs is None:
+            return ours
+        if isinstance(ours, dict):
+            d = (host["q"].int() - theirs["q"].int()).abs()
+            if int(d.max()) > 1:
+                raise AssertionError("serving exactness: int8 cache entries differ by more than 1")
+            run["flips"] += int((d > 0).sum())
+            run["entries"] += d.numel()
+            pairs = [(host["s"], theirs["s"])]
+        else:  # bf16 values near 0 move by more than their own step: hold them to the row's
+            pairs = [(host.float(), theirs.float())]
+            run["flips"] += int((host != theirs).sum())
+            run["entries"] += host.numel()
+        for x_, y_ in pairs:
+            scale = y_.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+            run["store_rel"] = max(run["store_rel"], float(((x_ - y_).abs() / scale).max()))
+        return ({k: t.to(x.device) for k, t in theirs.items()} if isinstance(theirs, dict)
+                else theirs.to(x.device))
+
+    def product(m, args):
+        x = args[0]
+        theirs = take("attn", x.detach().cpu().clone())
+        if theirs is None:
+            return None
+        d = (x - theirs).abs()
+        scale = theirs.abs().amax(-1, keepdim=True)
+        run["attn_rel"] = max(run["attn_rel"], float((d / scale.clamp_min(1e-30)).max()))
+        if (d > 2 ** -7 * scale).any():
+            raise AssertionError("serving exactness: the attention outputs differ by more than "
+                                 "one bf16 step of their row's max")
+        run["attn_flips"] += int((d > 0).sum())
+        run["attn_entries"] += d.numel()
+        return (theirs,) + tuple(args[1:])
+
+    hooks = ([layer.attention.o_proj.register_forward_pre_hook(product)
+              for layer in model.layers] if bf16_products else [])
+    gpt._to_cache, generate._temp_sample = stored, sample
+    try:
+        yield
+    finally:
+        gpt._to_cache, generate._temp_sample = to_cache, temp_sample
+        for h in hooks:
+            h.remove()
+
+
+def phase_serving_exactness(tol: float = 1e-3) -> None:
+    """22. The serving path in fp32 at the bench's width, depth cut to 2
+    layers, on the card and on the CPU, in two modes: bf16 weights with a
+    bf16 cache, and int8 PTQ (`ptq(algorithm="int8_serve")`) with the int8
+    cache. Four slots, ragged prompts; prefill_slot, 16 decode_step calls
+    (the write-then-attend route), then decode_steps(16) (the
+    attend-then-write route). The CPU replays the card's roundings
+    (`_replay`): its greedy tokens equal the card's but at near-ties (the
+    card's token within `tol` of the row's max-abs below the CPU's max), what it writes into the cache
+    equals the card's but at rounding ties (int8 entries by 1, at most 1e-3
+    of them; bf16 values by one step of their row's max-abs), and so does
+    the bf16 cache's bf16 value product (within one step of its row's
+    max-abs); then the logits of every forward within `tol` of each row's
+    max."""
+    from nemo_tpu_torch.llm.api import ptq
+    from nemo_tpu_torch.models.llm.generate import ContinuousBatchingEngine
+
+    cfg = _decode_cfg(num_layers=2, compute_dtype="float32")
+    params = _seed_params(cfg, "cpu")
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(1, cfg.vocab_size, n).tolist() for n in (48, 37, 64, 21)]
+    active = np.ones(len(prompts), bool)
+    for mode in ("bf16 weights, bf16 cache", "int8 PTQ, int8 cache"):
+        if mode.startswith("bf16"):
+            mcfg, mparams, cache = (dataclasses.replace(cfg, params_dtype="bfloat16"), params,
+                                    torch.bfloat16)
+        else:
+            (mcfg, mparams), cache = ptq(cfg, params, algorithm="int8_serve"), torch.int8
+        runs = []  # the card's run, then the CPU's
+        for dev in (CARD, "cpu"):
+            t0 = time.perf_counter()
+            eng = ContinuousBatchingEngine(mcfg, mparams, max_slots=len(prompts),
+                                           max_len=SERVE_MAX_LEN, prefill_buckets=(SERVE_BUCKET,),
+                                           kv_len_buckets=(128,), cache_dtype=cache, device=dev)
+            run = {"logits": _record_logits(eng.model)}
+            with _replay(run, runs[0] if runs else None, eng.model, cache == torch.bfloat16, tol):
+                feed = np.array([eng.prefill_slot(s, p) for s, p in enumerate(prompts)])
+                for i in range(SERVE_STEPS):
+                    feed = eng.decode_step(feed, active, seed=i)
+                toks, emitted, _ = eng.decode_steps(feed, active, n_steps=SERVE_STEPS)
+            if not emitted.all():
+                raise AssertionError(f"{mode}, {dev}: a slot stopped in decode_steps")
+            run["toks"], run["s"] = toks, time.perf_counter() - t0
+            runs.append(run)
+            del eng
+        card, cpu = runs
+        worst = max(float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max())
+                    for a, b in zip(card["logits"], cpu["logits"]))
+        if len(cpu["logits"]) != len(prompts) + 2 * SERVE_STEPS or worst > tol:
+            raise AssertionError(f"{mode}: {len(cpu['logits'])} forwards, logits within "
+                                 f"{worst:.3e} of the row's max")
+        if not np.array_equal(card["toks"], cpu["toks"]):
+            raise AssertionError(f"{mode}: the replayed decode_steps tokens differ")
+        if cache == torch.int8 and cpu["flips"] > 1e-3 * cpu["entries"]:
+            raise AssertionError(f"{mode}: {cpu['flips']} of {cpu['entries']} int8 cache entries "
+                                 f"differ")
+        if cpu["store_rel"] > (1e-5 if cache == torch.int8 else 2 ** -7):
+            raise AssertionError(f"{mode}: stored values differ by {cpu['store_rel']:.3e}")
+        products = (f"; {cpu['attn_flips']} of {cpu['attn_entries']} bf16 attention outputs "
+                    f"differ, by at most {cpu['attn_rel']:.3e} of their row's max-abs"
+                    if cache == torch.bfloat16 else "")
+        log(f"serving exactness, {mode}: 2 layers at the decode bench's width (hidden 2048, 16 "
+            f"heads x dh 128, FFN 8192, vocab 32000), fp32, {len(prompts)} slots, prompts "
+            f"{[len(p) for p in prompts]}, {SERVE_STEPS} decode_step + decode_steps"
+            f"({SERVE_STEPS}), card vs cpu (the CPU replaying the card's roundings): logits of "
+            f"{len(cpu['logits'])} forwards within {worst:.3e} of each row's max (tolerance "
+            f"{tol:g}); {cpu['ties']} near-tie greedy tokens; cache writes equal but "
+            f"{cpu['flips']} of {cpu['entries']} "
+            + ("int8 entries (by 1)" if cache == torch.int8 else "bf16 values")
+            + f", {'scales' if cache == torch.int8 else 'values'} within "
+            f"{cpu['store_rel']:.3e} of their row's max-abs{products}; card {card['s']:.1f} s, "
+            f"CPU {cpu['s']:.1f} s")
+
+
+def _profile_decode(eng, feed, active) -> None:
+    """One decode_steps chunk under torch.profiler (device activity only):
+    device time a step by kind, and the card's idle share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.decode_steps(feed, active, n_steps=SERVE_CHUNK, seed=99)
+        wall_ms = 1e3 * (time.perf_counter() - t0) / SERVE_CHUNK
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / SERVE_CHUNK
+    groups = {}
+    for e in kernels:
+        kind = next((k for k, keys in SERVE_KERNEL_KINDS if any(x in e.name for x in keys)),
+                    "other")
+        groups[kind] = groups.get(kind, 0.0) + e.self_device_time_total / 1e3 / SERVE_CHUNK
+    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
+    log("profile, decode step by kind: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
+    log(f"profile, decode step: wall {wall_ms:.3f} ms, kernels {busy:.3f} ms in "
+        f"{len(kernels) / SERVE_CHUNK:.0f} device operations, card idle "
+        f"{100 - 100 * busy / wall_ms:.1f} % of the wall time")
+
+
+def phase_decode_bench(profile: bool) -> None:
+    """23. bench.py:bench_decode on the port (scripts/decode_throughput.py:run
+    at its geometry): the bench's model at full width and depth from seed 0,
+    int8 PTQ + int8 KV and then bf16 weights + bf16 KV; 8 slots prefilled with
+    48-token prompts, max_len 1024, one prefill bucket (64) and one KV bucket
+    (306); a warm decode_steps chunk of 64 tokens, then 2 timed: tokens/s
+    over the slots and ms a step of the median chunk; 16 decode_step calls;
+    the weight bytes and the roofline at 3.35 TB/s; peak memory."""
+    from nemo_tpu_torch.llm.api import ptq
+    from nemo_tpu_torch.models.llm.generate import ContinuousBatchingEngine
+
+    cfg = _decode_cfg()
+    for mode in ("int8_ptq+kv8", "bf16"):
+        t0 = time.perf_counter()
+        params = _seed_params(cfg, CARD)
+        if mode == "bf16":
+            mcfg, cache = dataclasses.replace(cfg, params_dtype="bfloat16"), torch.bfloat16
+        else:
+            (mcfg, params), cache = ptq(cfg, params, algorithm="int8_serve"), torch.int8
+        eng = ContinuousBatchingEngine(mcfg, params, max_slots=SERVE_SLOTS,
+                                       max_len=SERVE_MAX_LEN, prefill_buckets=(SERVE_BUCKET,),
+                                       kv_len_buckets=(SERVE_KV_BUCKET,), cache_dtype=cache,
+                                       device=CARD)
+        del params
+        torch.cuda.empty_cache()
+        build_s = time.perf_counter() - t0
+        rng = np.random.RandomState(0)
+        for s in range(SERVE_SLOTS):
+            eng.prefill_slot(s, rng.randint(1, 30000, SERVE_PROMPT).tolist())
+        active = np.ones(SERVE_SLOTS, bool)
+        toks, emitted, _ = eng.decode_steps(rng.randint(1, 30000, SERVE_SLOTS), active,
+                                            n_steps=SERVE_CHUNK)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        chunk_s = []
+        for i in range(SERVE_TIMED):
+            t0 = time.perf_counter()
+            toks, emitted, act = eng.decode_steps(toks[-1], active, n_steps=SERVE_CHUNK, seed=i)
+            chunk_s.append(time.perf_counter() - t0)  # decode_steps ends in its read-back
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not (emitted.all() and act.all() and (toks >= 0).all()
+                and (toks < cfg.vocab_size).all()):
+            raise AssertionError(f"{mode}: decode_steps gave {toks} {emitted}")
+        nxt = eng.decode_step(toks[-1], active)
+        t0 = time.perf_counter()
+        for i in range(SERVE_STEPS):
+            nxt = eng.decode_step(nxt, active, seed=i)
+        ms_single = 1e3 * (time.perf_counter() - t0) / SERVE_STEPS
+        want_len = SERVE_PROMPT + SERVE_CHUNK * (1 + SERVE_TIMED) + 1 + SERVE_STEPS
+        if eng.cur_len.tolist() != [want_len] * SERVE_SLOTS:
+            raise AssertionError(f"{mode}: write rows {eng.cur_len} for {want_len}")
+        med = float(np.median(chunk_s))
+        tps = SERVE_SLOTS * SERVE_CHUNK / med
+        wbytes = sum(p.numel() * p.element_size() for p in eng.model.parameters())
+        emb = eng.model.embedding
+        step_bytes = wbytes - emb.numel() * emb.element_size()  # the table is read 8 rows a step
+        roof = SERVE_SLOTS / (wbytes / PEAK_BYTES)
+        log(f"decode bench ({mode}, gpt1b_decode_tokens_per_sec_chip): the decode bench's model "
+            f"({sum(p.numel() for p in eng.model.parameters()) / 1e6:.1f} M parameters, built "
+            f"and converted in {build_s:.1f} s), {SERVE_SLOTS} slots, {SERVE_PROMPT}-token "
+            f"prompts, KV bucket {SERVE_KV_BUCKET}: {tps:.1f} tokens/s, {1e3 * med / SERVE_CHUNK:.3f}"
+            f" ms/step (median of {SERVE_TIMED} chunks of {SERVE_CHUNK}: "
+            + ", ".join(f"{1e3 * c:.1f}" for c in chunk_s) + f" ms), {ms_single:.3f} ms/step "
+            f"unchunked ({SERVE_STEPS} decode_step calls); weights {wbytes / 1e9:.3f} GB "
+            f"({step_bytes / 1e9:.3f} GB without the embedding table), roofline "
+            f"{roof:.1f} tokens/s at {PEAK_BYTES / 1e12:.2f} TB/s (bench's formula, every "
+            f"parameter byte a step), {100 * tps / roof:.2f} % of it; "
+            f"{SERVE_SLOTS / (step_bytes / PEAK_BYTES):.1f} tokens/s without the table's bytes; "
+            f"peak_mem={peak:.2f} GiB")
+        if profile:
+            _profile_decode(eng, toks[-1], active)
+        del eng
+        torch.cuda.empty_cache()
+
+
+class ServeTokenizer(ByteTokenizer):
+    """The byte tokenizer with a reversible `ids_to_text` for any id
+    ("<id>" a token), so that answers can be compared token by token."""
+
+    def ids_to_text(self, ids) -> str:
+        return "".join(f"<{int(i)}>" for i in ids)
+
+    @staticmethod
+    def ids_of(text: str):
+        import re
+
+        return [int(i) for i in re.findall(r"<(\d+)>", text)]
+
+
+def _http(port: int, path: str, payload: dict):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    t0 = time.perf_counter()
+    conn.request("POST", path, json.dumps(payload), {"Content-Type": "application/json"})
+    r = conn.getresponse()
+    body = r.read().decode()
+    conn.close()
+    return r.status, body, time.perf_counter() - t0
+
+
+def phase_llm_server(counters: dict, tol: float = 1e-2, score_tol: float = SCORE_TOL) -> dict:
+    """24. `LLMServer` on Llama-3.2-1B (full width and depth, seed-0 weights,
+    bf16, flash backend) with quantize_weights and quantize_kv_cache, on an
+    ephemeral port: 8 concurrent /v1/completions sharing a 32-token prefix
+    (the automatic prefix cache must hold it), one streamed
+    /v1/chat/completions, and the scoring form of /v1/completions on a
+    200-token prompt (padded to 256: K5 launches 16 times, once a layer, and
+    nothing else of K1-K13 launches in the phase). Each answer's shape and
+    token count are checked; the greedy answers equal the engine's own run
+    of the same prompts (one slot, decode_steps of one step fed the
+    server's tokens), but at near-ties: the served token's logit in the
+    engine's row lies within `tol` of the row's max-abs below its max (the
+    first request admitted was prefilled before its prefix was stored, the
+    engine's run takes the stored prefix). The served log-probabilities of
+    the scored prompt equal, within `score_tol` nats, those of the same
+    model scoring it with K5's plain version in K5's place.
+    Returns the phase's launch counts."""
+    import threading
+
+    from nemo_tpu_torch.models.llm.config import llama32_1b
+    from nemo_tpu_torch.serve.openai_server import LLMServer
+
+    tok = ServeTokenizer()
+    cfg = llama32_1b(seq_length=SERVER_MAX_LEN, attention_backend="flash")
+    t0 = time.perf_counter()
+    srv = LLMServer(cfg, _seed_params(cfg, CARD), tok, max_slots=SERVER_SLOTS,
+                    max_len=SERVER_MAX_LEN, quantize_weights=True, quantize_kv_cache=True,
+                    device=CARD)
+    torch.cuda.empty_cache()
+    srv.serve(port=0, blocking=False)
+    log(f"server: Llama-3.2-1B int8 PTQ + int8 KV up on port {srv.port} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(7)
+    prefix = "".join(chr(97 + c) for c in rng.randint(0, 26, SERVER_PREFIX))
+    prompts = [prefix + chr(65 + i) + "".join(chr(97 + c) for c in rng.randint(0, 26, 8 + 2 * i))
+               for i in range(SERVER_SLOTS)]
+    for fn in counters.values():
+        fn.launches = 0
+    results = [None] * len(prompts)
+
+    def call(i):
+        results[i] = _http(srv.port, "/v1/completions",
+                           {"prompt": prompts[i], "max_tokens": SERVER_TOKENS})
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    answers = []
+    for i, res in enumerate(results):
+        if res is None or res[0] != 200:
+            raise AssertionError(f"request {i}: {res}")
+        out = json.loads(res[1])
+        answers.append(tok.ids_of(out["choices"][0]["text"]))
+        if out["object"] != "text_completion" or len(answers[-1]) != SERVER_TOKENS:
+            raise AssertionError(f"request {i}: {out}")
+    key = tuple(tok.text_to_ids(prefix))
+    if key not in srv.engine._prefix_store:
+        raise AssertionError(f"the shared {SERVER_PREFIX}-token prefix was not registered: "
+                             f"{[len(k) for k in srv.engine._prefix_store]}")
+    status, body, chat_s = _http(srv.port, "/v1/chat/completions", {
+        "messages": [{"role": "user", "content": prompts[0]}], "max_tokens": SERVER_TOKENS,
+        "stream": True})
+    events = [e for e in body.split("\n\n") if e.startswith("data: ")]
+    pieces = [json.loads(e[6:])["choices"][0]["delta"]["content"] for e in events[:-1]]
+    if status != 200 or events[-1] != "data: [DONE]" or len(pieces) != SERVER_TOKENS:
+        raise AssertionError(f"streamed chat: {status} {body[:400]}")
+    score_text = "".join(chr(97 + c) for c in rng.randint(0, 26, SCORE_TOKENS))
+    status, body, score_s = _http(srv.port, "/v1/completions", {
+        "prompt": score_text, "max_tokens": 0, "logprobs": 1})
+    lp = json.loads(body)["choices"][0]["logprobs"]
+    token_lp = np.array(lp["token_logprobs"][1:], np.float64)
+    if (status != 200 or len(lp["tokens"]) != SCORE_TOKENS or lp["token_logprobs"][0] is not None
+            or len(token_lp) != SCORE_TOKENS - 1 or not np.isfinite(token_lp).all()
+            or (token_lp > 0).any()):
+        raise AssertionError(f"score: {status} {body[:400]}")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    srv.shutdown()
+    import nemo_tpu_torch.models.llm.gpt as gpt
+    from nemo_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    kernel = gpt.flash_attention
+    gpt.flash_attention = lambda q, k, v, scale, causal, window: flash_attention_plain(
+        q, k, v, scale, causal, window)[0]
+    try:
+        _, plain_lp = srv.score(score_text)
+    finally:
+        gpt.flash_attention = kernel
+    score_err = float(np.abs(token_lp - np.array(plain_lp[1:], np.float64)).max())
+    log(f"server score: the served log-probabilities of {SCORE_TOKENS} tokens within "
+        f"{score_err:.3e} nats of K5's plain version's (tolerance {score_tol:g}), mean "
+        f"{token_lp.mean():.4f}")
+    if score_err > score_tol:
+        raise AssertionError(f"score: {score_err:.3e} nats from the plain attention's")
+    if srv._worker.is_alive():
+        raise AssertionError("the server's worker did not stop")
+    want = {name: 0 for name in counters}
+    want["k5"] = cfg.num_layers
+    if launches != want:
+        raise AssertionError(f"server launch counts {launches}, expected {want}")
+    # the engine's own run of each prompt, fed the server's tokens
+    eng = srv.engine
+    logits = _record_logits(eng.model)
+    active = np.zeros(SERVER_SLOTS, bool)
+    active[0] = True
+    ties, gaps = 0, []
+    for prompt, answer in zip(prompts, answers):
+        ids = tok.text_to_ids(prompt)
+        skip = eng._match_prefix(ids)  # the stored prefix's tokens are not prefilled
+        logits.clear()
+        got = [eng.prefill_slot(0, ids)]
+        feed = np.zeros(SERVER_SLOTS, np.int64)
+        for t in answer[:-1]:  # one step a call: the server's route, fed its tokens
+            feed[0] = t
+            got.append(int(eng.decode_steps(feed, active, n_steps=1)[0][0, 0]))
+        eng.free_slot(0)
+        rows = [logits[0][0, len(ids) - skip - 1]] + [lg[0, -1] for lg in logits[1:]]
+        for i in np.flatnonzero(np.array(got) != np.array(answer)):
+            gaps.append(_gap(rows[i], answer[i]))
+            if gaps[-1] > tol:
+                raise AssertionError(f"a served greedy token lies {gaps[-1]:.3e} of the row's "
+                                     f"max-abs below the max of the engine's row")
+            ties += 1
+    log(f"server (Llama-3.2-1B, flash, int8 PTQ + int8 KV, {SERVER_SLOTS} slots): "
+        f"{len(prompts)} concurrent /v1/completions of {SERVER_TOKENS} tokens sharing a "
+        f"{SERVER_PREFIX}-token prefix in {wall:.3f} s (requests "
+        + ", ".join(f"{r[2]:.3f}" for r in results) + f" s; {wall / len(prompts):.3f} s a "
+        f"request), prefix registered; streamed chat {chat_s:.3f} s ({len(pieces)} events); "
+        f"score of {SCORE_TOKENS} tokens (S=256) {score_s:.3f} s; launches {launches}; answers "
+        f"equal the engine's own run but {ties} near-tie tokens (the served token "
+        + ", ".join(f"{g:.2e}" for g in gaps) + f" of the row's max-abs below the engine's max, "
+        f"tolerance {tol:g})")
+    del srv, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
 def cp_processes() -> int:
     """The process-group form under torchrun (one process a card, NCCL):
     Llama-3.2-1B at S = 16,384, cp = the number of processes, B=1, every rank
@@ -2309,8 +2842,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--profile", action="store_true",
                         help="also profile one transcription batch, calibration steps, "
-                             "LLM, SFT and CP training steps, one RNNT batch and RNNT head-fit "
-                             "steps")
+                             "LLM, SFT and CP training steps, one RNNT batch, RNNT head-fit "
+                             "steps and a decode bench chunk")
     parser.add_argument("--cp-processes", action="store_true",
                         help="only the process-group form of CP training, one process a card: "
                              "torchrun --nproc-per-node N chip_smoke.py --cp-processes")
@@ -2350,10 +2883,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     logging.basicConfig(level=logging.INFO, format="%(message)s", stream=sys.stdout)
     t0 = time.perf_counter()
+    laps = [t0]
+
+    def lap(what: str) -> None:
+        laps.append(time.perf_counter())
+        log(f"time: {what} {laps[-1] - laps[-2]:.1f} s")
+
     phase_build()
     gen = torch.Generator().manual_seed(0)
     phase_hopper_check(torch.Generator().manual_seed(1))
     rows = [phase_k1(gen), phase_k2(gen), *phase_k3_k4(gen)]
+    lap("phases 1-4 (build, K1-K4)")
     phase_exactness(k1, k2)
     phase_grad_exactness()
     model, staged, fit_launches = phase_calibration({"k1": k1, "k2": k2, "k3": k3, "k4": k4})
@@ -2362,6 +2902,7 @@ def main() -> int:
     rows[2]["launches"], rows[3]["launches"] = fit_launches["k3"], fit_launches["k4"]
     del model, staged
     torch.cuda.empty_cache()
+    lap("phases 5-8 (CTC exactness, calibration, main path)")
     llm_rows = phase_k5_k7(gen)
     phase_llm_grad_exactness()
     phase_ce_grad_rounding()
@@ -2371,6 +2912,7 @@ def main() -> int:
         row["launches"] = llm_launches[key]
     rows += llm_rows
     torch.cuda.empty_cache()
+    lap("phases 9-12 (K5-K7, LLM exactness, LLM training)")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "sft.jsonl")
         write_sft_jsonl(path)
@@ -2383,6 +2925,7 @@ def main() -> int:
         row["launches"] = sft_launches[key]
     rows += sft_rows
     torch.cuda.empty_cache()
+    lap("phases 13-14 (K8-K10, SFT)")
     cp_rows = phase_k11_k13(gen)
     phase_ring(gen)
     phase_llm_grad_exactness(cp_size=2)
@@ -2392,12 +2935,22 @@ def main() -> int:
         row["launches"] = cp_launches[key]
     rows += cp_rows
     torch.cuda.empty_cache()
+    lap("phases 15-17 (K11-K13, ring, CP training)")
     rnnt_models = phase_rnnt_exactness(k1, k2)
     phase_rnnt_loss(rnnt_models)
     del rnnt_models
     model, staged = phase_rnnt_calibration({"k1": k1, "k2": k2, "k3": k3, "k4": k4})
     phase_rnnt_main_path(model, staged, k1, k2, args.profile)
     del model, staged
+    torch.cuda.empty_cache()
+    lap("phases 18-21 (RNNT)")
+    phase_serving_exactness()
+    lap("phase 22 (serving exactness)")
+    phase_decode_bench(args.profile)
+    lap("phase 23 (decode bench)")
+    server_launches = phase_llm_server(counters)
+    lap("phase 24 (LLMServer)")
+    next(r for r in rows if r["name"] == "flash_attention")["launches"] += server_launches["k5"]
     log(f"total: {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

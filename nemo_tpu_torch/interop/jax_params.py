@@ -18,6 +18,10 @@ port's parameters, whose names mirror the JAX tree. Only layouts change:
   Linear layers named as its Dense leaves: `lstm{i}/{ii,if,ig,io}/kernel`
   (no bias) and `lstm{i}/{hi,hf,hg,ho}/{kernel,bias}`; the joint's three
   Dense layers as Linear layers
+- an int8_ptq GPT model's QuantDense leaves (`ops/quant.py`): `qkernel`
+  (int8, contract + features in JAX, [in, out] in the port) and `scale`
+  ((1,) * len(contract) + features in JAX, [out] in the port), reshaped
+  only, the int8 kept int8
 - a GPT model's layers (a ModuleList, `layers.{i}`) come from the scanned
   tree (`layers/...`, each leaf with a leading layer axis) or the unrolled
   one (`layer{i}/...`); export writes the form of the model's config
@@ -43,6 +47,7 @@ import torch
 import torch.nn as nn
 
 from nemo_tpu_torch.models.llm.config import GPTConfig
+from nemo_tpu_torch.ops.quant import QuantDense
 
 Path_ = Tuple[str, ...]
 
@@ -130,6 +135,8 @@ def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Mod
         value = trees[collection].pop(path)
         if path[-1] == "kernel":
             value = _conv_layout(value, mod)
+        elif isinstance(mod, QuantDense) and math.prod(value.shape) == target.numel():
+            value = value.reshape(tuple(target.shape))
         if tuple(value.shape) != tuple(target.shape):
             raise ValueError(f"load_jax_variables: {'/'.join(path)} has shape "
                              f"{value.shape}, the port expects {tuple(target.shape)}")
@@ -211,10 +218,13 @@ def export_jax_variables(model: nn.Module, values: Optional[Mapping[str, torch.T
         if tuple(value.shape) != tuple(target.shape):
             raise ValueError(f"export_jax_variables: {key} has shape {tuple(value.shape)}, "
                              f"the model's is {tuple(target.shape)}")
-        arr = value.detach().float() if as_tensors else value.detach().to(
-            "cpu", torch.float32).numpy()
+        dtype = torch.float32 if value.is_floating_point() else value.dtype  # int8 stays int8
+        arr = value.detach().to(dtype) if as_tensors else value.detach().to(
+            "cpu", dtype).numpy()
         if path[-1] == "kernel":
             arr = _jax_layout(arr, mod)
+        elif isinstance(mod, QuantDense):
+            arr = arr.reshape(mod.jax_shapes[path[-1]])
         node = tree[collection]
         for part in path[:-1]:
             node = node.setdefault(part, {})
@@ -230,3 +240,33 @@ def export_jax_variables(model: nn.Module, values: Optional[Mapping[str, torch.T
         else:
             tree["params"].update({f"layer{i}": t for i, t in enumerate(per_layer)})
     return tree
+
+
+def jax_leaf_specs(model: nn.Module) -> Dict[Path_, Tuple[Tuple[int, ...], torch.dtype]]:
+    """(shape, dtype) of every leaf of a GPT model's JAX "params" tree, by path,
+    in the layout `export_jax_variables` writes (the model may sit on the
+    meta device): what `jax.eval_shape` of the JAX model's init gives."""
+    specs = {}
+    for key, target, mod, collection, path in _entries(model):
+        if collection != "params":
+            continue
+        shape = tuple(target.shape)
+        if path[-1] == "kernel":
+            shape = tuple(getattr(mod, "jax_kernel_shape", shape[::-1]))
+        elif isinstance(mod, QuantDense):
+            shape = tuple(mod.jax_shapes[path[-1]])
+        specs[path] = (shape, target.dtype)
+    layout = _gpt_layers(model)
+    if not layout:
+        return specs
+    out = {}
+    n = len(model.layers)
+    for path, (shape, dtype) in specs.items():
+        if path[0] != "layers":
+            out[path] = (shape, dtype)
+        elif layout == "stacked":
+            if path[1] == "0":
+                out[("layers",) + path[2:]] = ((n,) + shape, dtype)
+        else:
+            out[(f"layer{path[1]}",) + path[2:]] = (shape, dtype)
+    return out

@@ -1,5 +1,5 @@
 """LLM task API (counterpart of nemo_tpu/llm/api.py): `finetune` and
-`validate_config` in their one-card form.
+`validate_config` in their one-card form, `generate` and `ptq`.
 
     module, metrics = finetune(cfg, params, data, max_steps=100,
                                lr_schedule=recipe.lr_schedule())
@@ -12,17 +12,24 @@ goes through `core/trainer.py:Trainer` and `GPTTrainModule.train_step` on
 the card unless `device="cpu"` is given. LoRA/DoRA (`peft`), a mesh, a
 caller's optimizer and `log_dir` (checkpointing) are not ported and raise
 NotImplementedError.
+
+    cfg_q, qparams = ptq(cfg, params, algorithm="int8_serve")   # int8-resident
+    texts = generate(cfg_q, qparams, prompts, tokenizer)
+
+`ptq` quantises a JAX-layout tree with the port's own arithmetic
+(`ops/quant.py`), so a model the port trained is served without JAX.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from nemo_tpu_torch.core.trainer import Trainer
 from nemo_tpu_torch.interop.jax_params import load_jax_variables
 from nemo_tpu_torch.models.llm.config import GPTConfig
+from nemo_tpu_torch.models.llm.generate import SamplingParams
 from nemo_tpu_torch.models.llm.train import GPTTrainModule
 
 
@@ -57,3 +64,28 @@ def finetune(model: GPTConfig, params, data, *, max_steps: int = 100, peft=None,
     trainer = trainer or Trainer(max_steps=max_steps)
     metrics = trainer.fit(module, data)
     return module, metrics
+
+
+def generate(model: GPTConfig, params, prompts: Sequence[str], tokenizer, *,
+             sampling: SamplingParams = SamplingParams(), seed: int = 0,
+             device: Union[str, torch.device, None] = None) -> List[str]:
+    """Batch text generation (api.py:166), on the card unless `device="cpu"`."""
+    from nemo_tpu_torch.models.llm.generate import generate as _gen
+
+    return _gen(model, params, tokenizer, prompts, sampling, seed, device=device)
+
+
+def ptq(cfg: GPTConfig, params, *, algorithm: str = "int8_weight_only",
+        min_size: int = 1 << 16):
+    """Post-training quantization of a JAX-layout tree (api.py:195).
+    "int8_weight_only": every large kernel → {"q": int8, "scale"} (pass
+    through `ops/quant.py:dequantize_params` before serving); "int8_serve":
+    (cfg with quantization="int8_ptq", its int8-resident tree), which the
+    engines and `LLMServer` run directly."""
+    from nemo_tpu_torch.ops.quant import ptq_params_for_serving, quantize_params_int8
+
+    if algorithm == "int8_serve":
+        return ptq_params_for_serving(cfg, params)
+    if algorithm != "int8_weight_only":
+        raise ValueError(f"unknown ptq algorithm: {algorithm}")
+    return cfg, quantize_params_int8(params, min_size=min_size)

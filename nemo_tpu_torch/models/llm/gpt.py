@@ -23,6 +23,11 @@ conditions (gpt.py:591-619) and refuses a batch that does not meet them
 sequence and cuts it into cp shards, as shard_map does) or one rank a
 process (`ProcessGroupRing`: the model sees its own shard).
 
+Serving (gpt.py:285-577, 1347): the model takes a KV cache (`init_kv_caches`,
+bf16/fp32 or int8 with per-token scales), written in place, and decodes
+by JAX's two routes (`Attention`); `quantization="int8_ptq"` makes every
+projection and an untied head int8-resident (`ops/quant.py:QuantDense`).
+
 Parameter names mirror the JAX tree (`layers.3.attention.q_proj`,
 `final_norm.scale`, `embedding`), so `interop/jax_params.py` carries JAX
 variables across. `check_supported` raises on every config value the port
@@ -31,7 +36,7 @@ does not implement.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -42,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from nemo_tpu_torch.models.llm.config import GPTConfig
 from nemo_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_packed, pos_tile_ranges, seg_tile_ranges)
+from nemo_tpu_torch.ops.quant import dense_layer
 from nemo_tpu_torch.ops.ring_attention import LocalRing, ring_flash_attention
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -51,8 +57,9 @@ def check_supported(cfg: GPTConfig) -> None:
     """Raise NotImplementedError naming the first field of `cfg` whose value
     selects a part of the JAX model that the port does not implement (MoE,
     MLA, MTP, softcapping, sinks, chunked or per-layer attention patterns,
-    qk norms, sandwich norms, other position embeddings, dropout,
-    quantization, other remat policies, LayerNorm,
+    qk norms, sandwich norms, other position embeddings, dropout, the
+    training quantization modes (fp8, int8; int8_ptq serving is ported),
+    other remat policies, LayerNorm,
     biases, bidirectional attention, RoPE scalings other than llama3, MLPs
     other than SwiGLU)."""
     ok = {
@@ -75,7 +82,7 @@ def check_supported(cfg: GPTConfig) -> None:
         "rope_local_base": cfg.rope_local_base is None,
         "hidden_dropout": not cfg.hidden_dropout,
         "attention_dropout": not cfg.attention_dropout,
-        "quantization": cfg.quantization is None,
+        "quantization": cfg.quantization in (None, "int8_ptq"),
         "cp_size": cfg.cp_size >= 1,
         "remat": cfg.remat in ("full", "none"),
         "normalization": cfg.normalization == "RMSNorm",
@@ -154,61 +161,171 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor
 
 
 # --------------------------------------------------------------------------
+# KV cache
+# --------------------------------------------------------------------------
+
+
+def _quantize_kv(x: torch.Tensor):
+    """[B, S, G, D] → (int8 q, fp32 per-(token, head) scale [B, S, G, 1]),
+    clipped then rounded half to even, as gpt.py:291."""
+    x32 = x.float()
+    s = torch.clamp_min(x32.abs().amax(-1, keepdim=True), 1e-12) / 127.0
+    return torch.round(torch.clamp(x32 / s, -127, 127)).to(torch.int8), s
+
+
+def _dequantize_kv(c, dtype: torch.dtype) -> torch.Tensor:
+    if isinstance(c, dict):
+        return (c["q"].float() * c["s"]).to(dtype)
+    return c
+
+
+def _cache_write(c: torch.Tensor, val: torch.Tensor, decode_index) -> None:
+    """Write `val` into the cache view `c` in place along the time axis at
+    `decode_index` (gpt.py:305): an int writes rows [i, i + S) of every slot
+    (batch generate, chunked prefill) and raises where they overrun the
+    cache, which JAX's dynamic_update_slice would clamp silently; a [B]
+    tensor writes one row a slot (continuous batching, S = 1)."""
+    if isinstance(decode_index, torch.Tensor) and decode_index.dim() == 1:
+        c[torch.arange(val.shape[0], device=c.device), decode_index] = val[:, 0].to(c.dtype)
+        return
+    start, end = int(decode_index), int(decode_index) + val.shape[1]
+    if start < 0 or end > c.shape[1]:
+        raise ValueError(f"a cache write of rows [{start}, {end}) overruns the cache's "
+                         f"{c.shape[1]} rows")
+    c[:, start:end] = val.to(c.dtype)
+
+
+def _to_cache(x: torch.Tensor, c):
+    """`x` [B, S, G, D] as the cache side `c` stores it: {"q", "s"} for an
+    int8 side (`_quantize_kv`), else x in the side's dtype."""
+    if isinstance(c, dict):
+        return dict(zip("qs", _quantize_kv(x)))
+    return x.to(c.dtype)
+
+
+def _store(c, stored, decode_index) -> None:
+    """Write a `_to_cache` result into the cache side `c` at `decode_index`."""
+    if isinstance(c, dict):
+        for key in ("q", "s"):
+            _cache_write(c[key], stored[key], decode_index)
+    else:
+        _cache_write(c, stored, decode_index)
+
+
+def _update_kv_cache(ck, cv, k: torch.Tensor, v: torch.Tensor, decode_index):
+    """Write new k and v at `decode_index`, then return the whole cache
+    (dequantised) to attend over (gpt.py:317)."""
+    _store(ck, _to_cache(k, ck), decode_index)
+    _store(cv, _to_cache(v, cv), decode_index)
+    return _dequantize_kv(ck, k.dtype), _dequantize_kv(cv, v.dtype)
+
+
+def init_kv_caches(cfg: GPTConfig, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
+                   device: Union[str, torch.device, None] = None):
+    """The stacked cache (gpt.py:1347): ([L, B, T, G, D], [L, B, T, G, D]) in
+    `dtype`, or with dtype=torch.int8 each side {"q": int8 [L, B, T, G, D],
+    "s": fp32 [L, B, T, G, 1]} (quantised per token and head on write). The
+    model writes into it in place."""
+    shape = (cfg.num_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    if dtype == torch.int8:
+        def side():
+            return {"q": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "s": torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=device)}
+        return side(), side()
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def cache_map(fn, caches):
+    """`fn` applied to every tensor of a cache pair (either dtype's form)."""
+    return tuple({k: fn(t) for k, t in side.items()} if isinstance(side, dict) else fn(side)
+                 for side in caches)
+
+
+# --------------------------------------------------------------------------
 # Attention
 # --------------------------------------------------------------------------
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
                      window: Optional[int] = None, softmax_fp32: bool = True,
+                     kv_offset: Union[int, torch.Tensor] = 0,
+                     kv_valid: Optional[torch.Tensor] = None,
                      segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Grouped-query causal attention as einsums (gpt.py:341, the
-    `attention_backend="xla"` path without caches or sinks):
-    q [B, S, H, D], k and v [B, S, G, D] → [B, S, H, D]; fp32 scores, the
-    causal and window mask (and with `segment_ids` [B, S] the mask to pairs
-    of one nonzero id, gpt.py:408-410) at -1e30, softmax, then the value
-    product in v's dtype. A padding row (id 0) keeps no key and, as in JAX,
-    gets the mean of v, which reaches no other row and no loss."""
-    B, S, H, D = q.shape
+    `attention_backend="xla"` path without sinks): q [B, Sq, H, D], k and v
+    [B, Skv, G, D] → [B, Sq, H, D]; fp32 scores, the causal and window mask
+    at -1e30, softmax, then the value product in v's dtype. Query i sits at
+    `kv_offset` + i (an int, or a [B] tensor of per-slot offsets);
+    `kv_valid` [B, Skv] masks out keys (left padding); with `segment_ids`
+    [B, S] only pairs of one nonzero id are kept (gpt.py:408-410). A row
+    that keeps no key (padding, id 0) gets, as in JAX, the mean of v, which
+    reaches no other row and no loss."""
+    B, Sq, H, D = q.shape
     G = k.shape[2]
-    qg = q.reshape(B, S, G, H // G, D)
+    qg = q.reshape(B, Sq, G, H // G, D)
     scores = torch.einsum("bsgrd,btgd->bgrst", qg.float(), k.float()) * scale
-    qpos = torch.arange(S, device=q.device)[:, None]
-    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+    if isinstance(kv_offset, torch.Tensor):
+        kv_offset = kv_offset[:, None]
+    qpos = (torch.arange(Sq, device=q.device)[None, :] + kv_offset)[:, :, None]  # [1|B, Sq, 1]
+    kpos = torch.arange(k.shape[1], device=q.device)
     mask = kpos <= qpos
     if window is not None:
         mask = mask & (kpos > qpos - window)
+    if kv_valid is not None:
+        mask = mask & kv_valid[:, None, :]
     if segment_ids is not None:
         qs = segment_ids[:, :, None]
-        mask = (mask & (qs == segment_ids[:, None, :]) & (qs > 0))[:, None, None]
-    scores = scores.masked_fill(~mask, -1e30)
+        mask = mask & (qs == segment_ids[:, None, :]) & (qs > 0)
+    scores = scores.masked_fill(~mask[:, None, None], -1e30)
     if not softmax_fp32:
         scores = scores.to(q.dtype)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrst,btgd->bsgrd", probs.to(v.dtype), v)
-    return out.reshape(B, S, H, v.shape[-1])
+    return out.reshape(B, Sq, H, v.shape[-1])
 
 
-class Dense(nn.Linear):
-    """A bias-free Linear whose weight (held in `params_dtype`) is cast to the
-    input's dtype at each use, as flax's DenseGeneral casts its kernel;
-    `jax_kernel_shape` is the kernel's shape in the JAX tree (e.g. q_proj's
-    [D, heads, head_dim]), for `interop/jax_params.py`."""
-
-    def __init__(self, in_features: int, out_features: int, jax_kernel_shape=None,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(in_features, out_features, bias=False, dtype=dtype)
-        self.jax_kernel_shape = tuple(jax_kernel_shape or (in_features, out_features))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype))
+def _decode_attention(q: torch.Tensor, ck, cv, k_new: torch.Tensor, v_new: torch.Tensor, *,
+                      cl: torch.Tensor, scale: float, window: Optional[int],
+                      softmax_fp32: bool) -> torch.Tensor:
+    """One-token decode attention over the cache as it was before this
+    step's write, plus an explicit column for the current token
+    (gpt.py:429): q [B, 1, H, D]; ck, cv the cache sides [B, T, G, D]; k_new,
+    v_new [B, 1, G, D] already round-tripped through the cache dtype; cl [B]
+    the per-slot write rows (the history is rows < cl)."""
+    B, _, H, D = q.shape
+    k_hist, v_hist = _dequantize_kv(ck, q.dtype), _dequantize_kv(cv, q.dtype)
+    G, T = k_hist.shape[2], k_hist.shape[1]
+    qg = q.reshape(B, 1, G, H // G, D).float()
+    s_hist = torch.einsum("bsgrd,btgd->bgrst", qg, k_hist.float()) * scale
+    s_new = torch.einsum("bsgrd,bsgd->bgrs", qg, k_new.float())[..., None] * scale
+    kpos = torch.arange(T, device=q.device)
+    mask = kpos < cl[:, None]
+    if window is not None:
+        mask = mask & (kpos > cl[:, None] - window)
+    s_hist = s_hist.masked_fill(~mask[:, None, None, None, :], -1e30)
+    s_all = torch.cat([s_hist, s_new], dim=-1)
+    if not softmax_fp32:
+        s_all = s_all.to(q.dtype)
+    probs = torch.softmax(s_all, dim=-1)
+    p_hist, p_new = probs[..., :T].to(v_hist.dtype), probs[..., T:].to(v_new.dtype)
+    out = torch.einsum("bgrst,btgd->bsgrd", p_hist, v_hist)
+    out = out + p_new[..., 0].permute(0, 3, 1, 2)[..., None] * v_new[:, :, :, None, :]
+    return out.reshape(B, 1, H, v_hist.shape[-1])
 
 
 class Attention(nn.Module):
-    """q/k/v projections, RoPE, causal GQA attention (the flash kernels or the
-    einsum path), output projection (gpt.py:473). Ring attention over `ring`
-    is taken where the model hands in `pos_ranges`, the held ranks' tile
-    ranges of the positions, as it does exactly where it takes the ring
-    (`GPTModel.uses_ring`)."""
+    """q/k/v projections, RoPE, causal GQA attention, output projection
+    (gpt.py:473). Without a cache it takes the flash kernels or the einsum
+    path, and ring attention over `ring` where the model hands in
+    `pos_ranges`, the held ranks' tile ranges of the positions, as it does
+    exactly where it takes the ring (`GPTModel.uses_ring`). With a cache
+    (`kv_cache`, this layer's pair of cache views, written in place) it
+    takes one of two routes, as JAX does (gpt.py:527-577): one token a slot
+    at a [B] `decode_index` with no `kv_valid` attends over the cache before
+    the write (`_decode_attention`), then writes; anything else writes
+    first (`_update_kv_cache`) and attends over the whole cache by the
+    einsum path, queries offset by `decode_index`."""
 
     def __init__(self, cfg: GPTConfig, ring=None):
         super().__init__()
@@ -216,10 +333,10 @@ class Attention(nn.Module):
         self.ring = ring  # the context-parallel ring (cp_size > 1), else None
         H, G, D, hidden = cfg.num_attention_heads, cfg.n_kv_heads, cfg.head_dim, cfg.hidden_size
         pdt = DTYPES[cfg.params_dtype]
-        self.q_proj = Dense(hidden, H * D, (hidden, H, D), pdt)
-        self.k_proj = Dense(hidden, G * D, (hidden, G, D), pdt)
-        self.v_proj = Dense(hidden, G * D, (hidden, G, D), pdt)
-        self.o_proj = Dense(H * D, hidden, (H, D, hidden), pdt)
+        self.q_proj = dense_layer(cfg.quantization, (hidden,), (H, D), pdt)
+        self.k_proj = dense_layer(cfg.quantization, (hidden,), (G, D), pdt)
+        self.v_proj = dense_layer(cfg.quantization, (hidden,), (G, D), pdt)
+        self.o_proj = dense_layer(cfg.quantization, (H, D), (hidden,), pdt)
         self.window = cfg.window_size
         self.scale = float(cfg.attention_multiplier or 1.0 / np.sqrt(D))
         self.inv_freq_np = rope_frequencies(cfg)
@@ -233,7 +350,8 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 segment_ids: Optional[torch.Tensor] = None,
                 seg_ranges: Optional[torch.Tensor] = None,
-                pos_ranges: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pos_ranges: Optional[torch.Tensor] = None, kv_cache=None,
+                decode_index=None, kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         B, S, _ = x.shape
         H, G, D = cfg.num_attention_heads, cfg.n_kv_heads, cfg.head_dim
@@ -241,7 +359,25 @@ class Attention(nn.Module):
         q = apply_rope(self.q_proj(x).view(B, S, H, D), positions, inv)
         k = apply_rope(self.k_proj(x).view(B, S, G, D), positions, inv)
         v = self.v_proj(x).view(B, S, G, D)
-        if pos_ranges is not None:  # the ring (GPTModel.uses_ring)
+        if kv_cache is not None:
+            ck, cv = kv_cache
+            if (S == 1 and isinstance(decode_index, torch.Tensor) and decode_index.dim() == 1
+                    and kv_valid is None):
+                # the decode gate: the current token round-trips through the cache dtype
+                sk, sv = _to_cache(k, ck), _to_cache(v, cv)
+                k_cur, v_cur = (_dequantize_kv(st, t.dtype) if isinstance(st, dict)
+                                else st.to(t.dtype) for st, t in ((sk, k), (sv, v)))
+                out = _decode_attention(q, ck, cv, k_cur, v_cur, cl=decode_index,
+                                        scale=self.scale, window=self.window,
+                                        softmax_fp32=cfg.attention_softmax_in_fp32)
+                _store(ck, sk, decode_index)
+                _store(cv, sv, decode_index)
+            else:
+                kc, vc = _update_kv_cache(ck, cv, k, v, decode_index)
+                out = causal_attention(q, kc, vc, scale=self.scale, window=self.window,
+                                       softmax_fp32=cfg.attention_softmax_in_fp32,
+                                       kv_offset=decode_index, kv_valid=kv_valid)
+        elif pos_ranges is not None:  # the ring (GPTModel.uses_ring)
             # the held ranks' shards [R, B, heads, Tl, D], as shard_map's split over "cp"
             R = self.ring.held
             Tl = S // R
@@ -263,7 +399,8 @@ class Attention(nn.Module):
             out = causal_attention(q, k, v, scale=self.scale, window=self.window,
                                    softmax_fp32=cfg.attention_softmax_in_fp32,
                                    segment_ids=segment_ids)
-        return self.o_proj(out.reshape(B, S, H * D))
+        # a bf16 cache gives a bf16 value product; o_proj takes the compute dtype, as flax casts
+        return self.o_proj(out.reshape(B, S, H * D).to(x.dtype))
 
 
 # --------------------------------------------------------------------------
@@ -277,8 +414,9 @@ class MLP(nn.Module):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         pdt = DTYPES[cfg.params_dtype]
-        self.fc1 = Dense(cfg.hidden_size, 2 * cfg.ffn_hidden_size, dtype=pdt)
-        self.fc2 = Dense(cfg.ffn_hidden_size, cfg.hidden_size, dtype=pdt)
+        hidden, ffn = cfg.hidden_size, cfg.ffn_hidden_size
+        self.fc1 = dense_layer(cfg.quantization, (hidden,), (2 * ffn,), pdt)
+        self.fc2 = dense_layer(cfg.quantization, (ffn,), (hidden,), pdt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         gate, up = self.fc1(x).chunk(2, dim=-1)
@@ -299,9 +437,10 @@ class TransformerLayer(nn.Module):
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 segment_ids: Optional[torch.Tensor] = None,
                 seg_ranges: Optional[torch.Tensor] = None,
-                pos_ranges: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pos_ranges: Optional[torch.Tensor] = None, kv_cache=None,
+                decode_index=None, kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = x + self.attention(self.input_norm(x), positions, segment_ids, seg_ranges,
-                               pos_ranges)
+                               pos_ranges, kv_cache, decode_index, kv_valid)
         return x + self.mlp(self.post_attn_norm(x))
 
 
@@ -314,7 +453,14 @@ class GPTModel(nn.Module):
     the model takes `ring` (`ops/ring_attention.py`: a `LocalRing(cp)`, the
     default, where the model sees the whole sequence; a `ProcessGroupRing`
     where it sees this rank's shard) and the positions of a zig-zag-ordered
-    sequence (GPTTrainModule reorders)."""
+    sequence (GPTTrainModule reorders).
+
+    Serving passes `kv_caches` (`init_kv_caches`' pair of stacked sides, or
+    views of it such as one slot's), `decode_index` (an int, or a [B]
+    tensor of per-slot rows) and `kv_valid` [B, T]; the model writes each
+    layer's k and v into its view of the caches in place and returns
+    (logits, kv_caches). With `quantization="int8_ptq"` every projection is
+    a QuantDense (`ops/quant.py`), and so is an untied head."""
 
     def __init__(self, cfg: GPTConfig, ring=None):
         super().__init__()
@@ -330,7 +476,9 @@ class GPTModel(nn.Module):
         self.layers = nn.ModuleList(TransformerLayer(cfg, ring) for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.layernorm_epsilon, pdt)
         if not cfg.share_embeddings_and_output_weights:
-            self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, dtype=pdt)
+            # int8-resident where the config serves int8 (gpt.py:1319-1327)
+            self.lm_head = dense_layer(cfg.quantization, (cfg.hidden_size,), (cfg.vocab_size,),
+                                       pdt)
 
     def uses_ring(self, S: int, segment_ids) -> bool:
         """Whether attention takes the ring, under JAX's conditions
@@ -353,16 +501,20 @@ class GPTModel(nn.Module):
             f"{segment_ids is not None})")
 
     def head_weight(self) -> torch.Tensor:
-        """The LM head as [V, D]: the tied embedding or lm_head's weight."""
+        """The LM head as [V, D] (the tied embedding or lm_head's weight), for
+        the training loss's fused cross-entropy."""
         if self.cfg.share_embeddings_and_output_weights:
             return self.embedding
         return self.lm_head.weight
 
     def forward(self, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None,
-                output_hidden: bool = False) -> torch.Tensor:
+                output_hidden: bool = False, kv_caches=None, decode_index=None,
+                kv_valid: Optional[torch.Tensor] = None):
         cfg = self.cfg
         S = tokens.shape[1]
+        if kv_caches is not None and self.ring is not None:
+            raise NotImplementedError("a KV cache with context parallelism is not ported")
         if positions is None:
             positions = torch.arange(S, device=tokens.device)
         seg_ranges = pos_ranges = None
@@ -377,26 +529,32 @@ class GPTModel(nn.Module):
         # the gather runs in the parameter dtype, so the embedding's gradient
         # is an fp32 scatter-add, as in JAX (gpt.py:1177)
         x = F.embedding(tokens, self.embedding).to(DTYPES[cfg.compute_dtype])
-        remat = cfg.remat == "full" and torch.is_grad_enabled()
-        for layer in self.layers:
+        remat = cfg.remat == "full" and torch.is_grad_enabled() and kv_caches is None
+        for i, layer in enumerate(self.layers):
             if remat:
                 x = checkpoint(layer, x, positions, segment_ids, seg_ranges, pos_ranges,
                                use_reentrant=False, preserve_rng_state=False)
             else:
-                x = layer(x, positions, segment_ids, seg_ranges, pos_ranges)
+                cache = None if kv_caches is None else cache_map(lambda c: c[i], kv_caches)
+                x = layer(x, positions, segment_ids, seg_ranges, pos_ranges, cache,
+                          decode_index, kv_valid)
         x = self.final_norm(x)
-        if output_hidden:
-            return x
-        return F.linear(x, self.head_weight().to(x.dtype)).float()
+        if not output_hidden:
+            x = (self.lm_head(x) if hasattr(self, "lm_head")
+                 else F.linear(x, self.embedding.to(x.dtype))).float()
+        return x if kv_caches is None else (x, kv_caches)
 
 
 def init_parameters(model: nn.Module, generator: torch.Generator, std: float) -> None:
     """JAX's initialisers (gpt.py:_init): normal(std) for every kernel and the
-    embedding, ones for the RMSNorm scales. The values cannot match
+    embedding, ones for the RMSNorm scales; an int8_ptq model's `qkernel`
+    zeros and `scale` ones (quant.py:176-179). The values cannot match
     jax.random's; tests carry weights across instead."""
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.endswith("scale"):
+            if not p.is_floating_point():
+                p.zero_()
+            elif name.endswith("scale"):
                 p.fill_(1.0)
             else:
                 p.normal_(0.0, std, generator=generator)

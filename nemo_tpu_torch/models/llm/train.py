@@ -71,6 +71,10 @@ class GPTTrainModule:
             if cp > 1:
                 ring = ProcessGroupRing(mesh["cp"].get_group())
         check_supported(cfg)
+        if cfg.quantization == "int8_ptq":  # train.py:91-94
+            raise ValueError("quantization='int8_ptq' is the weight-resident serving path "
+                             "(ptq(algorithm='int8_serve')); its int8 params have no useful "
+                             "gradients")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.lr_schedule = lr_schedule

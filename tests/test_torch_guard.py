@@ -25,15 +25,21 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nemo_tpu"))
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 """
+
+# the serving modules, which the walk must reach (they import no JAX either)
+SERVING = ("nemo_tpu_torch.ops.quant", "nemo_tpu_torch.models.llm.generate",
+           "nemo_tpu_torch.serve.openai_server", "nemo_tpu_torch.llm.api")
 
 
 def test_port_and_chip_smoke_import_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.split()[-1]) >= 20  # every module of the package was imported
+    names = out.stdout.split()
+    assert len(names) >= 20  # every module of the package was imported
+    assert set(SERVING) <= set(names), sorted(set(SERVING) - set(names))
 
 
 def test_chip_smoke_alone_fails_without_a_result(tmp_path):
@@ -77,3 +83,18 @@ def test_model_without_device_needs_cuda(monkeypatch):
         EncDecCTCModel(conformer_ctc("small"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         EncDecCTCModel(conformer_ctc("small"), device="cuda")
+
+
+def test_serving_without_device_needs_cuda(monkeypatch):
+    """The engines and the server run on the card unless `device="cpu"` is
+    given: without a card they raise, before they touch the weights."""
+    from nemo_tpu_torch.models.llm.config import tiny_test
+    from nemo_tpu_torch.models.llm.generate import ContinuousBatchingEngine, GenerationEngine
+    from nemo_tpu_torch.serve.openai_server import LLMServer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: GenerationEngine(tiny_test(), {}),
+                 lambda: ContinuousBatchingEngine(tiny_test(), {}),
+                 lambda: LLMServer(tiny_test(), {}, tokenizer=None)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
