@@ -10,14 +10,17 @@ Conformer-Transducer-Large RNNT tone calibration and label-looping greedy
 transcription through K1-K4, as bench.py:bench_rnnt runs them; then LLM
 serving: the KV cache, int8 PTQ, the continuous-batching engine at
 bench.py:bench_decode's geometry and the OpenAI-compatible server on
-Llama-3.2-1B (its scoring forward through K5).
+Llama-3.2-1B (its scoring forward through K5); then speech synthesis:
+FastPitch at bench.py:bench_tts's config and HiFi-GAN V1, served with the
+calibrated Conformer-Large CTC (K1, K2) by the OpenAI audio server, and the
+voice-agent cascade of that ASR, Llama-3.2-1B and that TTS.
 
     python3 chip_smoke.py            # from the repository root; needs one CUDA card
     python3 chip_smoke.py --profile  # and torch.profiler breakdowns of one batch,
                                      # of calibration steps, of LLM training steps,
                                      # of SFT steps, of CP training steps, of one
-                                     # RNNT batch, of RNNT head-fit steps and of
-                                     # decode steps
+                                     # RNNT batch, of RNNT head-fit steps, of
+                                     # decode steps and of a text → waveform call
     torchrun --nproc-per-node 2 chip_smoke.py --cp-processes
                                      # only CP training over processes, one a card
                                      # (NCCL), against every rank in one process
@@ -168,13 +171,43 @@ Phases, each printing a line; any failure raises and exits non-zero:
    served token that differs must have a logit within 1e-2 of the row's
    max-abs below the engine's max), and the served log-probabilities to the
    same model's score with K5's plain version in K5's place; the wall time
-   of each request.
+   of each request;
+25. speech synthesis in fp32, card against CPU: FastPitch at bench_tts's
+   config (d 384, 6 + 6 layers, max_mel_len 1024, min_token_duration 1) and
+   HiFi-GAN V1, both from seed 0, on B=2 ragged texts: the encoder stage
+   within 1e-3 of each tensor's max; the durations equal but at half-ties
+   (the CPU's value before rounding within 1e-4 of k + 0.5); the mel decoded
+   from the CPU's durations within 1e-3 of its max; the waveform vocoded from
+   the CPU's mel within 1e-3; one loss (train=False) within 1e-5 relative and
+   its gradients within 1e-4 of each leaf's max, on a batch the CPU draws;
+26. bench.py:bench_tts on the port: fit_synthetic(40 steps, B=4, seq 48),
+   B=8 copies of the bench's sentence, the paces 1.0, 1.01 and 1.02 warmed,
+   10 timed calls: fastpitch_mel_frames_per_sec, x realtime at 86.13 frames
+   a second, ms a call, frames a symbol, the fit's ms a step and final loss,
+   peak memory (0 frames fails); then HiFi-GAN V1 on the last call's mels:
+   audio seconds per wall second, ms a call, its operations (from the
+   convolutions' shapes) and their rate;
+27. `AudioServer` on an ephemeral port with phase 7's calibrated CTC model
+   and phase 26's FastPitch with HiFi-GAN V1: /v1/audio/speech for the
+   bench's sentence (a mono 16-bit 22,050 Hz WAV of 256 x frames samples,
+   within 1 LSB of `synthesize`), /v1/audio/transcriptions of a held-out 30
+   s tone clip raw at 16 kHz, multipart and at 22,050 Hz (resampled), each
+   text `transcribe`'s, K1 18 and K2 1 launches a call; the wall time of each
+   request;
+28. `VoiceAgent` over phase 7's model (`ModelASRService`), greedy
+   generation of 16 tokens on Llama-3.2-1B with phase 24's seed-0 weights and
+   the byte tokenizer (`CallableLLMService`) and FastPitch with HiFi-GAN
+   (`NativeTTSService`): one `converse` turn and one `push_audio` turn (the
+   clip, then 0.6 s of silence); the user text `transcribe`'s, the history 2
+   longer a turn, the reply audio 256 x the frames of the reply's symbols
+   (or, for a reply with no symbol, the vocoder's refusal of a 0-frame
+   mel); the ASR, LLM and TTS seconds of each turn.
 
 With --profile, one more batch of the transcription path, 6 more calibration
 steps, 2 more LLM training steps, 2 more SFT steps, 2 more CP training steps,
 one more RNNT batch (and its encoder and whole decode by the host's clock),
-6 more RNNT head-fit steps and one more decode bench chunk of each mode run
-under torch.profiler, and their device
+6 more RNNT head-fit steps, one more decode bench chunk of each mode and one
+more B=8 text → waveform call run under torch.profiler, and their device
 time by kernel and the card's busy share of the wall time are printed. It
 ends with a JSON line of the kernels and then
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2476,16 +2509,21 @@ class ServeTokenizer(ByteTokenizer):
         return [int(i) for i in re.findall(r"<(\d+)>", text)]
 
 
-def _http(port: int, path: str, payload: dict):
+def _post(port: int, path: str, body: bytes, ctype: str):
     import http.client
 
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     t0 = time.perf_counter()
-    conn.request("POST", path, json.dumps(payload), {"Content-Type": "application/json"})
+    conn.request("POST", path, body, {"Content-Type": ctype})
     r = conn.getresponse()
-    body = r.read().decode()
+    data = r.read()
     conn.close()
-    return r.status, body, time.perf_counter() - t0
+    return r.status, data, time.perf_counter() - t0
+
+
+def _http(port: int, path: str, payload: dict):
+    status, body, wall = _post(port, path, json.dumps(payload).encode(), "application/json")
+    return status, body.decode(), wall
 
 
 def phase_llm_server(counters: dict, tol: float = 1e-2, score_tol: float = SCORE_TOL) -> dict:
@@ -2624,6 +2662,430 @@ def phase_llm_server(counters: dict, tol: float = 1e-2, score_tol: float = SCORE
         + ", ".join(f"{g:.2e}" for g in gaps) + f" of the row's max-abs below the engine's max, "
         f"tolerance {tol:g})")
     del srv, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+# speech synthesis at bench.py:bench_tts's values (bench.py:247-296): the config over JAX's
+# defaults, the fit, the sentence, batch, timed calls, and mel frames an audio second
+# (22,050 Hz over a hop of 256)
+TTS_CFG = {"max_mel_len": 1024, "min_token_duration": 1}
+TTS_FIT = {"steps": 40, "batch": 4, "seq": 48}
+TTS_TEXT = ("the quick brown fox jumps over the lazy dog and keeps on running through the quiet "
+            "green fields toward the river")
+TTS_SHORT = "Hello there!"
+TTS_B, TTS_ITERS, TTS_VOC_ITERS, FRAMES_PER_SEC = 8, 10, 3, 86.13
+# fp32 tolerances, card against CPU: of each tensor's max (FastPitch), absolute (the waveform),
+# how near k + 0.5 a duration before rounding may lie where the two differ, the loss relative,
+# each gradient of its leaf's max
+TTS_TOL, WAVE_TOL, HALF_TIE, TTS_LOSS_TOL, TTS_GRAD_TOL = 1e-3, 1e-3, 1e-4, 1e-5, 1e-4
+AGENT_TOKENS = 16  # the voice agent's LLM reply, greedy
+TTS_KERNEL_KINDS = (  # cuDNN's convolutions first: their names hold "gemm" too
+    ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad", "conv", "cudnn")),
+    ("GEMM", ("nvjet", "gemm", "cutlass", "gemv")), ("softmax", ("softmax",)),
+    ("normalisation", ("layer_norm", "LayerNorm")), ("reductions", ("reduce_kernel",)),
+    ("index, gather, scan", ("index", "gather", "scatter", "searchsorted", "scan")),
+    ("casts and copies", ("copy", "Memcpy", "Memset", "fill")),
+    ("elementwise", ("elementwise",)))
+
+
+class AgentTokenizer(ByteTokenizer):
+    """The byte tokenizer with `ids_to_text`: ids past the bytes (a random
+    model's most) are dropped, invalid UTF-8 is replaced."""
+
+    def ids_to_text(self, ids) -> str:
+        return bytes(i for i in ids if i < 256).decode("utf-8", errors="replace")
+
+
+def _tts_tokens(model, texts, device):
+    """[B, U] ids right-padded with 0, and the lengths, on `device`."""
+    ids = [model.tokenizer.text_to_ids(t) for t in texts]
+    tokens = torch.zeros(len(ids), max(map(len, ids)), dtype=torch.long)
+    for i, x in enumerate(ids):
+        tokens[i, : len(x)] = torch.tensor(x)
+    return tokens.to(device), torch.tensor([len(x) for x in ids], device=device)
+
+
+def phase_tts_exactness() -> None:
+    """25. FastPitch (bench_tts's config) and HiFi-GAN V1 from seed 0 in fp32,
+    card against CPU, on B=2 ragged texts: the encoder stage; the durations
+    (equal, but where the CPU's value before rounding lies within HALF_TIE of
+    k + 0.5); the mel decoded from the CPU's durations; the waveform vocoded
+    from the CPU's mel; one loss (train=False) and its gradients on a batch
+    the CPU draws."""
+    from nemo_tpu_torch.interop.jax_params import model_variables
+    from nemo_tpu_torch.models.tts import FastPitchModel, HifiGanModel
+
+    fp = {d: FastPitchModel(TTS_CFG, device=d, seed=0) for d in (CARD, "cpu")}
+    voc = {d: HifiGanModel(device=d, seed=0) for d in (CARD, "cpu")}
+    tokens, lens = _tts_tokens(fp["cpu"], [TTS_TEXT, TTS_SHORT], "cpu")
+    with torch.inference_mode():
+        enc = {d: m(tokens.to(d), lens.to(d), stage="encode") for d, m in fp.items()}
+    errs = []
+    for key in ("enc", "log_dur_pred", "pitch_pred"):
+        ref = enc["cpu"][key]
+        errs.append(compare(f"fastpitch encode {key}", enc[CARD][key].cpu(), ref,
+                            TTS_TOL * float(ref.abs().max()), 0.0))
+    dur, ref_dur = enc[CARD]["durations"].cpu(), enc["cpu"]["durations"]
+    # the CPU's durations before rounding (pace 1): a half-tie rounds either way
+    v = torch.clamp(torch.exp(enc["cpu"]["log_dur_pred"]) - 1.0, float(TTS_CFG[
+        "min_token_duration"]), float(fp["cpu"].max_token_duration))
+    tie = (v - torch.floor(v) - 0.5).abs() < HALF_TIE
+    off = dur != ref_dur
+    if bool((off & ~tie).any()):
+        raise AssertionError(f"durations differ away from a half-tie at {off.nonzero().tolist()}")
+    n = int(ref_dur.sum(1).max())
+    length = min(n + 1, fp["cpu"].max_mel_len)
+    with torch.inference_mode():
+        mel = {d: m(tokens.to(d), lens.to(d), stage="decode", enc=enc[d]["enc"],
+                    dur=ref_dur.to(d), mel_max_len=length)["mel"][:, :, :n]
+               for d, m in fp.items()}
+    errs.append(compare("fastpitch decode (the CPU's durations)", mel[CARD].cpu(), mel["cpu"],
+                        TTS_TOL * float(mel["cpu"].abs().max()), 0.0))
+    wave = {d: m.convert_spectrogram_to_audio(mel["cpu"].to(d)) for d, m in voc.items()}
+    werr = compare("hifigan V1 (the CPU's mel)", wave[CARD].cpu(), wave["cpu"], WAVE_TOL, 0.0)
+    # the loss and every gradient, train=False, on a batch the CPU draws
+    g = torch.Generator().manual_seed(5)
+    Bl, U, T = 2, TTS_FIT["seq"], fp["cpu"].max_mel_len
+    batch = (torch.randint(1, fp["cpu"].n_symbols, (Bl, U), generator=g),
+             torch.randint(3, 10, (Bl, U), generator=g), torch.randn(Bl, 80, T, generator=g),
+             torch.randn(Bl, U, generator=g))
+    # A ReLU gate flips where a pre-activation lies within rounding of 0 (the
+    # card's cuDNN and the CPU sum a conv in other orders): one flip moves
+    # ff1's weight gradient by ~1e-3 of its max. So the loss is compared
+    # from each device's own pass, the gradients from a CPU pass that takes
+    # the card's pre-activations (straight through) into every ReLU.
+    gated = [name for name, _ in fp["cpu"].named_modules()
+             if name.endswith(".ff1") or ".conv" in name and "predictor" in name]
+    card_pre, losses, grads = {}, {}, {}
+
+    def record(name):
+        return lambda mod, inputs, out: card_pre.__setitem__(name, out.detach().cpu())
+
+    def take(name):
+        return lambda mod, inputs, out: out + (card_pre[name] - out).detach()
+
+    for d, m, hook in ((CARD, fp[CARD], record), ("cpu", fp["cpu"], None),
+                       ("cpu gated", fp["cpu"], take)):
+        dev = CARD if d == CARD else "cpu"
+        mods = dict(m.named_modules())
+        handles = [mods[n].register_forward_hook(hook(n)) for n in gated] if hook else []
+        tok, du, target, pitch = (x.to(dev) for x in batch)
+        leaves = model_variables(m)
+        out = m(tok, torch.full((Bl,), U, device=dev), durations=du, pitch=pitch)
+        loss = m.loss(out, target, du.sum(1), du, pitch, torch.ones(Bl, U, device=dev))
+        losses[d] = loss.detach().cpu()
+        if d != "cpu":
+            grads[d] = dict(zip(leaves, (x.cpu() for x in torch.autograd.grad(
+                loss, list(leaves.values())))))
+        for h in handles:
+            h.remove()
+    grads["cpu"] = grads.pop("cpu gated")
+    rel = float((losses[CARD] - losses["cpu"]).abs() / losses["cpu"].abs())
+    if rel > TTS_LOSS_TOL:
+        raise AssertionError(f"fastpitch loss {float(losses[CARD])} vs {float(losses['cpu'])}")
+    top = max(float(x.abs().max()) for x in grads["cpu"].values())
+    worst, worst_key = 0.0, ""
+    for key, ref in grads["cpu"].items():
+        got = grads[CARD][key]
+        if key.endswith(".k.bias"):
+            # 0 in exact arithmetic (a row's softmax ignores the shift q · b_k): both hold
+            # rounding noise only
+            if max(float(got.abs().max()), float(ref.abs().max())) > 1e-5 * top:
+                raise AssertionError(f"{key}: gradient {float(got.abs().max()):.3e} is not noise")
+            continue
+        share = float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+        if share > worst:
+            worst, worst_key = share, key
+    if worst > TTS_GRAD_TOL:
+        raise AssertionError(f"gradient of {worst_key}: {worst:.3e} of its max")
+    log(f"TTS fp32, cuda vs cpu, B=2 ({int(lens[0])} and {int(lens[1])} symbols; FastPitch "
+        f"d 384, 6 + 6 layers, max_mel_len {T}, seed 0): encode max_abs_err "
+        + ", ".join(f"{e:.3e}" for e in errs[:3]) + f" (tolerance {TTS_TOL:g} of each max); "
+        f"durations equal on {int((~off).sum())}/{off.numel()} symbols "
+        f"({int(off.sum())} half-ties); {n} frames, decode max_abs_err {errs[3]:.3e}; HiFi-GAN "
+        f"V1 waveform [{', '.join(map(str, wave['cpu'].shape))}] max_abs_err {werr:.3e} "
+        f"(tolerance {WAVE_TOL:g}); loss {float(losses['cpu']):.6f} within {rel:.2e} relative "
+        f"(tolerance {TTS_LOSS_TOL:g}), worst gradient {worst_key} at {worst:.3e} of its max "
+        f"(tolerance {TTS_GRAD_TOL:g}) over {len(grads['cpu'])} leaves, the CPU taking the "
+        f"card's {len(gated)} ReLU inputs")
+
+
+def _conv_flops(voc, mel: torch.Tensor) -> float:
+    """Operations of one vocoder call on `mel`, from its convolutions' shapes
+    (forward hooks): 2 · B · output length · weight size a Conv1d, 2 · B ·
+    input length · weight size a ConvTranspose1d."""
+    total = [0.0]
+
+    def hook(mod, inputs, out):
+        frames = inputs[0].shape[-1] if isinstance(mod, torch.nn.ConvTranspose1d) else out.shape[-1]
+        total[0] += 2.0 * out.shape[0] * frames * mod.weight.numel()
+
+    handles = [m.register_forward_hook(hook) for m in voc.modules()
+               if isinstance(m, (torch.nn.Conv1d, torch.nn.ConvTranspose1d))]
+    try:
+        voc.convert_spectrogram_to_audio(mel)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def phase_tts_bench(profile: bool):
+    """26. bench.py:bench_tts on the port: FastPitch at bench_tts's config from
+    seed 0, fit_synthetic(40 steps, B=4, seq 48), B=8 copies of the bench's
+    sentence, the paces 1.0, 1.01 and 1.02 warmed, 10 timed calls at the
+    paces in turn: fastpitch_mel_frames_per_sec; then HiFi-GAN V1 (seed 0)
+    on the last call's mels. Returns (FastPitch, HiFi-GAN)."""
+    from nemo_tpu_torch.models.tts import FastPitchModel, HifiGanModel
+
+    m = FastPitchModel(TTS_CFG, device=CARD, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = m.fit_synthetic(**TTS_FIT)
+    torch.cuda.synchronize()
+    fit_ms = 1e3 * (time.perf_counter() - t0) / TTS_FIT["steps"]
+    tokens = m.parse(TTS_TEXT).repeat(TTS_B, 1)
+    for pace in (1.0, 1.01, 1.02):
+        if m.generate_spectrogram(tokens, pace=pace).shape[2] == 0:
+            raise AssertionError("FastPitch synthesis produced 0 mel frames")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    frames = 0
+    for i in range(TTS_ITERS):
+        mel = m.generate_spectrogram(tokens, pace=1.0 + 0.01 * (i % 3))
+        frames += mel.shape[0] * mel.shape[2]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if frames == 0:
+        raise AssertionError("FastPitch synthesis produced 0 mel frames")
+    fps = frames / wall
+    log(f"bench_tts on the port (FastPitch d 384, 6 + 6 layers, fp32, B={TTS_B} x "
+        f"{tokens.shape[1]} symbols): fastpitch_mel_frames_per_sec={fps:.1f} "
+        f"({fps / FRAMES_PER_SEC:.1f}x realtime at {FRAMES_PER_SEC} frames/s), "
+        f"{1e3 * wall / TTS_ITERS:.2f} ms a call, {mel.shape[2]} frames "
+        f"({mel.shape[2] / tokens.shape[1]:.2f} a symbol) at pace "
+        f"{1.0 + 0.01 * ((TTS_ITERS - 1) % 3):g}, peak_mem={peak:.2f} GiB; "
+        f"fit_synthetic {fit_ms:.2f} ms/step, final loss {loss:.4f}")
+    voc = HifiGanModel(device=CARD, seed=0)
+    flops = _conv_flops(voc, mel)  # also the warm call
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(TTS_VOC_ITERS):
+        audio = voc.convert_spectrogram_to_audio(mel)
+    torch.cuda.synchronize()
+    call = (time.perf_counter() - t0) / TTS_VOC_ITERS
+    if audio.shape != (TTS_B, mel.shape[2] * voc.hop_length) or not torch.isfinite(audio).all():
+        raise AssertionError(f"vocoder output {tuple(audio.shape)} or non-finite values")
+    secs = audio.numel() / voc.sample_rate
+    rate = flops / call
+    log(f"HiFi-GAN V1 (fp32, TF32 off) on those mels [{TTS_B}, 80, {mel.shape[2]}]: "
+        f"{secs / call:.1f} audio s per wall s, {1e3 * call:.2f} ms a call, "
+        f"{flops / 1e12:.3f} TFLOP a call ({flops / mel.shape[0] / mel.shape[2] / 1e9:.3f} GFLOP "
+        f"a frame) at {rate / 1e12:.1f} TFLOP/s ({100 * rate / PEAK_FLOPS[torch.float32]:.1f} % "
+        f"of the fp32 peak), peak_mem={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if profile:
+        profile_tts(m, voc, tokens)
+    return m, voc
+
+
+def profile_tts(m, voc, tokens) -> None:
+    """One more B=8 text → waveform call under torch.profiler: device time
+    by kind, the device-operation count and the card's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        voc.convert_spectrogram_to_audio(m.generate_spectrogram(tokens))
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    groups = {}
+    for e in kernels:
+        kind = next((k for k, keys in TTS_KERNEL_KINDS if any(x in e.name for x in keys)),
+                    "other")
+        groups[kind] = groups.get(kind, 0.0) + e.self_device_time_total / 1e3
+    log("profile, text → waveform call by kind: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
+    log(f"profile, text → waveform (B={TTS_B}): wall {wall_ms:.2f} ms, kernels {busy_ms:.2f} ms "
+        f"in {len(kernels)} device operations, card idle {100 - 100 * busy_ms / wall_ms:.1f} % "
+        f"of the wall time")
+
+
+def _wav_fields(data: bytes):
+    import io
+    import wave
+
+    with wave.open(io.BytesIO(data)) as w:
+        pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2").astype(np.int32)
+        return (w.getnchannels(), w.getsampwidth(), w.getframerate()), pcm
+
+
+def held_out_clip(asr) -> np.ndarray:
+    """A held-out 30 s tone clip at 16 kHz (float32, int16 steps)."""
+    from nemo_tpu_torch.models.asr.synthetic import make_eval_batch
+
+    _, pcm = make_eval_batch(asr, 1, SECS, UTT_TOKENS, seed=2024)
+    return pcm[0].astype(np.float32) / 32768.0
+
+
+def phase_audio_server(asr, fp, voc, k1, k2) -> dict:
+    """27. `AudioServer(asr, tts=(FastPitch, HiFi-GAN))` on an ephemeral port:
+    /v1/audio/speech for the bench's sentence (a mono 16-bit 22,050 Hz WAV of
+    256 x frames samples, equal within 1 LSB to `synthesize` called
+    directly); /v1/audio/transcriptions of a held-out 30 s tone clip raw at
+    16 kHz, multipart at 16 kHz and at 22,050 Hz (the resample path), each
+    text `transcribe`'s of the same samples, K1 18 and K2 1 launches a call.
+    Returns the phase's K1, K2 launches."""
+    from nemo_tpu_torch.data.audio_io import resample_linear
+    from nemo_tpu_torch.serve.audio_server import AudioServer, _parse_wav, _wav_bytes
+
+    srv = AudioServer(asr=asr, tts=(fp, voc))
+    srv.serve(port=0, blocking=False)
+    try:
+        status, data, speech_s = _post(srv.port, "/v1/audio/speech",
+                                       json.dumps({"input": TTS_TEXT}).encode(), "application/json")
+        frames = fp.generate_spectrogram(fp.parse(TTS_TEXT)).shape[2]
+        fields, pcm = _wav_fields(data)
+        _, direct = _wav_fields(srv.synthesize(TTS_TEXT))
+        lsb = int(np.abs(pcm - direct).max()) if len(pcm) == len(direct) else -1
+        if (status != 200 or fields != (1, 2, 22050) or len(pcm) != voc.hop_length * frames
+                or not 0 <= lsb <= 1):
+            raise AssertionError(f"/v1/audio/speech: {status}, {fields}, {len(pcm)} samples for "
+                                 f"{frames} frames, {lsb} LSB from synthesize")
+        clip = held_out_clip(asr)
+        wav16 = _wav_bytes(clip, SR)
+        wav22 = _wav_bytes(resample_linear(clip, SR, 22050), 22050)
+        boundary = "nemoTPUboundary"
+        multipart = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+                     f"filename=\"clip.wav\"\r\nContent-Type: audio/wav\r\n\r\n").encode() + \
+            wav16 + f"\r\n--{boundary}--\r\n".encode()
+        bodies = {"raw 16 kHz": (wav16, "audio/wav"),
+                  "multipart 16 kHz": (multipart, f"multipart/form-data; boundary={boundary}"),
+                  "raw 22,050 Hz": (wav22, "audio/wav")}
+        launches, walls, texts = {"k1": 0, "k2": 0}, [], []
+        for what, (body, ctype) in bodies.items():
+            k1.launches = k2.launches = 0
+            status, data, wall = _post(srv.port, "/v1/audio/transcriptions", body, ctype)
+            got = (k1.launches, k2.launches)
+            launches["k1"] += got[0]
+            launches["k2"] += got[1]
+            x, sr = _parse_wav(wav16 if what != "raw 22,050 Hz" else wav22)
+            if sr != SR:
+                x = resample_linear(x, sr, SR)
+            want = asr.transcribe([x])[0]
+            text = json.loads(data)["text"] if status == 200 else None
+            if text != want or got != (18, 1):
+                raise AssertionError(f"/v1/audio/transcriptions ({what}): {status}, launches "
+                                     f"{got}, text {text!r} vs transcribe's {want!r}")
+            walls.append(f"{what} {wall:.3f} s")
+            texts.append(len(text))
+    finally:
+        srv.shutdown()
+    log(f"AudioServer (Conformer-Large CTC bf16 from phase 7, FastPitch from phase 26 + "
+        f"HiFi-GAN V1): /v1/audio/speech {speech_s:.3f} s, a 22,050 Hz mono 16-bit WAV of "
+        f"{len(pcm)} samples = {voc.hop_length} x {frames} frames, within {lsb} LSB of "
+        f"synthesize; /v1/audio/transcriptions of a held-out {SECS:g} s tone clip: "
+        + ", ".join(walls) + f", each text ({texts[0]} chars) equal to transcribe's, K1 18 and "
+        f"K2 1 launches a call")
+    return launches
+
+
+def phase_voice_agent(asr, fp, voc, k1, k2) -> dict:
+    """28. `VoiceAgent(ModelASRService(phase 7's model), CallableLLMService(greedy
+    generation of 16 tokens on Llama-3.2-1B, phase 24's seed-0 weights, the
+    byte tokenizer), NativeTTSService(FastPitch, HiFi-GAN))`: one `converse`
+    turn on the held-out clip, then one `push_audio` turn (the clip, then
+    0.6 s of silence). The user text equals `transcribe`'s of the same audio
+    through a WAV file, the history grows by 2 a turn, the reply audio is 256
+    x the mel frames of the reply's symbols, or, where the reply has no
+    symbol of the TTS tokenizer, the vocoder refuses the 0-frame mel
+    (ValueError). Returns the phase's K1, K2 launches."""
+    from nemo_tpu_torch.agents import (CallableLLMService, ModelASRService, NativeTTSService,
+                                       VoiceAgent)
+    from nemo_tpu_torch.data.audio_io import write_wav
+    from nemo_tpu_torch.models.llm.config import llama32_1b
+    from nemo_tpu_torch.models.llm.generate import GenerationEngine, SamplingParams
+
+    cfg = llama32_1b(seq_length=SERVER_MAX_LEN, attention_backend="flash")
+    t0 = time.perf_counter()
+    engine = GenerationEngine(cfg, _seed_params(cfg, CARD), device=CARD)
+    torch.cuda.empty_cache()
+    build_s = time.perf_counter() - t0
+    tok = AgentTokenizer()
+    sampling = SamplingParams(max_new_tokens=AGENT_TOKENS)
+    seconds = {"asr": 0.0, "llm": 0.0, "tts": 0.0}
+
+    def timed(what, fn):
+        def call(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            seconds[what] += time.perf_counter() - t
+            return out
+        return call
+
+    asr_service, tts_service = ModelASRService(asr), NativeTTSService(fp, voc)
+    asr_service.transcribe = timed("asr", asr_service.transcribe)
+    tts_service.synthesize = timed("tts", tts_service.synthesize)
+    llm = CallableLLMService(timed("llm", lambda prompt: tok.ids_to_text(
+        engine.generate_tokens([tok.text_to_ids(prompt)], sampling)[0])))
+    agent = VoiceAgent(asr_service, llm, tts_service)
+    clip = held_out_clip(asr)
+    silence = np.zeros(int(0.6 * SR), np.float32)
+    launches, lines = {"k1": 0, "k2": 0}, []
+    for turn, audio in enumerate((clip, np.concatenate([clip, silence]))):
+        for key in seconds:
+            seconds[key] = 0.0
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "turn.wav")
+            write_wav(path, audio, SR)
+            want = asr.transcribe([path])[0]
+        k1.launches = k2.launches = 0
+        history = len(agent.history)
+        try:
+            if turn == 0:
+                out = agent.converse(clip)
+            else:
+                if agent.push_audio(clip) is not None:
+                    raise AssertionError("push_audio ended a turn before any silence")
+                out = agent.push_audio(silence)
+                if out is None:
+                    raise AssertionError("push_audio did not end the turn after 0.6 s of silence")
+            user, reply, reply_audio = out
+            case = "spoken"
+        except ValueError as e:  # the reply has no symbol: a 0-frame mel, refused
+            user, reply = agent.history[-2]["content"], agent.history[-1]["content"]
+            if fp.parse(reply or " ").shape[1] != 0:
+                raise
+            reply_audio, case = None, f"no symbol of the TTS tokenizer, the vocoder refused ({e})"
+        if user != want or len(agent.history) != history + 2:
+            raise AssertionError(f"turn {turn}: user text {user!r} vs transcribe's {want!r}, "
+                                 f"history {history} -> {len(agent.history)}")
+        if (k1.launches, k2.launches) != (18, 1):
+            raise AssertionError(f"turn {turn}: launches K1 {k1.launches}, K2 {k2.launches}")
+        launches["k1"] += k1.launches
+        launches["k2"] += k2.launches
+        if reply_audio is not None:
+            frames = fp.generate_spectrogram(fp.parse(reply or " ")).shape[2]
+            if len(reply_audio) != voc.hop_length * frames or not np.isfinite(reply_audio).all():
+                raise AssertionError(f"turn {turn}: {len(reply_audio)} samples for {frames} frames")
+            case += f", {len(reply_audio)} samples = {voc.hop_length} x {frames} frames"
+        lines.append(f"turn {turn} ({'converse' if turn == 0 else 'push_audio'}): user text "
+                     f"({len(user)} chars) equal to transcribe's, reply {reply!r}: {case}; ASR "
+                     f"{seconds['asr']:.3f} s, LLM {seconds['llm']:.3f} s, TTS "
+                     f"{seconds['tts']:.3f} s")
+    log(f"VoiceAgent (Conformer-Large CTC bf16 → Llama-3.2-1B greedy, {AGENT_TOKENS} tokens, "
+        f"built in {build_s:.1f} s → FastPitch + HiFi-GAN V1): " + "; ".join(lines)
+        + f"; history {len(agent.history)} entries")
+    del engine
     torch.cuda.empty_cache()
     return launches
 
@@ -2843,7 +3305,7 @@ def main() -> int:
     parser.add_argument("--profile", action="store_true",
                         help="also profile one transcription batch, calibration steps, "
                              "LLM, SFT and CP training steps, one RNNT batch, RNNT head-fit "
-                             "steps and a decode bench chunk")
+                             "steps, a decode bench chunk and a text-to-waveform call")
     parser.add_argument("--cp-processes", action="store_true",
                         help="only the process-group form of CP training, one process a card: "
                              "torchrun --nproc-per-node N chip_smoke.py --cp-processes")
@@ -2900,6 +3362,7 @@ def main() -> int:
     launches = phase_main_path(model, staged, k1, k2, args.profile)
     rows[0]["launches"], rows[1]["launches"] = launches["k1"], launches["k2"]
     rows[2]["launches"], rows[3]["launches"] = fit_launches["k3"], fit_launches["k4"]
+    ctc_model = model  # calibrated: it serves phases 27-28
     del model, staged
     torch.cuda.empty_cache()
     lap("phases 5-8 (CTC exactness, calibration, main path)")
@@ -2951,6 +3414,18 @@ def main() -> int:
     server_launches = phase_llm_server(counters)
     lap("phase 24 (LLMServer)")
     next(r for r in rows if r["name"] == "flash_attention")["launches"] += server_launches["k5"]
+    t25 = time.perf_counter()
+    phase_tts_exactness()
+    lap("phase 25 (TTS exactness)")
+    fp, voc = phase_tts_bench(args.profile)
+    lap("phase 26 (bench_tts, HiFi-GAN V1)")
+    audio_launches = phase_audio_server(ctc_model, fp, voc, k1, k2)
+    lap("phase 27 (AudioServer)")
+    agent_launches = phase_voice_agent(ctc_model, fp, voc, k1, k2)
+    lap("phase 28 (VoiceAgent)")
+    log(f"time: phases 25-28 {time.perf_counter() - t25:.1f} s")
+    for row, key in zip(rows[:2], ("k1", "k2")):
+        row["launches"] += audio_launches[key] + agent_launches[key]
     log(f"total: {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

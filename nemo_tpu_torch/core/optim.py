@@ -1,6 +1,6 @@
 """clip_by_global_norm + AdamW with optax's semantics, on fp32 masters.
 
-Two chains of the JAX package run through `ClippedAdamW`:
+Three chains of the JAX package run through `ClippedAdamW`:
 
 - calibration (nemo_tpu/models/asr/synthetic.py:231-233):
   `optax.chain(optax.clip_by_global_norm(5.0), optax.adamw(schedule))` with
@@ -9,7 +9,9 @@ Two chains of the JAX package run through `ClippedAdamW`:
   `optax.chain(optax.clip_by_global_norm(1.0), optax.adamw(schedule,
   b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1))`, weight decay on every leaf,
   a constant 3e-4 unless the module is given a schedule (SFT recipes pass
-  `core/lr_schedulers.py`'s CosineAnnealing) (`gpt_optimizer`).
+  `core/lr_schedulers.py`'s CosineAnnealing) (`gpt_optimizer`);
+- FastPitch's synthetic fit (nemo_tpu/models/tts/fastpitch_model.py:112):
+  `optax.adam(lr)`, no clipping and no decay (`adam`).
 
 Where torch's own differ: torch's `clip_grad_norm_` adds 1e-6 to the norm
 and `torch.optim.AdamW` decays by lr·wd·p before the Adam step with a
@@ -119,3 +121,10 @@ def gpt_optimizer(leaves: Sequence[torch.Tensor],
     leaf) at the learning rate `schedule(step)`, by default a constant 3e-4."""
     return ClippedAdamW(leaves, schedule or constant_schedule(3e-4), b1=0.9, b2=0.95, eps=1e-8,
                         weight_decay=0.1, max_norm=1.0)
+
+
+def adam(leaves: Sequence[torch.Tensor], lr: float) -> ClippedAdamW:
+    """optax.adam(lr): b1 0.9, b2 0.999, eps 1e-8, no weight decay and no
+    clipping (an infinite norm bound scales every gradient by 1)."""
+    return ClippedAdamW(leaves, constant_schedule(lr), b1=0.9, b2=0.999, eps=1e-8,
+                        weight_decay=0.0, max_norm=math.inf)

@@ -1,4 +1,5 @@
-"""WAV reading with `wave` and numpy (copy of nemo_tpu.data.audio_io.read_wav)."""
+"""WAV reading and writing with `wave` and numpy (copies of
+nemo_tpu.data.audio_io.read_wav, write_wav and resample_linear)."""
 
 from __future__ import annotations
 
@@ -39,6 +40,18 @@ def read_wav(path: str, target_sr: Optional[int] = None) -> Tuple[np.ndarray, in
         x = resample_linear(x, sr, target_sr)
         sr = target_sr
     return x, sr
+
+
+def write_wav(path: str, samples: np.ndarray, sr: int) -> None:
+    """samples: [T] mono or [T, C] float32 in [-1, 1] → 16-bit PCM; the
+    clipped samples times 32767 are truncated toward zero."""
+    x = np.clip(samples, -1.0, 1.0)
+    pcm = (x * 32767.0).astype("<i2")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1 if x.ndim == 1 else x.shape[1])
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(pcm.tobytes())
 
 
 def resample_linear(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:

@@ -10,6 +10,12 @@ port's parameters, whose names mirror the JAX tree. Only layouts change:
   split axes (GPT's q_proj [D, heads, head_dim], o_proj [heads, head_dim,
   D]) likewise, flattened to [in, out] first
 - Conv2d kernel HWIO → OIHW; Conv1d kernel [k, in/g, out] → [out, in/g, k]
+  (dilated or not)
+- flax ConvTranspose kernel [k, in, out] → ConvTranspose1d weight [in,
+  out, k] flipped along k (HiFi-GAN's upsampling: flax's VALID transposed
+  convolution, cropped by (k - r) // 2, correlates with the kernel as it
+  is, torch's with it reversed)
+- nn.Embed `embedding` → Embedding `weight` (FastPitch's symbols)
 - LayerNorm / BatchNorm `scale`, `bias` → `weight`, `bias`; BatchNorm
   `batch_stats` `mean`, `var` → `running_mean`, `running_var`
 - any other parameter (`pos_bias_u`, `pos_bias_v`, `linear_pos.kernel`,
@@ -80,6 +86,10 @@ def _conv_layout(kernel, mod: nn.Module):
         if math.prod(kernel.shape) != mod.in_features * mod.out_features:
             return kernel  # the shape check below names it
         return kernel.reshape(mod.in_features, mod.out_features).T
+    if isinstance(mod, nn.ConvTranspose1d):
+        if isinstance(kernel, torch.Tensor):
+            return kernel.flip(0).permute(1, 2, 0)
+        return kernel[::-1].transpose(1, 2, 0)
     if isinstance(mod, nn.Conv2d):
         axes = (3, 2, 0, 1)
     elif isinstance(mod, nn.Conv1d):
@@ -101,8 +111,11 @@ def _entries(model: nn.Module) -> Iterator[Tuple[str, torch.Tensor, nn.Module, s
         for pname, p in mod.named_parameters(recurse=False):
             if norm:
                 jname = _NORM_NAMES[pname]
-            elif isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d)) and pname == "weight":
+            elif isinstance(mod, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d)) \
+                    and pname == "weight":
                 jname = "kernel"
+            elif isinstance(mod, nn.Embedding):
+                jname = "embedding"
             else:
                 jname = pname
             yield ".".join(prefix + (pname,)), p, mod, "params", prefix + (jname,)
@@ -186,6 +199,10 @@ def _jax_layout(value, mod: nn.Module):
         if getattr(mod, "jax_conv1x1", False):
             return value.T[None]
         return value.T.reshape(getattr(mod, "jax_kernel_shape", value.T.shape))
+    if isinstance(mod, nn.ConvTranspose1d):
+        if isinstance(value, torch.Tensor):
+            return value.permute(2, 0, 1).flip(0)
+        return value.transpose(2, 0, 1)[::-1]
     if isinstance(mod, nn.Conv2d):
         axes = (2, 3, 1, 0)
     elif isinstance(mod, nn.Conv1d):

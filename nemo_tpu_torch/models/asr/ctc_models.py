@@ -46,8 +46,12 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 p.data.zero_()
             else:
                 w = torch.empty(p.shape, dtype=torch.float32)
-                fan_in = p[0].numel() if isinstance(mod, (nn.Conv1d, nn.Conv2d)) else (
-                    p.shape[-1] if isinstance(mod, nn.Linear) else p.shape[0])
+                if isinstance(mod, (nn.Conv1d, nn.Conv2d)):
+                    fan_in = p[0].numel()
+                elif isinstance(mod, nn.ConvTranspose1d):  # [in, out, k]
+                    fan_in = p.shape[0] * p.shape[2]
+                else:
+                    fan_in = p.shape[-1] if isinstance(mod, nn.Linear) else p.shape[0]
                 w.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
                 p.data.copy_(w)
         if isinstance(mod, nn.BatchNorm1d):

@@ -28,9 +28,13 @@ assert not bad, bad
 print(" ".join(names))
 """
 
-# the serving modules, which the walk must reach (they import no JAX either)
+# the serving and TTS modules, which the walk must reach (they import no JAX either)
 SERVING = ("nemo_tpu_torch.ops.quant", "nemo_tpu_torch.models.llm.generate",
-           "nemo_tpu_torch.serve.openai_server", "nemo_tpu_torch.llm.api")
+           "nemo_tpu_torch.serve.openai_server", "nemo_tpu_torch.llm.api",
+           "nemo_tpu_torch.models.tts", "nemo_tpu_torch.models.tts.fastpitch_model",
+           "nemo_tpu_torch.models.tts.hifigan_model", "nemo_tpu_torch.models.tts.modules.fastpitch",
+           "nemo_tpu_torch.models.tts.modules.hifigan", "nemo_tpu_torch.serve.audio_server",
+           "nemo_tpu_torch.agents.voice_agent", "nemo_tpu_torch.data.text_tokenizers")
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -96,5 +100,16 @@ def test_serving_without_device_needs_cuda(monkeypatch):
     for make in (lambda: GenerationEngine(tiny_test(), {}),
                  lambda: ContinuousBatchingEngine(tiny_test(), {}),
                  lambda: LLMServer(tiny_test(), {}, tokenizer=None)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+
+
+def test_tts_without_device_needs_cuda(monkeypatch):
+    """FastPitch and HiFi-GAN, the AudioServer's TTS pair, run on the card
+    unless `device="cpu"` is given: without a card they raise."""
+    from nemo_tpu_torch.models.tts import FastPitchModel, HifiGanModel
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (FastPitchModel, HifiGanModel, lambda: FastPitchModel(device="cuda")):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
