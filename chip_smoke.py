@@ -192,16 +192,20 @@ Phases, each printing a line; any failure raises and exits non-zero:
    bench's sentence (a mono 16-bit 22,050 Hz WAV of 256 x frames samples,
    within 1 LSB of `synthesize`), /v1/audio/transcriptions of a held-out 30
    s tone clip raw at 16 kHz, multipart and at 22,050 Hz (resampled), each
-   text `transcribe`'s, K1 18 and K2 1 launches a call; the wall time of each
-   request;
+   text `transcribe`'s, K1 18 and K2 1 launches a call, and each of those K1
+   and K2 outputs held against its plain version on the inputs the request
+   gave it (B=4 rows, one of them 30 s and three one sample long) at phases
+   9's and 10's bf16 tolerances; the wall time of each request;
 28. `VoiceAgent` over phase 7's model (`ModelASRService`), greedy
    generation of 16 tokens on Llama-3.2-1B with phase 24's seed-0 weights and
-   the byte tokenizer (`CallableLLMService`) and FastPitch with HiFi-GAN
-   (`NativeTTSService`): one `converse` turn and one `push_audio` turn (the
-   clip, then 0.6 s of silence); the user text `transcribe`'s, the history 2
-   longer a turn, the reply audio 256 x the frames of the reply's symbols
-   (or, for a reply with no symbol, the vocoder's refusal of a 0-frame
-   mel); the ASR, LLM and TTS seconds of each turn.
+   the byte tokenizer, each id spelt as a letter or a space
+   (`CallableLLMService`), and FastPitch with HiFi-GAN (`NativeTTSService`):
+   one `converse` turn and one `push_audio` turn (the clip, then 0.6 s of
+   silence); the user text `transcribe`'s, the history 2 longer a turn, the
+   reply audio 256 x the frames of the reply's symbols, each turn's K1 and
+   K2 outputs held against their plain versions as in phase 27; the ASR,
+   LLM and TTS seconds of each turn; then a reply of no symbol ("€"), whose
+   0-frame mel the vocoder refuses.
 
 With --profile, one more batch of the transcription path, 6 more calibration
 steps, 2 more LLM training steps, 2 more SFT steps, 2 more CP training steps,
@@ -209,7 +213,9 @@ one more RNNT batch (and its encoder and whole decode by the host's clock),
 6 more RNNT head-fit steps, one more decode bench chunk of each mode and one
 more B=8 text → waveform call run under torch.profiler, and their device
 time by kernel and the card's busy share of the wall time are printed. It
-ends with a JSON line of the kernels and then
+ends with a line of the serving paths' launches (phases 24, 27 and 28, each
+read just after its run), a JSON line of the kernels (each one's launches on
+its main path) and then
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 TF32 is off for the comparisons. Nothing of JAX or `nemo_tpu` is imported.
 """
@@ -238,6 +244,9 @@ import torch.nn.functional as F
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 CARD = "cuda"  # the device of the card side of every check
+# K1 and K2 against their plain versions (atol, rtol): fp32, bf16, and K1's lse
+KERNEL_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
+LSE_TOL = (1e-3, 1e-4)
 
 B, SECS, SR = 32, 30.0, 16000
 TIMED_BATCHES = 5
@@ -462,7 +471,7 @@ def phase_k1(gen: torch.Generator) -> dict:
     row = {"name": "relpos_flash_attention", "route": "cuda",
            "source": "nemo_tpu_torch/csrc/relpos_flash.cu",
            "replaces": "nemo_tpu/ops/flash_attention.py:77"}
-    for dtype, atol, rtol in ((torch.float32, 1e-4, 1e-4), (torch.bfloat16, 1e-2, 2e-2)):
+    for dtype, (atol, rtol) in KERNEL_TOL.items():
         qu, qv, k, v = (t.to("cuda", dtype).transpose(1, 2) for t in base)
         p = p32.to("cuda", dtype).transpose(0, 1)
         for lengths in (ragged, full):
@@ -474,7 +483,7 @@ def phase_k1(gen: torch.Generator) -> dict:
                 B, H, T)  # padded query rows are garbage by design
             what = f"K1 {str(dtype)[6:]} lengths={'ragged' if lengths is ragged else 'full'}"
             err = compare(what, o[valid], o_ref[valid], atol, rtol)
-            compare(what + " lse", lse[valid], lse_ref[valid], 1e-3, 1e-4)
+            compare(what + " lse", lse[valid], lse_ref[valid], *LSE_TOL)
         del o_ref, lse_ref
         args = (qu, qv, k, v, p, lens, scale)  # the main path's lengths: full 30 s clips
         ms = cuda_ms(lambda: relpos_flash_attention(*args), iters=10)
@@ -509,7 +518,7 @@ def phase_k2(gen: torch.Generator) -> dict:
     row = {"name": "fused_subsampling_x4", "route": "cuda",
            "source": "nemo_tpu_torch/csrc/fused_subsampling.cu",
            "replaces": "nemo_tpu/ops/subsampling_kernel.py:34"}
-    for dtype, atol, rtol in ((torch.float32, 1e-4, 1e-4), (torch.bfloat16, 1e-2, 2e-2)):
+    for dtype, (atol, rtol) in KERNEL_TOL.items():
         args = [t.to("cuda", dtype) for t in (x32, w1_32, b1_32, w2_32, b2_32)]
         out = fused_subsampling_x4(*args)
         ref = fused_subsampling_x4_plain(*args)
@@ -1089,33 +1098,43 @@ def phase_llm_training(counters: dict, profile: bool) -> dict:
     return launches
 
 
-def profile_llm(mod, batches, what: str = "LLM training",
-                shape: str = f"B={LLM_B} x S={LLM_S}") -> None:
-    """Two more training steps under torch.profiler (device activity only):
-    device time by kernel, the step's wall and kernel time, and the card's
-    idle share."""
+def profile_by_kind(fn, kinds, label: str, n_steps: int = 1) -> None:
+    """`fn` (`n_steps` steps of work) under torch.profiler, device activity
+    only: the kernel table, device ms a step by kind (`kinds`: (kind, pieces
+    of kernel names), the first match wins), the wall and kernel ms a step,
+    the device operations a step and the card's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n_steps
+    groups = {}
+    for e in kernels:
+        kind = next((k for k, keys in kinds if any(x in e.name for x in keys)), "other")
+        groups[kind] = groups.get(kind, 0.0) + e.self_device_time_total / 1e3 / n_steps
+    log(f"profile, {label} by kind: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
+    log(f"profile, {label}: wall {wall_ms:.3f} ms, kernels {busy_ms:.3f} ms in "
+        f"{len(kernels) / n_steps:.0f} device operations, card idle "
+        f"{100 - 100 * busy_ms / wall_ms:.1f} % of the wall time")
+
+
+def profile_llm(mod, batches, what: str = "LLM training",
+                shape: str = f"B={LLM_B} x S={LLM_S}") -> None:
+    """Two more training steps under torch.profiler: device time a step by
+    kind, the step's wall and kernel time, and the card's idle share."""
+    def steps():
         for b in batches:
             mod.train_step(b)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / len(batches)
-    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / len(batches)
-    groups = {}  # device ms a step by kind of kernel
-    for e in kernels:
-        name = e.name
-        kind = next((k for k, keys in LLM_KERNEL_KINDS if any(x in name for x in keys)), "other")
-        groups[kind] = groups.get(kind, 0.0) + e.self_device_time_total / 1e3 / len(batches)
-    log(f"profile, {what} step by kind: " + ", ".join(
-        f"{k} {v:.2f} ms" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
-    log(f"profile, {what} step (Llama-3.2-1B, {shape}): wall {wall_ms:.2f} "
-        f"ms, kernels {busy_ms:.2f} ms in {len(kernels) / len(batches):.0f} device operations, "
-        f"card idle {100 - 100 * busy_ms / wall_ms:.1f} % of the wall time")
+
+    profile_by_kind(steps, LLM_KERNEL_KINDS, f"{what} step (Llama-3.2-1B, {shape})",
+                    n_steps=len(batches))
 
 
 class ByteTokenizer:
@@ -2395,31 +2414,6 @@ def phase_serving_exactness(tol: float = 1e-3) -> None:
             f"CPU {cpu['s']:.1f} s")
 
 
-def _profile_decode(eng, feed, active) -> None:
-    """One decode_steps chunk under torch.profiler (device activity only):
-    device time a step by kind, and the card's idle share of the wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.decode_steps(feed, active, n_steps=SERVE_CHUNK, seed=99)
-        wall_ms = 1e3 * (time.perf_counter() - t0) / SERVE_CHUNK
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / SERVE_CHUNK
-    groups = {}
-    for e in kernels:
-        kind = next((k for k, keys in SERVE_KERNEL_KINDS if any(x in e.name for x in keys)),
-                    "other")
-        groups[kind] = groups.get(kind, 0.0) + e.self_device_time_total / 1e3 / SERVE_CHUNK
-    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=15))
-    log("profile, decode step by kind: " + ", ".join(
-        f"{k} {v:.3f} ms" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
-    log(f"profile, decode step: wall {wall_ms:.3f} ms, kernels {busy:.3f} ms in "
-        f"{len(kernels) / SERVE_CHUNK:.0f} device operations, card idle "
-        f"{100 - 100 * busy / wall_ms:.1f} % of the wall time")
-
-
 def phase_decode_bench(profile: bool) -> None:
     """23. bench.py:bench_decode on the port (scripts/decode_throughput.py:run
     at its geometry): the bench's model at full width and depth from seed 0,
@@ -2489,8 +2483,10 @@ def phase_decode_bench(profile: bool) -> None:
             f"parameter byte a step), {100 * tps / roof:.2f} % of it; "
             f"{SERVE_SLOTS / (step_bytes / PEAK_BYTES):.1f} tokens/s without the table's bytes; "
             f"peak_mem={peak:.2f} GiB")
-        if profile:
-            _profile_decode(eng, toks[-1], active)
+        if profile:  # one more chunk: device time a step by kind, the card's idle share
+            profile_by_kind(lambda: eng.decode_steps(toks[-1], active, n_steps=SERVE_CHUNK,
+                                                     seed=99),
+                            SERVE_KERNEL_KINDS, "decode step", n_steps=SERVE_CHUNK)
         del eng
         torch.cuda.empty_cache()
 
@@ -2680,6 +2676,7 @@ TTS_B, TTS_ITERS, TTS_VOC_ITERS, FRAMES_PER_SEC = 8, 10, 3, 86.13
 # each gradient of its leaf's max
 TTS_TOL, WAVE_TOL, HALF_TIE, TTS_LOSS_TOL, TTS_GRAD_TOL = 1e-3, 1e-3, 1e-4, 1e-5, 1e-4
 AGENT_TOKENS = 16  # the voice agent's LLM reply, greedy
+AGENT_SYMBOLS = "abcdefghijklmnopqrstuvwxyz "
 TTS_KERNEL_KINDS = (  # cuDNN's convolutions first: their names hold "gemm" too
     ("convolutions (cuDNN)", ("fprop", "dgrad", "wgrad", "conv", "cudnn")),
     ("GEMM", ("nvjet", "gemm", "cutlass", "gemv")), ("softmax", ("softmax",)),
@@ -2690,11 +2687,12 @@ TTS_KERNEL_KINDS = (  # cuDNN's convolutions first: their names hold "gemm" too
 
 
 class AgentTokenizer(ByteTokenizer):
-    """The byte tokenizer with `ids_to_text`: ids past the bytes (a random
-    model's most) are dropped, invalid UTF-8 is replaced."""
+    """The byte tokenizer with an `ids_to_text` that spells any id as a
+    letter or a space (`AGENT_SYMBOLS[id % 27]`): a random model's ids lie
+    mostly past the bytes, and the reply must still carry symbols to speak."""
 
     def ids_to_text(self, ids) -> str:
-        return bytes(i for i in ids if i < 256).decode("utf-8", errors="replace")
+        return "".join(AGENT_SYMBOLS[int(i) % len(AGENT_SYMBOLS)] for i in ids)
 
 
 def _tts_tokens(model, texts, device):
@@ -2887,35 +2885,10 @@ def phase_tts_bench(profile: bool):
         f"{flops / 1e12:.3f} TFLOP a call ({flops / mel.shape[0] / mel.shape[2] / 1e9:.3f} GFLOP "
         f"a frame) at {rate / 1e12:.1f} TFLOP/s ({100 * rate / PEAK_FLOPS[torch.float32]:.1f} % "
         f"of the fp32 peak), peak_mem={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if profile:
-        profile_tts(m, voc, tokens)
+    if profile:  # one more text → waveform call: device time by kind, the card's idle share
+        profile_by_kind(lambda: voc.convert_spectrogram_to_audio(m.generate_spectrogram(tokens)),
+                        TTS_KERNEL_KINDS, f"text → waveform call (B={TTS_B})")
     return m, voc
-
-
-def profile_tts(m, voc, tokens) -> None:
-    """One more B=8 text → waveform call under torch.profiler: device time
-    by kind, the device-operation count and the card's idle share."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        voc.convert_spectrogram_to_audio(m.generate_spectrogram(tokens))
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    groups = {}
-    for e in kernels:
-        kind = next((k for k, keys in TTS_KERNEL_KINDS if any(x in e.name for x in keys)),
-                    "other")
-        groups[kind] = groups.get(kind, 0.0) + e.self_device_time_total / 1e3
-    log("profile, text → waveform call by kind: " + ", ".join(
-        f"{k} {v:.2f} ms" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
-    log(f"profile, text → waveform (B={TTS_B}): wall {wall_ms:.2f} ms, kernels {busy_ms:.2f} ms "
-        f"in {len(kernels)} device operations, card idle {100 - 100 * busy_ms / wall_ms:.1f} % "
-        f"of the wall time")
 
 
 def _wav_fields(data: bytes):
@@ -2935,14 +2908,90 @@ def held_out_clip(asr) -> np.ndarray:
     return pcm[0].astype(np.float32) / 32768.0
 
 
+@contextlib.contextmanager
+def recording_k1_k2(calls: list):
+    """While open, the CTC model's K1 and K2 call sites append (name, inputs,
+    output) of each call to `calls`: the tensors themselves, which nothing
+    writes after the call. The kernels launch and count as before."""
+    import nemo_tpu_torch.models.asr.modules.conformer as conformer
+    import nemo_tpu_torch.ops.attention as attention
+
+    sites = ((attention, "relpos_flash_attention", "K1"),
+             (conformer, "fused_subsampling_x4", "K2"))
+    kept = [getattr(mod, attr) for mod, attr, _ in sites]
+
+    def recording(name, fn):
+        def call(*args):
+            out = fn(*args)
+            calls.append((name, args, out))
+            return out
+        return call
+
+    for (mod, attr, name), fn in zip(sites, kept):
+        setattr(mod, attr, recording(name, fn))
+    try:
+        yield calls
+    finally:
+        for (mod, attr, _), fn in zip(sites, kept):
+            setattr(mod, attr, fn)
+
+
+@torch.inference_mode()  # the recorded tensors are the model's inference tensors
+def hold_recorded(what: str, calls: list) -> str:
+    """Each recorded K1 and K2 output held against the plain version on the
+    same inputs, at phases 9's and 10's tolerances for the inputs' type (K1
+    on the valid query rows, its lse too). Raises outside them; returns a
+    summary for the phase's log line."""
+    from nemo_tpu_torch.ops.flash_attention import relpos_flash_attention_plain
+    from nemo_tpu_torch.ops.subsampling_kernel import fused_subsampling_x4_plain
+
+    def err(name, out, ref, atol, rtol):
+        out, ref = out.float(), ref.float()
+        e = (out - ref).abs()
+        bad = int((e > atol + rtol * ref.abs()).sum())
+        if bad or not torch.isfinite(out).all():
+            raise AssertionError(f"{what}: {name} against its plain version: {bad} elements "
+                                 f"outside atol {atol:g} + rtol {rtol:g}, or non-finite")
+        return float(e.max())
+
+    worst, shapes = {}, {}
+    for name, args, out in calls:
+        tol = KERNEL_TOL[args[0].dtype]
+        if name == "K1":
+            (o, lse), (o_ref, lse_ref) = out, relpos_flash_attention_plain(*args)
+            Bn, H, T, _ = o.shape
+            lens = args[5]
+            valid = (torch.arange(T, device=lens.device)[None, :] < lens[:, None])[:, None, :]
+            valid = valid.expand(Bn, H, T)
+            errs = (err(name, o[valid], o_ref[valid], *tol),
+                    err(name + " lse", lse[valid], lse_ref[valid], *LSE_TOL))
+            shape = f"B={Bn}, T={T}, lengths {lens.tolist()}"
+        else:
+            errs = (err(name, out, fused_subsampling_x4_plain(*args), *tol),)
+            shape = f"x {list(args[0].shape)}"
+        worst[name] = tuple(max(a, b) for a, b in zip(worst.get(name, errs), errs))
+        shapes.setdefault(name, set()).add(f"{shape}, {str(args[0].dtype)[6:]}")
+    count = {name: sum(c[0] == name for c in calls) for name in worst}
+    if set(count) != {"K1", "K2"}:
+        raise AssertionError(f"{what}: recorded calls {count}")
+    torch.cuda.synchronize()
+    return (f"its {count['K1']} K1 and {count['K2']} K2 outputs against their plain versions "
+            f"on the same inputs (K1 at {'; '.join(sorted(shapes['K1']))}: max_abs_err "
+            f"{worst['K1'][0]:.3e}, lse {worst['K1'][1]:.3e}; K2 at "
+            f"{'; '.join(sorted(shapes['K2']))}: {worst['K2'][0]:.3e}), within phases 9's and "
+            f"10's tolerances")
+
+
 def phase_audio_server(asr, fp, voc, k1, k2) -> dict:
     """27. `AudioServer(asr, tts=(FastPitch, HiFi-GAN))` on an ephemeral port:
     /v1/audio/speech for the bench's sentence (a mono 16-bit 22,050 Hz WAV of
     256 x frames samples, equal within 1 LSB to `synthesize` called
     directly); /v1/audio/transcriptions of a held-out 30 s tone clip raw at
     16 kHz, multipart at 16 kHz and at 22,050 Hz (the resample path), each
-    text `transcribe`'s of the same samples, K1 18 and K2 1 launches a call.
-    Returns the phase's K1, K2 launches."""
+    text `transcribe`'s of the same samples, K1 18 and K2 1 launches a call;
+    after the server stops, each of those K1 and K2 outputs held against its
+    plain version on the inputs the request gave it. Returns the phase's K1,
+    K2 launches."""
     from nemo_tpu_torch.data.audio_io import resample_linear
     from nemo_tpu_torch.serve.audio_server import AudioServer, _parse_wav, _wav_bytes
 
@@ -2969,10 +3018,11 @@ def phase_audio_server(asr, fp, voc, k1, k2) -> dict:
         bodies = {"raw 16 kHz": (wav16, "audio/wav"),
                   "multipart 16 kHz": (multipart, f"multipart/form-data; boundary={boundary}"),
                   "raw 22,050 Hz": (wav22, "audio/wav")}
-        launches, walls, texts = {"k1": 0, "k2": 0}, [], []
+        launches, walls, texts, calls = {"k1": 0, "k2": 0}, [], [], []
         for what, (body, ctype) in bodies.items():
             k1.launches = k2.launches = 0
-            status, data, wall = _post(srv.port, "/v1/audio/transcriptions", body, ctype)
+            with recording_k1_k2(calls):
+                status, data, wall = _post(srv.port, "/v1/audio/transcriptions", body, ctype)
             got = (k1.launches, k2.launches)
             launches["k1"] += got[0]
             launches["k2"] += got[1]
@@ -2988,25 +3038,28 @@ def phase_audio_server(asr, fp, voc, k1, k2) -> dict:
             texts.append(len(text))
     finally:
         srv.shutdown()
+    held = hold_recorded("AudioServer", calls)
     log(f"AudioServer (Conformer-Large CTC bf16 from phase 7, FastPitch from phase 26 + "
         f"HiFi-GAN V1): /v1/audio/speech {speech_s:.3f} s, a 22,050 Hz mono 16-bit WAV of "
         f"{len(pcm)} samples = {voc.hop_length} x {frames} frames, within {lsb} LSB of "
         f"synthesize; /v1/audio/transcriptions of a held-out {SECS:g} s tone clip: "
         + ", ".join(walls) + f", each text ({texts[0]} chars) equal to transcribe's, K1 18 and "
-        f"K2 1 launches a call")
+        f"K2 1 launches a call; {held}")
     return launches
 
 
 def phase_voice_agent(asr, fp, voc, k1, k2) -> dict:
     """28. `VoiceAgent(ModelASRService(phase 7's model), CallableLLMService(greedy
     generation of 16 tokens on Llama-3.2-1B, phase 24's seed-0 weights, the
-    byte tokenizer), NativeTTSService(FastPitch, HiFi-GAN))`: one `converse`
-    turn on the held-out clip, then one `push_audio` turn (the clip, then
-    0.6 s of silence). The user text equals `transcribe`'s of the same audio
-    through a WAV file, the history grows by 2 a turn, the reply audio is 256
-    x the mel frames of the reply's symbols, or, where the reply has no
-    symbol of the TTS tokenizer, the vocoder refuses the 0-frame mel
-    (ValueError). Returns the phase's K1, K2 launches."""
+    byte tokenizer, each id spelt as a letter or a space),
+    NativeTTSService(FastPitch, HiFi-GAN))`: one `converse` turn on the
+    held-out clip, then one `push_audio` turn (the clip, then 0.6 s of
+    silence). The user text equals `transcribe`'s of the same audio through
+    a WAV file, the history grows by 2 a turn, the reply has letters and its
+    audio is 256 x the mel frames of its symbols; each turn's K1 and K2
+    outputs are held against their plain versions on the turn's inputs. Then
+    a reply with no symbol of the TTS tokenizer ("€"): the vocoder refuses
+    the 0-frame mel (ValueError). Returns the phase's K1, K2 launches."""
     from nemo_tpu_torch.agents import (CallableLLMService, ModelASRService, NativeTTSService,
                                        VoiceAgent)
     from nemo_tpu_torch.data.audio_io import write_wav
@@ -3040,7 +3093,7 @@ def phase_voice_agent(asr, fp, voc, k1, k2) -> dict:
     agent = VoiceAgent(asr_service, llm, tts_service)
     clip = held_out_clip(asr)
     silence = np.zeros(int(0.6 * SR), np.float32)
-    launches, lines = {"k1": 0, "k2": 0}, []
+    launches, lines, calls = {"k1": 0, "k2": 0}, [], []
     for turn, audio in enumerate((clip, np.concatenate([clip, silence]))):
         for key in seconds:
             seconds[key] = 0.0
@@ -3050,7 +3103,7 @@ def phase_voice_agent(asr, fp, voc, k1, k2) -> dict:
             want = asr.transcribe([path])[0]
         k1.launches = k2.launches = 0
         history = len(agent.history)
-        try:
+        with recording_k1_k2(calls):
             if turn == 0:
                 out = agent.converse(clip)
             else:
@@ -3059,13 +3112,7 @@ def phase_voice_agent(asr, fp, voc, k1, k2) -> dict:
                 out = agent.push_audio(silence)
                 if out is None:
                     raise AssertionError("push_audio did not end the turn after 0.6 s of silence")
-            user, reply, reply_audio = out
-            case = "spoken"
-        except ValueError as e:  # the reply has no symbol: a 0-frame mel, refused
-            user, reply = agent.history[-2]["content"], agent.history[-1]["content"]
-            if fp.parse(reply or " ").shape[1] != 0:
-                raise
-            reply_audio, case = None, f"no symbol of the TTS tokenizer, the vocoder refused ({e})"
+        user, reply, reply_audio = out
         if user != want or len(agent.history) != history + 2:
             raise AssertionError(f"turn {turn}: user text {user!r} vs transcribe's {want!r}, "
                                  f"history {history} -> {len(agent.history)}")
@@ -3073,18 +3120,31 @@ def phase_voice_agent(asr, fp, voc, k1, k2) -> dict:
             raise AssertionError(f"turn {turn}: launches K1 {k1.launches}, K2 {k2.launches}")
         launches["k1"] += k1.launches
         launches["k2"] += k2.launches
-        if reply_audio is not None:
-            frames = fp.generate_spectrogram(fp.parse(reply or " ")).shape[2]
-            if len(reply_audio) != voc.hop_length * frames or not np.isfinite(reply_audio).all():
-                raise AssertionError(f"turn {turn}: {len(reply_audio)} samples for {frames} frames")
-            case += f", {len(reply_audio)} samples = {voc.hop_length} x {frames} frames"
+        symbols = fp.parse(reply).shape[1]
+        frames = fp.generate_spectrogram(fp.parse(reply)).shape[2] if symbols else 0
+        if (not any(c.isalpha() for c in reply) or len(reply_audio) != voc.hop_length * frames
+                or not np.isfinite(reply_audio).all()):
+            raise AssertionError(f"turn {turn}: reply {reply!r} ({symbols} symbols), "
+                                 f"{len(reply_audio)} samples for {frames} frames")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        NativeTTSService(fp, voc).synthesize(reply)  # again, at shapes already seen
+        warm_s = time.perf_counter() - t
         lines.append(f"turn {turn} ({'converse' if turn == 0 else 'push_audio'}): user text "
-                     f"({len(user)} chars) equal to transcribe's, reply {reply!r}: {case}; ASR "
-                     f"{seconds['asr']:.3f} s, LLM {seconds['llm']:.3f} s, TTS "
-                     f"{seconds['tts']:.3f} s")
+                     f"({len(user)} chars) equal to transcribe's, reply {reply!r} ({symbols} "
+                     f"symbols) spoken as {len(reply_audio)} samples = {voc.hop_length} x "
+                     f"{frames} frames; ASR {seconds['asr']:.3f} s, LLM {seconds['llm']:.3f} s, "
+                     f"TTS {seconds['tts']:.3f} s ({warm_s:.3f} s again on the same reply)")
+    held = hold_recorded("VoiceAgent", calls)
+    try:
+        NativeTTSService(fp, voc).synthesize("€")
+        raise AssertionError("a reply with no symbol was spoken: the 0-frame mel was not refused")
+    except ValueError as e:
+        refused = str(e)
     log(f"VoiceAgent (Conformer-Large CTC bf16 → Llama-3.2-1B greedy, {AGENT_TOKENS} tokens, "
         f"built in {build_s:.1f} s → FastPitch + HiFi-GAN V1): " + "; ".join(lines)
-        + f"; history {len(agent.history)} entries")
+        + f"; history {len(agent.history)} entries; {held}; a reply of no symbol (\"€\"): the "
+        f"vocoder refused the 0-frame mel ({refused})")
     del engine
     torch.cuda.empty_cache()
     return launches
@@ -3413,7 +3473,6 @@ def main() -> int:
     lap("phase 23 (decode bench)")
     server_launches = phase_llm_server(counters)
     lap("phase 24 (LLMServer)")
-    next(r for r in rows if r["name"] == "flash_attention")["launches"] += server_launches["k5"]
     t25 = time.perf_counter()
     phase_tts_exactness()
     lap("phase 25 (TTS exactness)")
@@ -3424,8 +3483,12 @@ def main() -> int:
     agent_launches = phase_voice_agent(ctc_model, fp, voc, k1, k2)
     lap("phase 28 (VoiceAgent)")
     log(f"time: phases 25-28 {time.perf_counter() - t25:.1f} s")
-    for row, key in zip(rows[:2], ("k1", "k2")):
-        row["launches"] += audio_launches[key] + agent_launches[key]
+    # `launches` in the kernels line is each kernel's main path's; the serving paths'
+    # own counts, each read just after its run, go on a line of their own
+    log("launches on the serving paths: " + "; ".join(
+        f"{path} " + ", ".join(f"{k.upper()} {n}" for k, n in counts.items() if n)
+        for path, counts in (("LLMServer", server_launches), ("AudioServer", audio_launches),
+                             ("VoiceAgent", agent_launches))))
     log(f"total: {time.perf_counter() - t0:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
