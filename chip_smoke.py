@@ -13,14 +13,18 @@ bench.py:bench_decode's geometry and the OpenAI-compatible server on
 Llama-3.2-1B (its scoring forward through K5); then speech synthesis:
 FastPitch at bench.py:bench_tts's config and HiFi-GAN V1, served with the
 calibrated Conformer-Large CTC (K1, K2) by the OpenAI audio server, and the
-voice-agent cascade of that ASR, Llama-3.2-1B and that TTS.
+voice-agent cascade of that ASR, Llama-3.2-1B and that TTS; then the MFU
+bench's training lines (scripts/train_mfu.py): GPT-551M in bf16 and with fp8
+training GEMMs (`ops/quant.py:quant_matmul`, `torch._scaled_mm`), and
+Llama-3.2-1B under clip + Adafactor, through K5-K7.
 
     python3 chip_smoke.py            # from the repository root; needs one CUDA card
     python3 chip_smoke.py --profile  # and torch.profiler breakdowns of one batch,
                                      # of calibration steps, of LLM training steps,
                                      # of SFT steps, of CP training steps, of one
                                      # RNNT batch, of RNNT head-fit steps, of
-                                     # decode steps and of a text → waveform call
+                                     # decode steps, of a text → waveform call and
+                                     # of GPT-551M and Llama-3.2-1B MFU steps
     torchrun --nproc-per-node 2 chip_smoke.py --cp-processes
                                      # only CP training over processes, one a card
                                      # (NCCL), against every rank in one process
@@ -69,10 +73,12 @@ Phases, each printing a line; any failure raises and exits non-zero:
    plain versions at B=2, S=2048 (H=32 over G=8 at dh 64, with no window and
    a window of 512; H=G=12 at dh 128, GPT-551M's head), bf16 and fp32, K5
    also at B=1, S=256, H=32 over G=8 at dh 64 (what `LLMServer.score` gives
-   it in phase 24), and their times at the training shape (B=8, H=32, G=8, S=2048, dh 64) beside
-   the plain versions' and SDPA's (is_causal, enable_gqa); o and each
-   gradient are held row by row (one query's o or dq, one key's dk or dv)
-   and by their relative norm, since causal rows shrink along the sequence;
+   it in phase 24); then at the training shape (B=8, S=2048: H=32 over
+   G=8 at dh 64 in fp32 and bf16, H=G=12 at dh 128 in bf16) against the
+   plain versions again and timed beside them and SDPA (is_causal,
+   enable_gqa); o and each gradient are held row by row (one query's o or
+   dq, one key's dk or dv) and by their relative norm, since causal rows
+   shrink along the sequence;
 10. LLM gradients in fp32: a 2-layer model at Llama-3.2-1B's width (the
    vocab cut to 8192), B=1 x S=256, on the card (K5-K7, full remat) and on
    the CPU (plain versions): the loss and every gradient;
@@ -205,14 +211,52 @@ Phases, each printing a line; any failure raises and exits non-zero:
    reply audio 256 x the frames of the reply's symbols, each turn's K1 and
    K2 outputs held against their plain versions as in phase 27; the ASR,
    LLM and TTS seconds of each turn; then a reply of no symbol ("€"), whose
-   0-frame mel the vocoder refuses.
+   0-frame mel the vocoder refuses;
+29. `ops/quant.py`'s products on the card against their plain versions at
+   GPT-551M's shapes (M = 8 x 2048; (K, N) of q_proj, o_proj, fc1, fc2) in
+   the modes fp8, fp8_e4m3 and int8: the casts of x, w and the gradient
+   bitwise the CPU's; `quant_matmul`'s forward (int8 bitwise), dgrad and
+   wgrad against the exact sums of the same quantised operands, each row
+   within 1e-3 of its max-abs in fp32 (2^-7 + 1e-3 in bf16), the norm
+   within 5e-4 (2e-3): Hopper's fp8 sums keep fewer bits than fp32; the
+   error with fast accumulation (which the port leaves off) and of the
+   fp8 scales in `_scaled_mm`'s epilogue against JAX's multiply after it
+   (printed); each product's and quantize's time beside bf16 torch.matmul;
+30. fp8 gradients in fp32: a 2-layer model at GPT-551M's width (vocab cut
+   to 8192), quantization="fp8", full remat, B=1 x 256, on the card (K5-K7,
+   `_scaled_mm`) and the CPU (plain versions); each side's own loss
+   printed, then the CPU replaying the card's quantised operands (its own
+   scales within 2e-3 relative, its values within 1e-2 of amax plus one
+   code step), for 3 seeds of parameters and tokens: the loss within 1e-5
+   relative and every gradient's max abs error within 2.5e-3 of its leaf's
+   max-abs (`QUANT_GRAD_TOL`, set from 8 seeds; not PERF.md §2's 1e-4: the
+   card's fp8 sums carry phase 29's error), each seed's three worst leaves
+   printed;
+31. bench.py:bench_llm on the port: `nemo_tpu_torch/scripts/train_mfu.py:run`
+   on GPT-551M (16 layers, d 1536, 12 heads x dh 128, FFN 6144, vocab
+   32,768, bf16, flash, full remat, AdamW) at B=8 x 2048 from seed 0, bf16
+   and then fp8, one warm-up and 20 timed steps: tokens/s, ms/step, MFU
+   against 989 TFLOP/s (fp8 also against 1,979), peak memory, the
+   fp8-vs-bf16 loss at the last common read (within 5 %); K5 32, K6 16 and
+   K7 16 launches a step, none of the other kernels, `_scaled_mm` 384 a
+   step in fp8 only;
+32. clip + Adafactor (`core/optim.py:clip_adafactor`) on the card against
+   the CPU: Llama-3.2-1B's widths cut to 2 layers and vocab 8192, the same
+   parameters and seeded gradients, 3 steps (the first clipped): the
+   global norms, every leaf's change (none unchanged) and the second
+   moments; then bench.py:bench_llm_1b on the port: `train_mfu.run` on
+   Llama-3.2-1B under clip + Adafactor, the same protocol and prints as
+   phase 31, its ms/step beside phase 12's AdamW step; K5 32, K6 16 and K7
+   16 launches a step.
 
 With --profile, one more batch of the transcription path, 6 more calibration
 steps, 2 more LLM training steps, 2 more SFT steps, 2 more CP training steps,
 one more RNNT batch (and its encoder and whole decode by the host's clock),
 6 more RNNT head-fit steps, one more decode bench chunk of each mode and one
-more B=8 text → waveform call run under torch.profiler, and their device
-time by kernel and the card's busy share of the wall time are printed. It
+more B=8 text → waveform call, one more GPT-551M step in bf16 and in fp8 and
+one more Llama-3.2-1B Adafactor step run under torch.profiler, and their
+device time by kernel and the card's busy share of the wall time are
+printed, with the 1B's optimizer steps alone (Adafactor, AdamW). It
 ends with a line of the serving paths' launches (phases 24, 27 and 28, each
 read just after its run), a JSON line of the kernels (each one's launches on
 its main path) and then
@@ -847,8 +891,10 @@ def phase_k5_k7(gen: torch.Generator):
     """K5, K6 and K7 against their plain versions at B=2, S=2048 (Llama's
     32 heads over 8 kv heads at dh 64, with no window and a window of 512;
     GPT-551M's 12 heads at dh 128); K5 also at the shape `LLMServer.score`
-    gives it (B=1, S=256, Llama's heads); then their times at the training
-    shape."""
+    gives it (B=1, S=256, Llama's heads); then, at the training shape
+    (B=8, S=2048), Llama's heads in fp32 and bf16 and, in bf16, GPT-551M's
+    (12 heads over 12 at dh 128), each checked again and timed
+    (`_time_k5_k7`). Returns the rows of both shapes."""
     from nemo_tpu_torch.ops.flash_attention import (_k5_launch, flash_attention,
                                                     flash_attention_backward_plain,
                                                     flash_attention_plain, flash_dkv, flash_dq,
@@ -859,7 +905,7 @@ def phase_k5_k7(gen: torch.Generator):
             for name, src, line in (("flash_attention", "flash_fwd", 77),
                                     ("flash_dq", "flash_bwd", 213),
                                     ("flash_dkv", "flash_bwd", 257))]
-    errs = {}  # kernel → worst bf16 max abs error
+    errs, errs128 = {}, {}  # kernel → worst bf16 max abs error (over all; at GPT-551M's heads)
     for (H, G, dh, window), dtype in ((c, d) for c in ((32, 8, 64, None), (32, 8, 64, 512),
                                                        (12, 12, 128, None))
                                       for d in (torch.float32, torch.bfloat16)):
@@ -886,6 +932,8 @@ def phase_k5_k7(gen: torch.Generator):
         if dtype == torch.bfloat16:
             for key, err in (("k5", err5), ("k6", grad_errs[0]), ("k7", max(grad_errs[1:]))):
                 errs[key] = max(errs.get(key, 0.0), err)
+                if dh == 128:
+                    errs128[key] = err
     for dtype in (torch.float32, torch.bfloat16):  # the serving path's score (phase 24)
         tol, ntol = ((1e-4, 1e-4), 1e-5) if dtype == torch.float32 else ((1e-2, 2e-2), 1e-2)
         q, k, v, _ = _gqa_inputs(gen, 1, 32, 8, SCORE_S, 64, dtype)
@@ -897,13 +945,51 @@ def phase_k5_k7(gen: torch.Generator):
         if dtype == torch.bfloat16:
             errs["k5"] = max(errs["k5"], err5)
 
-    H, G, dh = 32, 8, 64
+    # the checks and times at Llama's training shape, then (bf16) at GPT-551M's (phase 31's rows)
+    rows551 = [dict(row, name=f"{row['name']} (GPT-551M, dh 128)") for row in rows]
+    for H, G, dh, dtypes, out, err in ((32, 8, 64, (torch.float32, torch.bfloat16), rows, errs),
+                                       (12, 12, 128, (torch.bfloat16,), rows551, errs128)):
+        _time_k5_k7(gen, H, G, dh, dtypes, out, err)
+    torch.cuda.empty_cache()
+    return rows, rows551
+
+
+def _time_k5_k7(gen: torch.Generator, H: int, G: int, dh: int, dtypes, rows: list,
+                errs: dict) -> None:
+    """K5, K6 and K7 at the training paths' shape, B=8, S=2048, with H heads
+    over G at dh: held against their plain versions on the same inputs at
+    phase 9's tolerances (the persistent grids walk 4x the tiles of phase
+    9's B=2), then timed beside the plain versions and SDPA; fills `rows`
+    (the last dtype's numbers; max_abs_err the worse of `errs`, phase 9's
+    B=2 error, and this one)."""
+    from nemo_tpu_torch.ops.flash_attention import (_k5_launch, flash_attention,
+                                                    flash_attention_backward_plain,
+                                                    flash_attention_plain, flash_dkv, flash_dq,
+                                                    row_delta)
+
     scale, pairs = 1.0 / math.sqrt(dh), LLM_B * H * LLM_S * (LLM_S + 1) / 2
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
+        # phase 9's (K5 atol, rtol), gradients' tolerance of each row's max, relative norm
+        tol, gtol, ntol = (((1e-4, 1e-4), 1e-4, 1e-5) if dtype == torch.float32
+                           else ((1e-2, 2e-2), 3e-2, 1e-2))
         q, k, v, do = _gqa_inputs(gen, LLM_B, H, G, LLM_S, dh, dtype)
         o, lse = _k5_launch(q, k, v, scale, True, None)
         o = o.transpose(1, 2)
         args = (q, k, v, scale, True, None, lse, row_delta(o, do), do)
+        what = f"{str(dtype)[6:]} B={LLM_B} H={H} G={G} dh={dh} window=None"
+        o_fa = flash_attention(q, k, v, scale)  # the wrapper the model calls
+        o_ref, lse_ref = flash_attention_plain(q, k, v, scale, True, None)
+        err = [compare(f"K5 {what}", o_fa, o_ref, *tol)]
+        compare_rows(f"K5 {what} by row", o_fa, o_ref, tol[1], ntol)
+        compare(f"K5 {what} lse", lse, lse_ref, 1e-3, 1e-4)
+        del o_fa, o_ref, lse_ref
+        out = (flash_dq(*args), *flash_dkv(*args))
+        ref = flash_attention_backward_plain(q, k, v, scale, True, None, o, lse, do)
+        torch.cuda.synchronize()
+        grad_errs = [compare_rows(f"K{6 if name == 'dq' else 7} {what} {name}", x, r, gtol, ntol)
+                     for name, x, r in zip(("dq", "dk", "dv"), out, ref)]
+        err += [grad_errs[0], max(grad_errs[1:])]
+        del out, ref
         fast = dtype == torch.bfloat16
         ms = [cuda_ms(lambda: flash_attention(q, k, v, scale), iters=20 if fast else 3),
               cuda_ms(lambda: flash_dq(*args), iters=20 if fast else 3),
@@ -930,20 +1016,18 @@ def phase_k5_k7(gen: torch.Generator):
                   bound(elt * (3 * bq + 2 * bk) + 2 * rows_bytes, 6 * dh * pairs, dtype),
                   bound(elt * (2 * bq + 4 * bk) + 2 * rows_bytes, 8 * dh * pairs, dtype)]
         name = str(dtype)[6:]
-        log(f"SDPA {name} B={LLM_B} causal GQA: forward {lib_fwd:.4f} ms, backward "
-            f"{lib_bwd:.4f} ms, forward+backward {lib_both:.4f} ms")
+        log(f"SDPA {name} B={LLM_B} H={H} G={G} dh={dh} causal GQA: forward {lib_fwd:.4f} ms, "
+            f"backward {lib_bwd:.4f} ms, forward+backward {lib_both:.4f} ms")
         for i, (row, plain_ms, lib_ms) in enumerate(zip(rows, (plain_fwd, plain_bwd, plain_bwd),
                                                          (lib_fwd, lib_bwd, lib_bwd))):
             bound_ms, bound_by = bounds[i]
-            log(f"K{5 + i} {name} B={LLM_B} H={H} G={G} S={LLM_S}: kernel_ms={ms[i]:.4f} "
+            log(f"K{5 + i} {name} B={LLM_B} H={H} G={G} S={LLM_S} dh={dh}: kernel_ms={ms[i]:.4f} "
                 f"plain_ms({'forward' if i == 0 else 'whole backward'})={plain_ms:.4f} "
                 f"library_ms(SDPA {'forward' if i == 0 else 'backward'})={lib_ms:.4f} "
                 f"bound_ms={bound_ms:.4f} ({bound_by})")
-            row.update(max_abs_err=errs[f"k{5 + i}"], ms=ms[i], plain_ms=plain_ms,
+            row.update(max_abs_err=max(errs[f"k{5 + i}"], err[i]), ms=ms[i], plain_ms=plain_ms,
                        bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)  # bf16 last
         del q, k, v, do, o, lse, args, ql, kl, vl
-    torch.cuda.empty_cache()
-    return rows
 
 
 def _llm_cfg(**kw):
@@ -1048,7 +1132,7 @@ def phase_ce_grad_rounding() -> None:
 
 def phase_llm_training(counters: dict, profile: bool) -> dict:
     """This slice's path: Llama-3.2-1B train steps at B=8 x S=2048; returns
-    the launch counts of the 20 timed steps."""
+    the launch counts of the 20 timed steps and the ms a step."""
     from nemo_tpu_torch.llm.auto_configurator import model_flops_per_token
     from nemo_tpu_torch.models.llm.train import GPTTrainModule
 
@@ -1095,14 +1179,15 @@ def phase_llm_training(counters: dict, profile: bool) -> dict:
         raise AssertionError(f"LLM launch counts {launches}, expected {want}")
     if profile:
         profile_llm(mod, batches[:2])
-    return launches
+    return launches, 1e3 * wall / LLM_STEPS
 
 
 def profile_by_kind(fn, kinds, label: str, n_steps: int = 1) -> None:
     """`fn` (`n_steps` steps of work) under torch.profiler, device activity
     only: the kernel table, device ms a step by kind (`kinds`: (kind, pieces
-    of kernel names), the first match wins), the wall and kernel ms a step,
-    the device operations a step and the card's idle share."""
+    of kernel names), the first match wins), the kernels of the fp8 kinds
+    (`QUANT_KERNEL_KINDS`) by name, the wall and kernel ms a step, the
+    device operations a step and the card's idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1114,10 +1199,15 @@ def profile_by_kind(fn, kinds, label: str, n_steps: int = 1) -> None:
     log(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n_steps
-    groups = {}
+    groups, names = {}, {}
     for e in kernels:
         kind = next((k for k, keys in kinds if any(x in e.name for x in keys)), "other")
         groups[kind] = groups.get(kind, 0.0) + e.self_device_time_total / 1e3 / n_steps
+        if kind in (k for k, _ in QUANT_KERNEL_KINDS):
+            n, ms = names.get((kind, e.name), (0, 0.0))
+            names[(kind, e.name)] = (n + 1, ms + e.self_device_time_total / 1e3 / n_steps)
+    for (kind, name), (n, ms) in sorted(names.items(), key=lambda kv: -kv[1][1]):
+        log(f"profile, {label}, {kind}: {ms:.3f} ms in {n / n_steps:.0f} launches of {name[:160]}")
     log(f"profile, {label} by kind: " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in sorted(groups.items(), key=lambda kv: -kv[1])))
     log(f"profile, {label}: wall {wall_ms:.3f} ms, kernels {busy_ms:.3f} ms in "
@@ -3150,6 +3240,490 @@ def phase_voice_agent(asr, fp, voc, k1, k2) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# The MFU bench's training lines: GPT-551M in bf16 and fp8, Llama-3.2-1B
+# under clip + Adafactor (scripts/train_mfu.py; bench.py:bench_llm, bench_llm_1b)
+# --------------------------------------------------------------------------
+
+QUANT_MODES = ("fp8", "fp8_e4m3", "int8")
+QUANT_SHAPES = (("q_proj", 1536, 1536), ("o_proj", 1536, 1536), ("fc1", 1536, 12288),
+                ("fc2", 6144, 1536))  # GPT-551M's products (name, K, N) at M = B x S
+# a card product against its plain version (the exact fp32 sum of the same fp8 or int8
+# operands): each row within QUANT_ROW_TOL of its max-abs, the whole within QUANT_NORM_TOL
+# of its norm. Hopper's fp8 tensor cores keep fewer bits than fp32 between promotions to
+# fp32 (fast accumulation off): 1.28e-4 of the norm, 3.5e-4 of a row's max (a first run
+# on an H100 80GB HBM3 at 700 W); a bf16 output is also one step (up to 2^-7 of a value)
+# off wherever that error crosses a rounding boundary.
+QUANT_ROW_TOL = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -7 + 1e-3}
+QUANT_NORM_TOL = {torch.float32: 5e-4, torch.bfloat16: 2e-3}
+# phase 30: a gradient's max abs error, card against CPU with the card's quantised operands
+# replayed, over its leaf's max-abs. Over 8 seeds on an H100 80GB HBM3 at 700 W the worst
+# leaf (always the last layer's v_proj: its gradient passes o_proj's fp8 dgrad, attention
+# and its own fp8 wgrad, each ~3e-4 of a row's max off, phase 29) was 6.6e-4 to 1.15e-3 of
+# its max; a wrong scale, operand or tile moves a gradient by a large share of its max.
+QUANT_GRAD_TOL = 2.5e-3
+MFU_CHUNK = 10  # phases 31-32 read the loss every 10 steps and at the last
+MFU_STEPS = LLM_STEPS + 1  # train_mfu.run's steps: its one warm-up, then 20 timed
+# `_scaled_mm`'s cuBLAS kernels (nvjet_<a type><b type>..., q: e4m3, r: e5m2), then the
+# kernels typed fp8: the casts into fp8 and the copies (transposes) of fp8 tensors
+QUANT_KERNEL_KINDS = (("fp8 GEMMs (_scaled_mm)", ("nvjet_qq", "nvjet_qr", "nvjet_rq", "f8f8")),
+                      ("fp8 casts and transposes", ("Float8", "float8", "e4m3", "e5m2")))
+
+
+def _cast_equal(x: torch.Tensor, dtype: torch.dtype) -> int:
+    """`quantize` of x on the card against the CPU's on the same values:
+    codes and scale bitwise equal; returns the element count."""
+    from nemo_tpu_torch.ops.quant import quantize
+
+    q, s = quantize(x, dtype)
+    q_ref, s_ref = quantize(x.cpu(), dtype)
+    bits = (lambda t: t.view(torch.uint8)) if dtype != torch.int8 else (lambda t: t)
+    if float(s) != float(s_ref) or not torch.equal(bits(q.cpu()), bits(q_ref)):
+        raise AssertionError(f"quantize to {dtype}: the card's codes or scale differ from the "
+                             f"CPU's ({int((bits(q.cpu()) != bits(q_ref)).sum())} codes)")
+    return x.numel()
+
+
+def phase_quant_products(gen: torch.Generator) -> dict:
+    """29. `ops/quant.py`'s products on the card against their plain versions
+    at GPT-551M's shapes (M = 8 x 2048; q_proj, o_proj, fc1, fc2), in the
+    three training modes: the casts of x (bf16), w (the fp32 weight, as a
+    Linear's transposed view) and the gradient g (bf16) bitwise the CPU's;
+    `quant_matmul`'s forward, dgrad and wgrad against the plain products
+    of the same quantised operands (int8's forward bitwise, the rest each
+    row within `QUANT_ROW_TOL` of its max-abs and within `QUANT_NORM_TOL`
+    of the norm); printed with no limit, `_scaled_mm`'s error with fast
+    accumulation off and on, and with its scales in the epilogue against
+    the scales multiplied after it; each product's time (wgrad's and int8's
+    also of the bare GEMM) beside bf16 torch.matmul on the same shape.
+    Returns {shape: {key: ms}}."""
+    from nemo_tpu_torch.ops import quant
+
+    M, bad, times, cast_elems = LLM_B * LLM_S, [], {}, 0
+    one = torch.ones((), device="cuda")
+
+    def hold(what, out, ref, dtype):
+        try:
+            compare_rows(what, out, ref, QUANT_ROW_TOL[dtype], QUANT_NORM_TOL[dtype])
+        except AssertionError as e:
+            bad.append(str(e))
+
+    def tflops(K, N, ms):
+        return 2 * M * K * N / ms / 1e9
+
+    for name, K, N in QUANT_SHAPES:
+        x = torch.randn(M, K, generator=gen).to("cuda", torch.bfloat16)
+        weight = (0.02 * torch.randn(N, K, generator=gen)).cuda()  # a Linear's [out, in], fp32
+        g = torch.randn(M, N, generator=gen).to("cuda", torch.bfloat16)
+        xb, wb = x, weight.t().to(torch.bfloat16)
+        t = times.setdefault(name, {})
+        t["bf16_fwd"] = cuda_ms(lambda: xb @ wb, iters=10)
+        t["bf16_dgrad"] = cuda_ms(lambda: g @ wb.t(), iters=10)
+        t["bf16_wgrad"] = cuda_ms(lambda: g.t() @ xb, iters=10)
+        for mode in QUANT_MODES:
+            fwd_q = torch.int8 if mode == "int8" else quant.E4M3
+            bwd_q = quant.E4M3 if mode == "fp8_e4m3" else quant.E5M2
+            if mode != "fp8_e4m3":  # x and w take the same casts in both fp8 modes
+                cast_elems += _cast_equal(x, fwd_q) + _cast_equal(weight.t(), fwd_q)
+            if mode != "int8":
+                cast_elems += _cast_equal(g, bwd_q)
+            xr, wr = x.detach().requires_grad_(), weight.detach().requires_grad_()
+            y = quant.quant_matmul(xr, wr.t(), mode, torch.bfloat16)
+            dx, dw = torch.autograd.grad(y, (xr, wr), g)
+            qx, sx = quant.quantize(x, fwd_q)
+            qw, sw = quant.quantize(weight.t(), fwd_q)
+            what = f"{mode} {name} M={M} K={K} N={N}"
+            if mode == "int8":
+                acc = quant.int8_mm(qx, qw)
+                if not torch.equal(acc, quant.int8_mm_plain(qx, qw)):
+                    bad.append(f"{what}: _int_mm differs from the exact int8 product")
+                y_ref = (quant.int8_mm_plain(qx, qw).float() * (sx * sw)).to(torch.bfloat16)
+                if not torch.equal(y, y_ref):
+                    bad.append(f"{what}: the int8 forward differs from its plain version")
+                gb = g.to(torch.bfloat16)
+                wdq = (qw.float() * sw).to(torch.bfloat16)
+                xdq = (qx.float() * sx).to(torch.bfloat16)
+                hold(f"{what} dgrad", dx, (gb.float() @ wdq.float().t()).to(torch.bfloat16),
+                     torch.bfloat16)
+                hold(f"{what} wgrad", dw, gb.float().t() @ xdq.float(), torch.float32)
+                t["int8_fwd"] = cuda_ms(lambda: (quant.int8_mm(qx, qw).float() * (sx * sw)).to(
+                    torch.bfloat16), iters=10)
+                t["int8_gemm"] = cuda_ms(lambda: quant.int8_mm(qx, qw), iters=10)
+                t["int8_dgrad"] = cuda_ms(lambda: quant.f32_mm(gb, wdq.t()), iters=10)
+                t["int8_wgrad"] = cuda_ms(lambda: quant.f32_mm(gb.t(), xdq), iters=10)
+                t["int8_quantize_x"] = cuda_ms(lambda: quant.quantize(x, torch.int8), iters=10)
+            else:
+                qg, sg = quant.quantize(g, bwd_q)
+                hold(f"{what} forward", y, quant.fp8_mm_plain(qx, qw, sx, sw, torch.bfloat16),
+                     torch.bfloat16)
+                hold(f"{what} forward fp32", quant.fp8_mm(qx, qw, sx, sw, torch.float32),
+                     quant.fp8_mm_plain(qx, qw, sx, sw, torch.float32), torch.float32)
+                hold(f"{what} dgrad", dx,
+                     quant.fp8_mm_plain(qg, qw.t(), sg, sw, torch.bfloat16), torch.bfloat16)
+                hold(f"{what} wgrad", dw, quant.fp8_mm_plain(qg.t(), qx, sg, sx, torch.float32),
+                     torch.float32)
+                t[f"{mode}_fwd"] = cuda_ms(lambda: quant.fp8_mm(qx, qw, sx, sw, torch.bfloat16),
+                                           iters=10)
+                t[f"{mode}_dgrad"] = cuda_ms(lambda: quant.fp8_mm(qg, qw.t(), sg, sw,
+                                                                  torch.bfloat16), iters=10)
+                t[f"{mode}_wgrad"] = cuda_ms(lambda: quant.fp8_mm(qg.t(), qx, sg, sx,
+                                                                  torch.float32), iters=10)
+                t[f"{mode}_quantize_x"] = cuda_ms(lambda: quant.quantize(x, fwd_q), iters=10)
+                if mode == "fp8":
+                    # wgrad's product alone, its operands laid out beforehand
+                    qgt, qxc = qg.t().contiguous(), qx.t().contiguous().t()
+                    t["fp8_wgrad_gemm"] = cuda_ms(lambda: quant.fp8_mm(qgt, qxc, sg, sx,
+                                                                       torch.float32), iters=10)
+                    # fast accumulation, which the port leaves off, against the exact sum
+                    exact = quant.fp8_mm_plain(qx, qw, sx, sw, torch.float32)
+                    for fast in (False, True):
+                        y32 = torch._scaled_mm(qx, qw, sx, sw, out_dtype=torch.float32,
+                                               use_fast_accum=fast)
+                        rel = float(torch.linalg.vector_norm(y32 - exact)
+                                    / torch.linalg.vector_norm(exact))
+                        worst = float(((y32 - exact).abs()
+                                       / exact.abs().amax(-1, keepdim=True)).max())
+                        log(f"{what}: _scaled_mm use_fast_accum={fast} against the exact fp32 "
+                            f"sum: rel_norm_err={rel:.3e}, max {worst:.3e} of the row's max-abs")
+                    del qgt, qxc, exact, y32
+                    # the scales in the epilogue against JAX's multiply after
+                    folded = quant.fp8_mm(qx, qw, sx, sw, torch.float32)
+                    after = quant.fp8_mm(qx, qw, one, one, torch.float32) * (sx * sw)
+                    rel = float(((folded - after).abs()
+                                 / after.abs().amax(-1, keepdim=True)).max())
+                    flips = int((folded.to(torch.bfloat16) != after.to(torch.bfloat16)).sum())
+                    log(f"{what}: scales in _scaled_mm's epilogue vs multiplied after: "
+                        f"max {rel:.3e} of the row's max-abs, {flips} of {folded.numel()} bf16 "
+                        f"outputs differ")
+                    del folded, after
+                del qg
+            del xr, wr, y, dx, dw, qx, qw
+        log(f"products {name} (M={M}, K={K}, N={N}) ms (TFLOP/s): " + ", ".join(
+            f"{k} {v:.4f}" + ("" if "quantize" in k else
+                               f" ({tflops(K, N, v):.1f})") for k, v in t.items()))
+        del x, weight, g, xb, wb
+        torch.cuda.empty_cache()
+    log(f"quantize: {cast_elems:,} elements cast on the card bitwise as on the CPU")
+    if bad:
+        raise AssertionError("quantised products: " + "; ".join(bad))
+    return times
+
+
+@contextlib.contextmanager
+def _fp8_replay(record: list, counts: dict, scale_tol: float = 2e-3, tol: float = 1e-2):
+    """While the block runs, record every `ops/quant.py:quantize` of the path
+    (the card: `record` is filled with (q, scale) on the host), or replay
+    them (the CPU: each call takes the recorded pair of the same dtype and
+    size nearest its input). The CPU's own quantisation is checked first:
+    its scale within `scale_tol` relative of the card's, and each value it
+    stands for within `tol` of the tensor's amax plus a quarter of the
+    card's value (one code step at most) of the card's. The two devices'
+    inputs differ by the card's fp8 sums (phase 29: ~3e-4 of a row's max a
+    product), so codes move: one step where that crosses a rounding
+    boundary, several near zero, where the steps are small. `counts` gets
+    the codes that differ, all codes, the largest difference (of amax) and
+    the largest scale difference."""
+    from nemo_tpu_torch.ops import quant
+
+    own = quant.quantize
+    replay = len(record) > 0
+    unused = list(range(len(record))) if replay else []
+    counts.update(flips=0, codes=0, worst=0.0, scale_rel=0.0)
+
+    def recording(x, dtype):
+        q, scale = own(x, dtype)
+        record.append((q.cpu(), scale.cpu()))
+        return q, scale
+
+    def replaying(x, dtype):
+        q, scale = own(x, dtype)
+        cands = [i for i in unused if record[i][0].dtype == dtype
+                 and record[i][0].numel() == x.numel()]
+        i = min(cands, key=lambda j: float((record[j][0].float().reshape(x.shape) * record[j][1]
+                                            - x.float()).norm()))
+        unused.remove(i)
+        theirs, their_scale = record[i][0].reshape(x.shape), record[i][1]
+        rel = abs(float(scale) - float(their_scale)) / float(their_scale)
+        counts["scale_rel"] = max(counts["scale_rel"], rel)
+        if rel > scale_tol:
+            raise AssertionError(f"fp8 replay: a scale differs by {rel:.2e} relative "
+                                 f"(tolerance {scale_tol:g})")
+        ours_v, theirs_v = q.float() * scale, theirs.float() * their_scale
+        amax = float(theirs_v.abs().max())
+        diff = (ours_v - theirs_v).abs()
+        bad = int((diff > tol * amax + 0.25 * theirs_v.abs()).sum())
+        if bad:
+            raise AssertionError(f"fp8 replay: {bad} of {diff.numel()} values further from the "
+                                 f"card's than {tol:g} of amax and one code step")
+        counts["flips"] += int((q.view(torch.uint8) != theirs.view(torch.uint8)).sum())
+        counts["codes"] += diff.numel()
+        counts["worst"] = max(counts["worst"], float(diff.max()) / max(amax, 1e-30))
+        return theirs, their_scale
+
+    quant.quantize = replaying if replay else recording
+    try:
+        yield
+    finally:
+        quant.quantize = own
+    if replay and unused:
+        raise AssertionError(f"fp8 replay: {len(unused)} recorded quantisations left unused")
+
+
+
+def phase_quant_grad_exactness(tol: float = QUANT_GRAD_TOL, loss_tol: float = 1e-5) -> None:
+    """30. A 2-layer model at GPT-551M's width (hidden 1536, 12 heads x dh
+    128, FFN 6144; the vocab cut to 8192 as in phase 10), fp32,
+    quantization="fp8", flash, full remat, B=1 x S=256: the card (K5-K7,
+    `_scaled_mm`) against the CPU (plain versions), for seeds 0, 1 and 2
+    (parameters from the seed, tokens from RandomState(3 + seed)). Each
+    side's own loss (no limit: fp8 tie flips); then the card's pass records
+    every quantisation and the CPU's replays it (`_fp8_replay`): the loss
+    within `loss_tol` relative (PERF.md §2's) and every gradient's max abs
+    error within `tol` of its leaf's max-abs (`QUANT_GRAD_TOL`, not §2's
+    1e-4: the card's fp8 products carry Hopper's accumulation error).
+    Prints each seed's three worst leaves (error over max-abs)."""
+    from nemo_tpu_torch.models.llm.train import GPTTrainModule
+    from nemo_tpu_torch.scripts.train_mfu import make_cfg
+
+    cfg = dataclasses.replace(make_cfg("fp8", seq_length=256), num_layers=2, vocab_size=8192,
+                              compute_dtype="float32")
+    worst_all, bad = 0.0, []
+    for seed in range(3):
+        rng = np.random.RandomState(3 + seed)
+        tokens, labels = (torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, 256)))
+                          for _ in range(2))
+        cpu = GPTTrainModule(cfg, device="cpu", seed=seed)
+        card = GPTTrainModule(cfg, device="cuda", seed=seed)
+        card.model.load_state_dict(cpu.model.state_dict())
+        with torch.no_grad():
+            own = [float(m.loss(tokens.to(m.device), labels.to(m.device))) for m in (card, cpu)]
+        record, counts, out = [], {}, {}
+        for name, mod in (("cuda", card), ("cpu", cpu)):
+            with _fp8_replay(record, counts):
+                loss = mod.loss(tokens.to(mod.device), labels.to(mod.device))
+                grads = torch.autograd.grad(loss, mod.params)
+            out[name] = (float(loss.detach()), [g.cpu() for g in grads])
+        (loss, grads), (ref_loss, ref_grads) = out["cuda"], out["cpu"]
+        ratios = []  # (max abs error / the leaf's max-abs, leaf)
+        for (pname, _), g, ref in zip(cpu.model.named_parameters(), grads, ref_grads):
+            scale, err = float(ref.abs().max()), float((g - ref).abs().max())
+            ratio = err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
+            ratios.append((ratio, pname))
+            if not torch.isfinite(g).all() or ratio > tol:
+                bad.append(f"seed {seed} {pname}")
+        ratios.sort(reverse=True)
+        worst_all = max(worst_all, ratios[0][0])
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        if rel > loss_tol:
+            bad.append(f"seed {seed} loss rel {rel:.2e}")
+        log(f"GPT fp8, 2 layers at GPT-551M width, vocab cut to {cfg.vocab_size}, fp32, "
+            f"B=1 x S=256, seed {seed}, cuda (K5-K7, _scaled_mm, remat full) vs cpu (plain): "
+            f"own losses {own[0]:.6f} vs {own[1]:.6f} (rel "
+            f"{abs(own[0] - own[1]) / abs(own[1]):.2e}, no limit); the CPU replaying the card's "
+            f"{len(record)} quantisations ({counts['flips']} of its {counts['codes']:,} own codes "
+            f"differ, by at most {counts['worst']:.2e} of amax, its scales within "
+            f"{counts['scale_rel']:.2e} relative): loss {loss:.6f} vs {ref_loss:.6f} (rel "
+            f"{rel:.2e}, tolerance {loss_tol:g}); {len(ref_grads)} gradients, max_abs_err over "
+            f"the leaf's max-abs at worst " + ", ".join(f"{n} {r:.3e}" for r, n in ratios[:3])
+            + f" (tolerance {tol:g}; PERF.md §2's 1e-4)")
+        del cpu, card, record, out, grads, ref_grads
+        torch.cuda.empty_cache()
+    log(f"fp8 gradients over 3 seeds: worst {worst_all:.3e} of the leaf's max-abs, "
+        f"{worst_all / tol:.3f} of the tolerance {tol:g}")
+    if bad:
+        raise AssertionError(f"fp8 loss or gradients disagree: {bad}")
+
+
+def _mfu_runs(counters: dict, model: str, quants) -> tuple:
+    """`train_mfu.run` of `model` for each of `quants` at B=8 x 2048, its one
+    warm-up and 20 timed steps, every count set to 0 before each run and read
+    after: (results, launches, peak GiB) by quant."""
+    from nemo_tpu_torch.ops import quant
+    from nemo_tpu_torch.scripts import train_mfu
+
+    results, launches, peaks = {}, {}, {}
+    for q in quants:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        counts = dict(counters, fp8_mm=quant.fp8_mm)
+        for fn in counts.values():
+            fn.launches = 0
+        results[q] = train_mfu.run(None if q == "bf16" else q, MFU_STEPS, LLM_B, LLM_S,
+                                   chunk=MFU_CHUNK, model=model)
+        launches[q] = {name: fn.launches for name, fn in counts.items()}
+        peaks[q] = torch.cuda.max_memory_allocated() / 2**30
+    return results, launches, peaks
+
+
+def _mfu_line(what: str, r: dict, launches: dict, peak: float) -> float:
+    """Logs one run of `train_mfu.run`; returns its ms a step."""
+    ms = 1e3 * LLM_B * LLM_S / r["tokens_per_sec"]
+    fp8 = (f", MFU {100 * r['mfu_vs_fp8_peak']:.2f} % of the fp8 peak (1,979 TFLOP/s)"
+           if "mfu_vs_fp8_peak" in r else "")
+    log(f"main path, {what} ({r['quant']}): {r['tokens_per_sec']} tokens/s, {ms:.2f} ms/step, "
+        f"{r['tflops_per_sec']} TFLOP/s, MFU {100 * r['mfu_vs_bf16_peak']:.2f} % of 989 TFLOP/s"
+        f"{fp8}, peak_mem={peak:.2f} GiB, losses {r['losses']}, device {r['device']}, "
+        f"launches {launches}")
+    losses = [v for _, v in r["losses"]]
+    if not losses or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{what}: non-finite or missing losses {r['losses']}")
+    return ms
+
+
+def _want_launches(cfg, steps: int, fp8: bool) -> dict:
+    """K5 twice a layer a step (remat), K6 and K7 once, none of K1-K4 or
+    K8-K13; with fp8, `_scaled_mm` 24 times a layer a step (6 products:
+    2 forwards with remat, dgrad and wgrad)."""
+    L = cfg.num_layers
+    want = {f"k{i}": 0 for i in (1, 2, 3, 4, 8, 9, 10, 11, 12, 13)}
+    want.update(k5=2 * L * steps, k6=L * steps, k7=L * steps,
+                fp8_mm=24 * L * steps if fp8 else 0)
+    return want
+
+
+def phase_bench_llm(counters: dict, profile: bool) -> dict:
+    """31. bench.py:bench_llm on the port: `train_mfu.run` on GPT-551M at full
+    width and depth, B=8 x S=2048, bf16 then fp8, one warm-up and 20 timed
+    steps from seed 0: tokens/s, ms/step, MFU (fp8 also against the fp8
+    peak), peak memory, the fp8-vs-bf16 loss at their last common read
+    (within 5 % relative); K5 32, K6 16 and K7 16 launches a step, none of
+    K1-K4 or K8-K13, `_scaled_mm` 384 a step in fp8 and none in bf16.
+    Returns the launches of both runs, summed."""
+    from nemo_tpu_torch.llm.auto_configurator import _param_count
+    from nemo_tpu_torch.scripts import train_mfu
+
+    cfg = train_mfu.make_cfg()
+    results, launches, peaks = _mfu_runs(counters, "551m", ("bf16", "fp8"))
+    for q in ("bf16", "fp8"):
+        _mfu_line(f"bench_llm, GPT-551M ({_param_count(cfg):,.0f} parameters), B={LLM_B} x "
+                  f"S={LLM_S}, {LLM_STEPS} timed steps after 1", results[q],
+                  launches[q], peaks[q])
+        want = _want_launches(cfg, MFU_STEPS, q == "fp8")
+        if launches[q] != want:
+            raise AssertionError(f"GPT-551M {q} launch counts {launches[q]}, expected {want}")
+    line = train_mfu.overlay(results)
+    log("fp8 vs bf16: " + json.dumps(line))
+    if line is None or not line["rel_diff"] < 0.05:
+        raise AssertionError(f"fp8 vs bf16 loss overlay {line}")
+    if profile:
+        for q in ("bf16", "fp8"):
+            mod = train_mfu.build(None if q == "bf16" else q, "551m", LLM_S, 0)
+            batches = train_mfu.make_batches(mod.cfg, LLM_B, LLM_S, 0, mod.device)[:3]
+            mod.train_step(batches[0])
+            profile_by_kind(lambda: mod.train_step(batches[1]),
+                            QUANT_KERNEL_KINDS + LLM_KERNEL_KINDS,
+                            f"GPT-551M {q} step (B={LLM_B} x S={LLM_S})")
+            del mod, batches
+            torch.cuda.empty_cache()
+    return {k: launches["bf16"][k] + launches["fp8"][k] for k in launches["bf16"]}
+
+
+def phase_adafactor_exactness(tol: float = 1e-2, v_tol: float = 1e-5,
+                              norm_tol: float = 1e-6) -> None:
+    """32, first: clip + Adafactor (`core/optim.py:ClippedAdafactor`) on the
+    card against the CPU, on Llama-3.2-1B's widths cut to 2 layers and a
+    vocab of 8192 (stacked leaves: q/k/v/o [2, 2048, heads, 64] keep a full
+    second moment, the MLP's and the embedding are factored), the same
+    parameters and seeded gradients on both sides, 3 steps (global norm 5,
+    then 0.5 twice: the first clipped). After each step: the global norms
+    within `norm_tol` relative; every leaf changed on the card, its change
+    within `tol` of the CPU's largest change of the leaf (the parameter's
+    fp32 rounding alone moves a change by up to ~1e-3 of it). After the
+    last: every v_row, v_col and v within `v_tol` relative of the CPU's
+    (the same sums in other orders)."""
+    from nemo_tpu_torch.core.optim import clip_adafactor
+    from nemo_tpu_torch.models.llm.train import GPTTrainModule
+
+    cfg = _llm_cfg(num_layers=2, vocab_size=8192, seq_length=256)
+    mods = {dev: GPTTrainModule(cfg, device=dev, seed=0) for dev in ("cpu", "cuda")}
+    mods["cuda"].model.load_state_dict(mods["cpu"].model.state_dict())
+    opts = {dev: clip_adafactor(3e-4)(m.model) for dev, m in mods.items()}
+    names = [n for n, _ in mods["cpu"].model.named_parameters()]
+    gen = torch.Generator().manual_seed(5)
+    worst, norms, bad = 0.0, [], []
+    for norm_to in (5.0, 0.5, 0.5):
+        grads = [torch.randn(p.shape, generator=gen)
+                 * torch.exp(torch.randn(p.shape[-1], generator=gen)) for p in opts["cpu"].masters]
+        total = math.sqrt(sum(float(torch.linalg.vector_norm(g, dtype=torch.float64)) ** 2
+                              for g in grads))
+        grads = [g * (norm_to / total) for g in grads]
+        before = {dev: [m.double() for m in o.masters] for dev, o in
+                  (("cpu", opts["cpu"]), ("cuda", opts["cuda"]))}
+        norm = {"cuda": float(opts["cuda"].step([g.cuda() for g in grads])),
+                "cpu": float(opts["cpu"].step(grads))}
+        norms.append(norm["cuda"])
+        if abs(norm["cuda"] - norm["cpu"]) > norm_tol * norm["cpu"]:
+            bad.append(f"global norm {norm['cuda']} vs {norm['cpu']}")
+        for name, b_cpu, b_card, a_cpu, a_card in zip(
+                names, before["cpu"], before["cuda"], opts["cpu"].masters, opts["cuda"].masters):
+            d_cpu, d_card = a_cpu.double() - b_cpu, (a_card.double() - b_card).cpu()
+            scale = float(d_cpu.abs().max())
+            if scale == 0 or float(d_card.abs().max()) == 0:
+                bad.append(f"{name} unchanged")
+                continue
+            err = float((d_card - d_cpu).abs().max()) / scale
+            worst = max(worst, err)
+            if err > tol:
+                bad.append(f"{name} change off by {err:.2e} of its max")
+        del before, grads
+    worst_v = 0.0
+    for k in range(len(opts["cpu"].groups)):
+        for attr in ("v_row", "v_col", "v"):
+            ref, got = getattr(opts["cpu"], attr)[k], getattr(opts["cuda"], attr)[k]
+            if ref is not None:
+                worst_v = max(worst_v, float(((got.cpu() - ref).abs() / ref.abs()).max()))
+    if worst_v > v_tol:
+        bad.append(f"second moments off by {worst_v:.2e} relative")
+    n_fact = sum(d is not None for d in opts["cpu"].factored)
+    log(f"clip + Adafactor, Llama-3.2-1B widths, 2 layers, vocab {cfg.vocab_size} "
+        f"({len(names)} tensors, {len(opts['cpu'].groups)} JAX leaves, {n_fact} factored), 3 "
+        f"steps, cuda vs cpu: global norms {', '.join(f'{x:.4f}' for x in norms)}; every leaf "
+        f"changed; parameter changes within {worst:.3e} of each leaf's largest (tolerance "
+        f"{tol:g}); v_row, v_col, v within {worst_v:.3e} relative (tolerance {v_tol:g})")
+    if bad:
+        raise AssertionError("Adafactor on the card disagrees with the CPU: " + "; ".join(bad))
+    del mods, opts
+    torch.cuda.empty_cache()
+
+
+def phase_bench_llm_1b(counters: dict, adamw_ms: float, profile: bool) -> dict:
+    """32. bench.py:bench_llm_1b on the port: `train_mfu.run` on Llama-3.2-1B
+    (full width and depth, bf16, flash, full remat) under clip + Adafactor,
+    B=8 x S=2048, one warm-up and 20 timed steps from seed 0: tokens/s,
+    ms/step beside phase 12's AdamW step, MFU, peak memory; K5 32, K6 16
+    and K7 16 launches a step, none of the others. With `profile`, one more
+    step by kind, and the optimizer steps alone (Adafactor, then AdamW on
+    the same parameters) by CUDA events."""
+    from nemo_tpu_torch.core.optim import gpt_optimizer
+    from nemo_tpu_torch.scripts import train_mfu
+
+    cfg = train_mfu.make_cfg_1b()
+    results, launches, peaks = _mfu_runs(counters, "llama32_1b", ("bf16",))
+    ms = _mfu_line(f"bench_llm_1b, Llama-3.2-1B, clip + Adafactor, B={LLM_B} x S={LLM_S}, "
+                   f"{LLM_STEPS} timed steps after 1", results["bf16"],
+                   launches["bf16"], peaks["bf16"])
+    log(f"Llama-3.2-1B a step: Adafactor {ms:.2f} ms, AdamW (phase 12) {adamw_ms:.2f} ms")
+    want = _want_launches(cfg, MFU_STEPS, False)
+    if launches["bf16"] != want:
+        raise AssertionError(f"Llama-3.2-1B launch counts {launches['bf16']}, expected {want}")
+    if profile:
+        mod = train_mfu.build(None, "llama32_1b", LLM_S, 0)
+        batches = train_mfu.make_batches(mod.cfg, LLM_B, LLM_S, 0, mod.device)[:3]
+        mod.train_step(batches[0])
+        profile_by_kind(lambda: mod.train_step(batches[1]), LLM_KERNEL_KINDS,
+                        f"Llama-3.2-1B Adafactor step (B={LLM_B} x S={LLM_S})")
+        grads = [torch.full_like(p, 1e-4) for p in mod.params]
+        ada = cuda_ms(lambda: mod.optimizer.step(grads), iters=3)
+        adamw = gpt_optimizer(mod.params)
+        adam_ms = cuda_ms(lambda: adamw.step(grads), iters=3)
+        log(f"optimizer step alone, Llama-3.2-1B ({len(mod.params)} tensors, "
+            f"{len(mod.optimizer.groups)} JAX leaves): clip + Adafactor {ada:.2f} ms, clip + "
+            f"AdamW {adam_ms:.2f} ms")
+        del mod, batches, grads, adamw
+        torch.cuda.empty_cache()
+    return launches["bf16"]
+
+
 def cp_processes() -> int:
     """The process-group form under torchrun (one process a card, NCCL):
     Llama-3.2-1B at S = 16,384, cp = the number of processes, B=1, every rank
@@ -3426,11 +4000,11 @@ def main() -> int:
     del model, staged
     torch.cuda.empty_cache()
     lap("phases 5-8 (CTC exactness, calibration, main path)")
-    llm_rows = phase_k5_k7(gen)
+    llm_rows, llm551_rows = phase_k5_k7(gen)
     phase_llm_grad_exactness()
     phase_ce_grad_rounding()
     counters = {"k1": k1, "k2": k2, "k3": k3, "k4": k4, "k5": k5, "k6": k6, "k7": k7}
-    llm_launches = phase_llm_training(counters, args.profile)
+    llm_launches, adamw_ms = phase_llm_training(counters, args.profile)
     for row, key in zip(llm_rows, ("k5", "k6", "k7")):
         row["launches"] = llm_launches[key]
     rows += llm_rows
@@ -3483,6 +4057,22 @@ def main() -> int:
     agent_launches = phase_voice_agent(ctc_model, fp, voc, k1, k2)
     lap("phase 28 (VoiceAgent)")
     log(f"time: phases 25-28 {time.perf_counter() - t25:.1f} s")
+    del ctc_model, fp, voc
+    torch.cuda.empty_cache()
+    t29 = time.perf_counter()
+    phase_quant_products(gen)
+    lap("phase 29 (quantised products)")
+    phase_quant_grad_exactness()
+    lap("phase 30 (fp8 exactness)")
+    mfu_launches = phase_bench_llm(counters, args.profile)
+    for row, key in zip(llm551_rows, ("k5", "k6", "k7")):
+        row["launches"] = mfu_launches[key]
+    rows += llm551_rows
+    lap("phase 31 (bench_llm: GPT-551M bf16, fp8)")
+    phase_adafactor_exactness()
+    phase_bench_llm_1b(counters, adamw_ms, args.profile)
+    lap("phase 32 (bench_llm_1b: Llama-3.2-1B, Adafactor)")
+    log(f"time: phases 29-32 {time.perf_counter() - t29:.1f} s")
     # `launches` in the kernels line is each kernel's main path's; the serving paths'
     # own counts, each read just after its run, go on a line of their own
     log("launches on the serving paths: " + "; ".join(

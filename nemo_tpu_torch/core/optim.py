@@ -1,4 +1,5 @@
-"""clip_by_global_norm + AdamW with optax's semantics, on fp32 masters.
+"""clip_by_global_norm + AdamW, and clip_by_global_norm + Adafactor, with
+optax's semantics, on fp32 masters.
 
 Three chains of the JAX package run through `ClippedAdamW`:
 
@@ -12,6 +13,11 @@ Three chains of the JAX package run through `ClippedAdamW`:
   `core/lr_schedulers.py`'s CosineAnnealing) (`gpt_optimizer`);
 - FastPitch's synthetic fit (nemo_tpu/models/tts/fastpitch_model.py:112):
   `optax.adam(lr)`, no clipping and no decay (`adam`).
+
+One runs through `ClippedAdafactor`: the 1B line of the MFU bench
+(scripts/train_mfu.py:66-69), `optax.chain(optax.clip_by_global_norm(1.0),
+optax.adafactor(3e-4))` with optax 0.2.6's defaults (`clip_adafactor`, the
+factory `GPTTrainModule(optimizer=...)` takes).
 
 Where torch's own differ: torch's `clip_grad_norm_` adds 1e-6 to the norm
 and `torch.optim.AdamW` decays by lr·wd·p before the Adam step with a
@@ -28,8 +34,9 @@ fp32 leaf is its own master.
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -55,6 +62,18 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
 def constant_schedule(value: float) -> Callable[[int], float]:
     """optax.constant_schedule: `value` at every count."""
     return lambda count: value
+
+
+def _norms(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The 2-norm of each of `tensors` (fp32, on one device), stacked, fp32.
+    On the card one `_foreach_norm`; on the CPU each norm is summed in fp64,
+    since torch's CPU kernel sums an fp32 norm in fp32 (5e-3 relative off
+    for 67 M normal values, where clip_by_global_norm and Adafactor's
+    parameter RMS want fp32's precision)."""
+    if tensors[0].device.type == "cpu":
+        return torch.stack([torch.linalg.vector_norm(t, dtype=torch.float64)
+                            for t in tensors]).float()
+    return torch.stack(torch._foreach_norm(tensors))
 
 
 class ClippedAdamW:
@@ -87,7 +106,7 @@ class ClippedAdamW:
         if len(grads) != len(self.leaves):
             raise ValueError(f"{len(grads)} gradients for {len(self.leaves)} leaves")
         g: List[torch.Tensor] = [x.float() for x in grads]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        norm = torch.linalg.vector_norm(_norms(g))
         # optax: where(norm < max_norm, g, g / norm * max_norm)
         factor = torch.where(norm < self.MAX_NORM, torch.ones_like(norm), self.MAX_NORM / norm)
         g = torch._foreach_mul(g, factor)
@@ -128,3 +147,146 @@ def adam(leaves: Sequence[torch.Tensor], lr: float) -> ClippedAdamW:
     clipping (an infinite norm bound scales every gradient by 1)."""
     return ClippedAdamW(leaves, constant_schedule(lr), b1=0.9, b2=0.999, eps=1e-8,
                         weight_decay=0.0, max_norm=math.inf)
+
+
+def _factored_dims(shape: Sequence[int], min_dim_size_to_factor: int
+                   ) -> Optional[Tuple[int, int]]:
+    """optax's `_factored_dims`: (d1, d0), the second largest and the largest
+    axis in np.argsort's order, where the second largest has at least
+    `min_dim_size_to_factor` entries; else None."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _drop(shape: Sequence[int], axis: int) -> Tuple[int, ...]:
+    return tuple(d for i, d in enumerate(shape) if i != axis)
+
+
+class ClippedAdafactor:
+    """clip_by_global_norm(1.0), then optax.adafactor(schedule) with
+    optax 0.2.6's defaults (factored second moments over the two largest
+    axes where the second largest has at least 128 entries, decay 1 -
+    (count + 1)^-0.8, eps 1e-30, the update clipped to a block RMS of 1,
+    times the learning rate, times max(rms(p), 1e-3), no momentum and no
+    weight decay), on fp32 masters as `ClippedAdamW` keeps them, with its
+    interface: `step(grads)` takes one gradient per leaf and returns the
+    global norm; `schedule` and `count`.
+
+    Adafactor's statistics, its block RMS and its parameter scale are taken
+    over the leaves of the JAX tree, not over the port's tensors: `groups`
+    (`interop/jax_params.py:jax_leaf_groups`) says which of `leaves` make
+    up each JAX leaf and in which layout. The update runs on the stacked
+    leaf: each step gathers a leaf's gradients into the JAX layout (one copy,
+    layer by layer, of the leaf's size), computes the update there and
+    subtracts each layer's slice from its master through a view. So the 1B
+    model's q_proj [16, 2048, 32, 64] keeps a full second moment (its second
+    largest axis is 64) where a per-layer [2048, 2048] weight would be
+    factored, and GPT-551M's q_proj [16, 1536, 12, 128] is factored over
+    1536 and 128. The global norm and the parameter RMS are sums over the
+    parts, equal to the stacked leaf's up to the order of the sum."""
+
+    MAX_NORM = 1.0  # clip_by_global_norm
+    DECAY_RATE, EPS, MIN_DIM_SIZE_TO_FACTOR = 0.8, 1e-30, 128  # scale_by_factored_rms
+    CLIP = 1.0  # clip_by_block_rms
+    MIN_SCALE = 1e-3  # scale_by_param_block_rms
+
+    def __init__(self, leaves: Sequence[torch.Tensor], groups: Sequence,
+                 schedule: Callable[[int], float]):
+        self.leaves = list(leaves)
+        self.masters = [t.detach() if t.dtype == torch.float32 else t.detach().float()
+                        for t in self.leaves]
+        covered = sorted(i for g in groups for i in g.index)
+        if covered != list(range(len(self.leaves))):
+            raise ValueError("ClippedAdafactor: the groups must cover every leaf once")
+        self.groups = list(groups)
+        self.factored: List[Optional[Tuple[int, int]]] = []
+        self.v_row, self.v_col, self.v = [], [], []
+        device = self.masters[0].device
+        for g in self.groups:
+            dims = _factored_dims(g.shape, self.MIN_DIM_SIZE_TO_FACTOR)
+            self.factored.append(dims)
+            if dims is None:
+                self.v_row.append(None)
+                self.v_col.append(None)
+                self.v.append(torch.zeros(g.shape, device=device))
+            else:
+                d1, d0 = dims
+                self.v_row.append(torch.zeros(_drop(g.shape, d0), device=device))
+                self.v_col.append(torch.zeros(_drop(g.shape, d1), device=device))
+                self.v.append(None)
+        self.schedule = schedule
+        self.count = 0
+
+    @staticmethod
+    def _stacked(group, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The group's parts of `tensors` as the JAX leaf (a new fp32 tensor)."""
+        parts = [(tensors[i].t() if group.transposed else tensors[i]).reshape(group.part_shape)
+                 for i in group.index]
+        return torch.stack(parts) if group.stacked else parts[0].clone()
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """One update; returns the global norm of `grads` (before clipping)."""
+        if len(grads) != len(self.leaves):
+            raise ValueError(f"{len(grads)} gradients for {len(self.leaves)} leaves")
+        g = [x.float() for x in grads]
+        norm = torch.linalg.vector_norm(_norms(g))
+        # optax: select(norm < max_norm, t, t / norm * max_norm), as t / div * mul
+        clipped = norm >= self.MAX_NORM
+        div = torch.where(clipped, norm, torch.ones_like(norm))
+        mul = torch.where(clipped, torch.full_like(norm, self.MAX_NORM), torch.ones_like(norm))
+        # scale_by_factored_rms's decay in fp32, from the count before this step
+        decay = np.float32(1.0) - np.float32(self.count + 1) ** np.float32(-self.DECAY_RATE)
+        keep, take = float(decay), float(np.float32(1.0) - decay)
+        lr = self.schedule(self.count)  # scale_by_learning_rate's count, also from 0
+        for k, group in enumerate(self.groups):
+            u = self._stacked(group, g).div_(div).mul_(mul)
+            sq = (u * u).add_(self.EPS)
+            dims = self.factored[k]
+            if dims is None:
+                v = self.v[k].mul_(keep).add_(sq, alpha=take)
+                del sq
+                u.mul_(v.pow(-0.5))
+            else:
+                d1, d0 = dims
+                v_row = self.v_row[k].mul_(keep).add_(sq.mean(d0), alpha=take)
+                v_col = self.v_col[k].mul_(keep).add_(sq.mean(d1), alpha=take)
+                del sq
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_factor = (v_row / v_row.mean(reduced_d1, keepdim=True)).pow_(-0.5)
+                u.mul_(row_factor.unsqueeze(d0)).mul_(v_col.pow(-0.5).unsqueeze(d1))
+            # clip_by_block_rms, the learning rate, scale_by_param_block_rms
+            rms_u = torch.sqrt((u * u).mean())
+            u.div_(torch.clamp_min(rms_u / self.CLIP, 1.0)).mul_(lr)
+            masters = [self.masters[i] for i in group.index]
+            sq_sum = _norms(masters).square().sum()
+            rms_p = torch.sqrt(sq_sum / math.prod(group.shape))
+            u.mul_(torch.where(rms_p <= self.MIN_SCALE, torch.full_like(rms_p, self.MIN_SCALE),
+                               rms_p))
+            parts = u.unbind(0) if group.stacked else (u,)
+            for master, part in zip(masters, parts):  # p + (-u), through a view
+                master.sub_(part.reshape(master.shape[::-1]).t() if group.transposed
+                            else part.reshape(master.shape))
+        self.count += 1
+        for leaf, master in zip(self.leaves, self.masters):
+            if leaf.dtype != torch.float32:
+                leaf.copy_(master)
+        return norm
+
+
+def clip_adafactor(learning_rate: float = 3e-4) -> Callable:
+    """The factory `GPTTrainModule(optimizer=...)` takes for the MFU bench's
+    1B chain, optax.chain(optax.clip_by_global_norm(1.0),
+    optax.adafactor(learning_rate)) (scripts/train_mfu.py:66-69): model →
+    `ClippedAdafactor` over `list(model.parameters())`, grouped by the
+    model's JAX leaves."""
+    def make(model) -> ClippedAdafactor:
+        from nemo_tpu_torch.interop.jax_params import jax_leaf_groups
+
+        return ClippedAdafactor(list(model.parameters()), jax_leaf_groups(model),
+                                constant_schedule(learning_rate))
+    return make

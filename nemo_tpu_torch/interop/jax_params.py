@@ -28,6 +28,8 @@ port's parameters, whose names mirror the JAX tree. Only layouts change:
   (int8, contract + features in JAX, [in, out] in the port) and `scale`
   ((1,) * len(contract) + features in JAX, [out] in the port), reshaped
   only, the int8 kept int8
+- a training-mode GPT model's `ops/quant.py:TrainingQuantDense` leaves
+  (fp8, fp8_e4m3, int8): a Dense's `kernel`, in the same layout
 - a GPT model's layers (a ModuleList, `layers.{i}`) come from the scanned
   tree (`layers/...`, each leaf with a leading layer axis) or the unrolled
   one (`layer{i}/...`); export writes the form of the model's config
@@ -35,6 +37,10 @@ port's parameters, whose names mirror the JAX tree. Only layouts change:
 
 It is strict: a key the port needs and the tree lacks, or a key of the tree
 that the port does not take, raises.
+
+`jax_leaf_groups(model)` gives an optimizer that keeps statistics on the
+JAX tree's leaves (`core/optim.py:ClippedAdafactor`) each leaf's path and
+shape and the parameters it is made of, for both layer layouts.
 
 `export_jax_variables(model, values)` is the inverse: the port's variables
 (or any tensors keyed by their state names, such as gradients) as the JAX
@@ -46,7 +52,7 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -286,4 +292,53 @@ def jax_leaf_specs(model: nn.Module) -> Dict[Path_, Tuple[Tuple[int, ...], torch
                 out[("layers",) + path[2:]] = ((n,) + shape, dtype)
         else:
             out[(f"layer{path[1]}",) + path[2:]] = (shape, dtype)
+    return out
+
+
+class LeafGroup(NamedTuple):
+    """One leaf of the JAX "params" tree as the port's parameters make it up.
+    `index`: the positions in `list(model.parameters())` of its parts, layer
+    by layer; `part_shape`: each part's shape in the JAX layout (a Linear
+    weight [out, in] as `weight.t().reshape(part_shape)`, where `transposed`;
+    any other as `reshape(part_shape)`); `stacked`: the parts are stacked on a
+    new leading axis (the layers under nn.scan), so `shape` is (len(index),)
+    + part_shape, else `shape` is part_shape and there is one part."""
+    path: Path_
+    shape: Tuple[int, ...]
+    part_shape: Tuple[int, ...]
+    index: Tuple[int, ...]
+    transposed: bool
+    stacked: bool
+
+
+def jax_leaf_groups(model: nn.Module) -> List[LeafGroup]:
+    """Every leaf of the model's JAX "params" tree (the paths and shapes of
+    `jax_leaf_specs`, in the layer layout of the model's config) with the
+    trainable parameters it is made of. Raises for an int8_ptq model's
+    QuantDense and for convolution kernels, which no optimizer here trains."""
+    position = {id(p): i for i, p in enumerate(model.parameters())}
+    parts: Dict[Path_, Tuple[Tuple[int, ...], int, bool]] = {}
+    for key, target, mod, collection, path in _entries(model):
+        if collection != "params":
+            continue
+        if isinstance(mod, (QuantDense, nn.Conv1d, nn.Conv2d, nn.ConvTranspose1d)):
+            raise NotImplementedError(f"jax_leaf_groups: {key} ({type(mod).__name__})")
+        transposed = isinstance(mod, nn.Linear) and path[-1] == "kernel"
+        shape = (tuple(getattr(mod, "jax_kernel_shape", target.shape[::-1])) if transposed
+                 else tuple(target.shape))
+        parts[path] = (shape, position[id(target)], transposed)
+    layout = _gpt_layers(model)
+    groups: Dict[Path_, List[Tuple[Tuple[int, ...], int, bool]]] = {}
+    for path, part in parts.items():
+        if layout and path[0] == "layers":
+            path = (("layers",) + path[2:] if layout == "stacked"
+                    else (f"layer{path[1]}",) + path[2:])
+        groups.setdefault(path, []).append(part)
+    out = []
+    for path, members in groups.items():
+        stacked = path[0] == "layers" and layout == "stacked"
+        part_shape, _, transposed = members[0]
+        shape = (len(members),) + part_shape if stacked else part_shape
+        out.append(LeafGroup(path, shape, part_shape, tuple(i for _, i, _ in members), transposed,
+                             stacked))
     return out

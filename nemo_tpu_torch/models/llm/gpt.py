@@ -27,6 +27,9 @@ Serving (gpt.py:285-577, 1347): the model takes a KV cache (`init_kv_caches`,
 bf16/fp32 or int8 with per-token scales), written in place, and decodes
 by JAX's two routes (`Attention`); `quantization="int8_ptq"` makes every
 projection and an untied head int8-resident (`ops/quant.py:QuantDense`).
+The training modes `quantization` "fp8", "fp8_e4m3" and "int8" make every
+projection (q, k, v, o, fc1, fc2; not the head, as in JAX) a
+`ops/quant.py:TrainingQuantDense`, whose GEMM is `quant_matmul`.
 
 Parameter names mirror the JAX tree (`layers.3.attention.q_proj`,
 `final_norm.scale`, `embedding`), so `interop/jax_params.py` carries JAX
@@ -47,7 +50,7 @@ from torch.utils.checkpoint import checkpoint
 from nemo_tpu_torch.models.llm.config import GPTConfig
 from nemo_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_packed, pos_tile_ranges, seg_tile_ranges)
-from nemo_tpu_torch.ops.quant import dense_layer
+from nemo_tpu_torch.ops.quant import TRAINING_MODES, dense_layer
 from nemo_tpu_torch.ops.ring_attention import LocalRing, ring_flash_attention
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -57,9 +60,8 @@ def check_supported(cfg: GPTConfig) -> None:
     """Raise NotImplementedError naming the first field of `cfg` whose value
     selects a part of the JAX model that the port does not implement (MoE,
     MLA, MTP, softcapping, sinks, chunked or per-layer attention patterns,
-    qk norms, sandwich norms, other position embeddings, dropout, the
-    training quantization modes (fp8, int8; int8_ptq serving is ported),
-    other remat policies, LayerNorm,
+    qk norms, sandwich norms, other position embeddings, dropout, other
+    remat policies, LayerNorm,
     biases, bidirectional attention, RoPE scalings other than llama3, MLPs
     other than SwiGLU)."""
     ok = {
@@ -82,7 +84,7 @@ def check_supported(cfg: GPTConfig) -> None:
         "rope_local_base": cfg.rope_local_base is None,
         "hidden_dropout": not cfg.hidden_dropout,
         "attention_dropout": not cfg.attention_dropout,
-        "quantization": cfg.quantization in (None, "int8_ptq"),
+        "quantization": cfg.quantization in (None, "int8_ptq", *TRAINING_MODES),
         "cp_size": cfg.cp_size >= 1,
         "remat": cfg.remat in ("full", "none"),
         "normalization": cfg.normalization == "RMSNorm",
@@ -476,9 +478,10 @@ class GPTModel(nn.Module):
         self.layers = nn.ModuleList(TransformerLayer(cfg, ring) for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, cfg.layernorm_epsilon, pdt)
         if not cfg.share_embeddings_and_output_weights:
-            # int8-resident where the config serves int8 (gpt.py:1319-1327)
-            self.lm_head = dense_layer(cfg.quantization, (cfg.hidden_size,), (cfg.vocab_size,),
-                                       pdt)
+            # int8-resident where the config serves int8; the training modes
+            # keep the head full-precision (gpt.py:1319-1327)
+            self.lm_head = dense_layer("int8_ptq" if cfg.quantization == "int8_ptq" else None,
+                                       (cfg.hidden_size,), (cfg.vocab_size,), pdt)
 
     def uses_ring(self, S: int, segment_ids) -> bool:
         """Whether attention takes the ring, under JAX's conditions

@@ -9,7 +9,10 @@ linear + CE loss over the tied or untied head, `torch.autograd.grad` of
 every parameter, and `core/optim.py:gpt_optimizer` (clip 1.0, AdamW with
 weight decay 0.1 on every leaf; the parameters are fp32 and are their own
 masters) at the learning rate of `lr_schedule(step)`, 3e-4 by default
-(train.py:105-110). A packed batch (SFT, `data/fine_tuning.py`) also
+(train.py:105-110), or the optimizer that the `optimizer` factory makes
+from the model, as JAX's `optimizer` field replaces that chain (train.py:81,
+105-110): `core/optim.py:clip_adafactor(3e-4)` is the MFU bench's 1B
+chain. A packed batch (SFT, `data/fine_tuning.py`) also
 carries "loss_mask", "positions" and "segment_ids", which reach the model
 as train.py:loss_fn passes them. It returns {"loss", "grad_norm", "step"}
 as tensors on the device, without waiting for it, and the step's "lr" as a
@@ -54,11 +57,14 @@ class GPTTrainModule:
     "positions" and "segment_ids" [B, S], as numpy arrays or tensors.
     `lr_schedule` maps the step (from 0) to the learning rate. `mesh` is a
     ("dp", "cp") DeviceMesh (`parallel/mesh.py:make_mesh`) for context
-    parallelism over processes; dp must be 1."""
+    parallelism over processes; dp must be 1. `optimizer`, a factory: the
+    model → an optimizer over `list(model.parameters())` with `step(grads)`,
+    `schedule` and `count` (`core/optim.py:clip_adafactor`); given one,
+    `lr_schedule` is not read, as in JAX. `init_state` makes a fresh one."""
 
     def __init__(self, cfg: GPTConfig, device: Union[str, torch.device, None] = None,
                  seed: int = 0, lr_schedule: Optional[Callable[[int], float]] = None,
-                 mesh=None):
+                 mesh=None, optimizer: Optional[Callable[[torch.nn.Module], object]] = None):
         ring = None  # without a mesh, GPTModel's default: LocalRing(cfg.cp_size) where cp > 1
         if mesh is not None:
             if mesh["dp"].size() > 1:
@@ -78,6 +84,7 @@ class GPTTrainModule:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.lr_schedule = lr_schedule
+        self.make_optimizer = optimizer
         self.model = build_model(cfg, self.device, seed, ring)
         self._start()
 
@@ -90,7 +97,8 @@ class GPTTrainModule:
 
     def _start(self) -> None:
         self.params = list(self.model.parameters())
-        self.optimizer = gpt_optimizer(self.params, self.lr_schedule)
+        self.optimizer = (self.make_optimizer(self.model) if self.make_optimizer
+                          else gpt_optimizer(self.params, self.lr_schedule))
         self.step = 0
 
     def _over_processes(self) -> bool:

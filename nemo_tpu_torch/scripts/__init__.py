@@ -1,0 +1,1 @@
+"""Scripts of the PyTorch port (counterparts of the JAX package's scripts/)."""
