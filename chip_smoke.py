@@ -16,7 +16,10 @@ calibrated Conformer-Large CTC (K1, K2) by the OpenAI audio server, and the
 voice-agent cascade of that ASR, Llama-3.2-1B and that TTS; then the MFU
 bench's training lines (scripts/train_mfu.py): GPT-551M in bf16 and with fp8
 training GEMMs (`ops/quant.py:quant_matmul`, `torch._scaled_mm`), and
-Llama-3.2-1B under clip + Adafactor, through K5-K7.
+Llama-3.2-1B under clip + Adafactor, through K5-K7; then FastConformer-XL
+TDT (x8 dw_striding subsampling, the TDT joint, loss and frame-skipping
+greedy decode) tone calibration and transcription through K1, K3 and K4 at
+head dim 128.
 
     python3 chip_smoke.py            # from the repository root; needs one CUDA card
     python3 chip_smoke.py --profile  # and torch.profiler breakdowns of one batch,
@@ -30,13 +33,14 @@ Llama-3.2-1B under clip + Adafactor, through K5-K7.
                                      # (NCCL), against every rank in one process
     python3 chip_smoke.py --time-forward [--tree DIR]
                                      # only the bf16 forward kernels K1, K2, K5, K8
-                                     # and K11 of this checkout (or of DIR) timed,
-                                     # beside SDPA and the cuDNN pair, one JSON
-                                     # line: run two checkouts in turns to compare
+                                     # and K11 (and K1 at dh 128) of this checkout
+                                     # (or of DIR) timed, beside SDPA and the cuDNN
+                                     # pair, one JSON line: run two checkouts in
+                                     # turns to compare
     python3 chip_smoke.py --time-backward [--tree DIR]
                                      # the same for the bf16 backward kernels K3,
-                                     # K4, K6, K7, K9, K10, K12 and K13, beside
-                                     # SDPA's backward
+                                     # K4, K6, K7, K9, K10, K12 and K13 (and K3, K4
+                                     # at dh 128), beside SDPA's backward
 
 Phases, each printing a line; any failure raises and exits non-zero:
 
@@ -247,14 +251,37 @@ Phases, each printing a line; any failure raises and exits non-zero:
    moments; then bench.py:bench_llm_1b on the port: `train_mfu.run` on
    Llama-3.2-1B under clip + Adafactor, the same protocol and prints as
    phase 31, its ms/step beside phase 12's AdamW step; K5 32, K6 16 and K7
-   16 launches a step.
+   16 launches a step;
+33. K1, K3 and K4 at head dim 128 (FastConformer-XL: d 1024 over 8 heads)
+   against their plain versions, as phases 2 and 4 at dh 64 but each row
+   held to its own max (`compare_rows`): K1 at the transcription shape (B=32,
+   H=8, T'=376), K3 and K4 at the calibration shape (B=4), ragged and full
+   lengths, fp32 and bf16, with their times, device times, bounds, the plain
+   versions' times and SDPA's forward and backward given the bias;
+34. FastConformer-XL TDT in fp32 at full width, 2 layers, card against CPU,
+   B=2 x 5 s (one ragged), the blank bias shifted so that the random decode
+   emits and skips: the encoder output, the token and duration logits along
+   the CPU's greedy path (within 1e-3), the tokens (equal up to a near-tie),
+   the TDT loss (1e-5 relative) and every parameter's gradient (1e-4 of its
+   max), the CPU taking the card's ReLU pre-activations straight through;
+35. TDT calibration (bench.py:bench_rnnt on FastConformer-XL TDT, bf16, 24
+   layers): rounds of 150 framewise and 150 head-only TDT steps at B=4 x 30
+   s, U=40, each round ended by the blank-bias trim, until a held-out probe
+   decodes >= 20 tokens/utt (at most 3 rounds); K1 24 launches a framewise
+   step, a head-fit step and a decode, K3 and K4 24 a framewise step;
+36. the TDT main path: `transcribe_staged` of the calibrated model, B=32 x
+   30 s int16 held-out tone batches, one warm and 3 timed:
+   fastconformer_tdt_transcribe_rtfx, ms/batch, decoder loops per batch and
+   us a loop (encoder against the whole decode by the host's clock), peak
+   memory, more than 20 tokens/utt; K1 24 launches a batch.
 
 With --profile, one more batch of the transcription path, 6 more calibration
 steps, 2 more LLM training steps, 2 more SFT steps, 2 more CP training steps,
 one more RNNT batch (and its encoder and whole decode by the host's clock),
 6 more RNNT head-fit steps, one more decode bench chunk of each mode and one
-more B=8 text → waveform call, one more GPT-551M step in bf16 and in fp8 and
-one more Llama-3.2-1B Adafactor step run under torch.profiler, and their
+more B=8 text → waveform call, one more GPT-551M step in bf16 and in fp8,
+one more Llama-3.2-1B Adafactor step, one more TDT batch and 6 TDT head-fit
+steps run under torch.profiler, and their
 device time by kernel and the card's busy share of the wall time are
 printed, with the 1B's optimizer steps alone (Adafactor, AdamW). It
 ends with a line of the serving paths' launches (phases 24, 27 and 28, each
@@ -347,12 +374,16 @@ def device_ms(fn, iters: int, warmup: int = 1) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
+    for _ in range(3):  # late in a long run a trace sometimes holds no device event: again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            break
+    return total / 1e3 / iters
 
 
 def compare(what: str, out: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float) -> float:
@@ -498,13 +529,29 @@ def phase_hopper_check(gen: torch.Generator) -> None:
         compare(f"wgmma m64n{n}k16, b {layout}, a from {source}", c, ref, 1e-3, 1e-4)
 
 
-def phase_k1(gen: torch.Generator) -> dict:
+def _hold(what: str, out: torch.Tensor, ref: torch.Tensor, dh: int, tol: float,
+          atol: Optional[float] = None, rtol: float = 0.0) -> float:
+    """The check of a rel-pos kernel's output against its plain version: at
+    dh 64 as phases 2 and 4 hold it (`compare`: atol, rtol; atol defaults to
+    tol of the max-abs value), at dh 128 row by row (`compare_rows`: tol of
+    each row's max-abs value, the relative norm within tol as well, 1e-2 in
+    bf16)."""
+    if dh == 64:
+        return compare(what, out, ref, tol * float(ref.float().abs().max()) if atol is None
+                       else atol, rtol)
+    return compare_rows(what, out, ref, tol, min(tol, 1e-2))
+
+
+def phase_k1(gen: torch.Generator, T: int = 751, dh: int = 64) -> dict:
+    """2. (dh 64, T' = 751) and 33. (dh 128, T' = 376): K1 against its plain
+    version at the transcription shape, timed beside it and SDPA."""
     from nemo_tpu_torch.models.asr.modules.conformer import RelPositionalEncoding
     from nemo_tpu_torch.ops.flash_attention import (relpos_flash_attention,
                                                     relpos_flash_attention_plain)
 
-    H, T, dh = 8, 751, 64
+    H = 8
     D, scale = H * dh, 1.0 / math.sqrt(dh)
+    tag = "K1" if dh == 64 else "K1 dh128"
     _, pos_emb = RelPositionalEncoding(D)(torch.zeros(1, T, D))
     w_pos = torch.randn(D, D, generator=gen) / math.sqrt(D)
     p32 = (pos_emb @ w_pos).view(2 * T - 1, H, dh)  # [2T-1, H, dh], as the module builds it
@@ -512,7 +559,7 @@ def phase_k1(gen: torch.Generator) -> dict:
     base = [torch.randn(B, T, H, dh, generator=gen) for _ in range(4)]
     ragged = torch.tensor([T - 37 * (i % 9) for i in range(B)], dtype=torch.int32)
     full = torch.full((B,), T, dtype=torch.int32)
-    row = {"name": "relpos_flash_attention", "route": "cuda",
+    row = {"name": "relpos_flash_attention" + ("" if dh == 64 else "_dh128"), "route": "cuda",
            "source": "nemo_tpu_torch/csrc/relpos_flash.cu",
            "replaces": "nemo_tpu/ops/flash_attention.py:77"}
     for dtype, (atol, rtol) in KERNEL_TOL.items():
@@ -525,8 +572,8 @@ def phase_k1(gen: torch.Generator) -> dict:
             torch.cuda.synchronize()
             valid = (torch.arange(T, device="cuda")[None, :] < lens[:, None])[:, None, :].expand(
                 B, H, T)  # padded query rows are garbage by design
-            what = f"K1 {str(dtype)[6:]} lengths={'ragged' if lengths is ragged else 'full'}"
-            err = compare(what, o[valid], o_ref[valid], atol, rtol)
+            what = f"{tag} {str(dtype)[6:]} lengths={'ragged' if lengths is ragged else 'full'}"
+            err = _hold(what, o[valid], o_ref[valid], dh, rtol, atol, rtol)
             compare(what + " lse", lse[valid], lse_ref[valid], *LSE_TOL)
         del o_ref, lse_ref
         args = (qu, qv, k, v, p, lens, scale)  # the main path's lengths: full 30 s clips
@@ -545,7 +592,7 @@ def phase_k1(gen: torch.Generator) -> dict:
         n_bytes = elt * (5 * B * T * H * dh + (2 * T - 1) * H * dh) + 4 * B + 4 * B * H * T
         n_ops = 6 * H * dh * T * float(lens.sum())
         bound_ms, bound_by = bound(n_bytes, n_ops, dtype)
-        log(f"K1 {str(dtype)[6:]}: kernel_ms={ms:.4f} (device {dev_ms:.4f}) "
+        log(f"{tag} {str(dtype)[6:]}: kernel_ms={ms:.4f} (device {dev_ms:.4f}) "
             f"plain_ms={plain_ms:.4f} library_ms(SDPA+bias)={library_ms:.4f} (device "
             f"{library_dev_ms:.4f}) bound_ms={bound_ms:.4f} ({bound_by})")
         row.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -596,20 +643,24 @@ def phase_k2(gen: torch.Generator) -> dict:
     return row
 
 
-def phase_k3_k4(gen: torch.Generator):
+def phase_k3_k4(gen: torch.Generator, T: int = 751, dh: int = 64):
+    """4. (dh 64, T' = 751) and 33. (dh 128, T' = 376): K3 and K4 against the
+    plain backward at the calibration shape, timed beside it and SDPA's
+    backward."""
     from nemo_tpu_torch.ops.flash_attention import (relpos_flash_attention,
                                                     relpos_flash_attention_backward_plain,
                                                     relpos_flash_dkv, relpos_flash_dq, row_delta)
 
-    Bc, H, T, dh = FIT_BATCH, 8, 751, 64
+    Bc, H = FIT_BATCH, 8
     scale = 1.0 / math.sqrt(dh)
     p32, base = relpos_backward_inputs(gen, Bc, H, T, dh)  # p; qu, qv, k, v, dO
-    ragged = torch.tensor([751, 700, 613, 500], dtype=torch.int32)
+    ragged = torch.tensor([T, T - 51, T - 138, T - 251], dtype=torch.int32)
     full = torch.full((Bc,), T, dtype=torch.int32)
-    rows = [{"name": "relpos_flash_dq", "route": "cuda",
+    sfx, tag = ("", "") if dh == 64 else ("_dh128", " dh128")
+    rows = [{"name": "relpos_flash_dq" + sfx, "route": "cuda",
              "source": "nemo_tpu_torch/csrc/relpos_flash_bwd.cu",
              "replaces": "nemo_tpu/ops/flash_attention.py:213"},
-            {"name": "relpos_flash_dkv", "route": "cuda",
+            {"name": "relpos_flash_dkv" + sfx, "route": "cuda",
              "source": "nemo_tpu_torch/csrc/relpos_flash_bwd.cu",
              "replaces": "nemo_tpu/ops/flash_attention.py:257"}]
     names = ("dqu", "dqv", "dk", "dv", "dp")
@@ -629,9 +680,9 @@ def phase_k3_k4(gen: torch.Generator):
             torch.cuda.synchronize()
             errs = []
             for name, x, r in zip(names, out, ref):
-                what = (f"K{3 if name.startswith('dq') else 4} {str(dtype)[6:]} "
+                what = (f"K{3 if name.startswith('dq') else 4}{tag} {str(dtype)[6:]} "
                         f"lengths={'ragged' if lengths is ragged else 'full'} {name}")
-                errs.append(compare(what, x, r, tol * float(r.float().abs().max()), 0.0))
+                errs.append(_hold(what, x, r, dh, tol))
             del ref
         args = (qu, qv, k, v, p, lens, scale)  # the calibration's lengths: full 30 s clips
         k3 = lambda: relpos_flash_dq(*args, lse, delta, do)  # noqa: E731
@@ -660,7 +711,8 @@ def phase_k3_k4(gen: torch.Generator):
                    dtype)  # 6 products
         for row, ms, dev, (bound_ms, bound_by), err in (
                 (rows[0], ms3, dev3, b3, max(errs[:2])), (rows[1], ms4, dev4, b4, max(errs[2:]))):
-            log(f"{'K3' if row is rows[0] else 'K4'} {str(dtype)[6:]} B={Bc}: kernel_ms={ms:.4f} "
+            log(f"{'K3' if row is rows[0] else 'K4'}{tag} {str(dtype)[6:]} B={Bc}: "
+                f"kernel_ms={ms:.4f} "
                 f"(device {dev:.4f}) plain_ms(whole backward)={plain_ms:.4f} "
                 f"library_ms(SDPA backward+bias)={library_ms:.4f} (device "
                 f"{library_device_ms:.4f}) bound_ms={bound_ms:.4f} ({bound_by})")
@@ -2281,6 +2333,345 @@ def profile_rnnt(model, staged) -> None:
         f"operations, card idle {100 - 100 * busy_ms / wall_ms:.1f} % of the wall time")
 
 
+TDT_DURATIONS = (0, 1, 2, 3, 4)
+TDT_LAYERS = 24  # FastConformer-XL's depth: phases 35-36 run it whole
+TDT_EXACT_LAYERS = 2  # phase 34's depth, at full width
+# kinds of device kernels in a TDT batch or head-fit step, by a piece of their names
+TDT_KERNEL_KINDS = (
+    ("K1 rel-pos flash forward dh128", ("fwd_kernel<128>",)),
+    ("cuBLAS GEMM", ("nvjet", "gemm", "cutlass", "sm90_")),
+    ("cuDNN convolutions", ("conv", "cudnn", "xmma", "implicit")),
+    ("logcumsumexp / scans", ("scan", "cumsum", "logcumsumexp")),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise and copies", ("elementwise", "copy", "Memcpy", "Memset", "fill", "index",
+                                "gather", "scatter", "cat")))
+
+
+def _tdt_model(dtype: str, device, n_layers: int = TDT_LAYERS):
+    """FastConformer-XL with a TDT head, composed as bench.py:184-187 composes
+    Conformer-Transducer-Large: `fastconformer_ctc("xlarge")`'s encoder (x8
+    dw_striding through 256 channels, d 1024, 8 heads of 128, the conv
+    kernel of 31 it inherits) in `dtype` with the rel-pos flash kernels,
+    `conformer_transducer`'s decoder and joint (pred_hidden 640, 1 LSTM
+    layer, joint_hidden 640, greedy_batch) and durations (0, 1, 2, 3, 4);
+    seed 0; `n_layers` of the encoder's 24."""
+    from nemo_tpu_torch.core.config import ConfigDict
+    from nemo_tpu_torch.models.asr.configs import conformer_transducer, fastconformer_ctc
+    from nemo_tpu_torch.models.asr.rnnt_models import EncDecRNNTModel
+
+    cfg = fastconformer_ctc("xlarge")
+    cfg.encoder.update(compute_dtype=dtype, att_impl="decomposed_flash", n_layers=n_layers)
+    head = conformer_transducer("xlarge")
+    cfg.decoder, cfg.joint, cfg.decoding = head.decoder, head.joint, head.decoding
+    cfg.model_defaults = ConfigDict(tdt_durations=TDT_DURATIONS)
+    return EncDecRNNTModel(cfg, device=device, seed=0)
+
+
+def tdt_path(model, e: torch.Tensor, n: int, tokens: torch.Tensor, count: int):
+    """Replay one row's TDT greedy decode from its tokens: the (frame, label)
+    points where the decoder evaluated the joint, in order, and the token and
+    duration logits there (`model`'s prediction net over the tokens and its
+    joint on `e`, the row's projected encoder output [T', J]). Raises if the
+    replay's argmax decisions do not give back `tokens`."""
+    joint, blank, durs = model.joint, model.blank_id, model.durations
+    pp = joint.project_pred(model.prediction(tokens[None, :count].long())[0])  # [U+1, J]
+    t = u = 0
+    points, tok_rows, dur_rows = [], [], []
+    while t < n and len(points) < 2 * e.shape[0]:
+        tok, dur = joint.from_projected(e[t], pp[u])
+        points.append((t, u))
+        tok_rows.append(tok)
+        dur_rows.append(dur)
+        k, d = int(tok.argmax()), durs[int(dur.argmax())]
+        if k != blank:
+            if u >= count or k != int(tokens[u]):
+                raise AssertionError(f"the replay emits {k} at frame {t}, label {u}, where the "
+                                     "decode did not")
+            u += 1
+        else:
+            d = max(d, 1)
+        t += d
+    if u != count:
+        raise AssertionError(f"the replay emits {u} labels, the decode {count}")
+    return points, torch.stack(tok_rows), torch.stack(dur_rows)
+
+
+def tdt_blank_shift(model, enc: torch.Tensor, n: torch.Tensor) -> float:
+    """An offset for the blank logit's bias under which a random-init TDT
+    model's greedy decode of `enc` [B, T', H] (`n` valid frames a row) both
+    emits and skips: of the offsets -8, -7.5, .., 8, the one whose least
+    balanced row is furthest from both ends (the largest min over rows of
+    min(tokens, frames - tokens)), the nearest to 0 among equals. The
+    model's bias is left as it was."""
+    bias, blank = model.joint.out_proj.bias, model.blank_id
+    base, best = float(bias[blank]), (-1, 0.0, 0.0)
+    for shift in np.arange(-8.0, 8.25, 0.5).tolist():
+        bias[blank] = base + shift
+        _, c = model.greedy_decode(enc, n)
+        best = max(best, (int(torch.minimum(c.long(), n.long() - c.long()).min()), -abs(shift),
+                          shift))
+    bias[blank] = base
+    return best[2]
+
+
+def phase_tdt_exactness(k1, k3, k4, tol: float = 1e-3, grad_tol: float = 1e-4) -> None:
+    """34. One seeded FastConformer-XL TDT model at full width and 2 layers,
+    fp32, on the card (K1, K3, K4 at dh 128) and on the CPU (plain
+    versions), at B=2 x 5 s (one ragged), the blank bias of both shifted by
+    the CPU's `tdt_blank_shift`: the encoder output on valid frames within
+    `tol`; the token and duration logits along the CPU's greedy path
+    (`tdt_path`) within `tol`; the card's tokens equal to the CPU's up to the
+    first difference, and that only after a point of the CPU's path where
+    its top-2 token or duration logits are within 2 tol (phase 18's
+    near-tie rule). Then the TDT loss of the full joint on both devices'
+    passes from the CPU's mel features (U = 8 and 5 random labels): the
+    value within 1e-5 relative, and every parameter's gradient (encoder,
+    prediction net, joint) within `grad_tol` of its max-abs value plus 1e-6
+    of the largest (leaves whose exact gradient is 0, as linear_k's bias).
+    In the pass whose gradients are compared the CPU takes the card's
+    pre-activations of every ReLU (the subsampling's conv0, pw1, pw2 and the
+    joint's sum of enc_proj and pred_proj) straight through, as phases 19
+    and 25 do: a gate at a near-tie of the two devices' sums opens on one
+    device only."""
+    pcm = torch.from_numpy(speechlike(2, int(5 * SR), np.random.RandomState(5)))
+    lens = torch.tensor([5 * SR, 61000], dtype=torch.int32)
+    models, projected, launches = {}, {}, {}
+    for device in (CARD, "cpu"):
+        model = _tdt_model("float32", device, TDT_EXACT_LAYERS)
+        with torch.no_grad():
+            k1.launches = 0
+            enc, n = model.encode(*model.mel_features(pcm.to(device), lens.to(device)))
+            launches[device] = k1.launches
+            projected[device] = (enc, n, model.joint.project_enc(enc))
+        models[device] = model
+    if launches != {CARD: TDT_EXACT_LAYERS, "cpu": 0}:
+        raise AssertionError(f"K1 launches per encoder forward: {launches}")
+    with torch.no_grad():
+        shift = tdt_blank_shift(models["cpu"], *projected["cpu"][:2])
+    out = {}
+    for device, model in models.items():
+        with torch.no_grad():
+            model.joint.out_proj.bias[model.blank_id] += shift
+        tokens, counts = model.decode(pcm.to(device), lens.to(device))
+        enc, n, e = projected[device]
+        out[device] = [x.cpu() for x in (enc.float(), n, tokens, counts)] + [e]
+    (enc, n, tokens, counts, e), (ref, ref_n, ref_tokens, ref_counts, ref_e) = (out[CARD],
+                                                                             out["cpu"])
+    if not torch.equal(n, ref_n):
+        raise AssertionError(f"frame lengths differ: {n} vs {ref_n}")
+    if not bool(((ref_counts > 0) & (ref_counts < ref_n)).all()):
+        raise AssertionError(f"the CPU's decode is degenerate after the blank shift {shift:+.2f}: "
+                             f"tokens {ref_counts.tolist()} for frames {ref_n.tolist()}")
+    enc_err = max(float((enc[b, :t] - ref[b, :t]).abs().max()) for b, t in enumerate(n.tolist()))
+    logit_err, points, same = 0.0, 0, []
+    for b, t in enumerate(n.tolist()):
+        with torch.no_grad():
+            path, ref_tok, ref_dur = tdt_path(models["cpu"], ref_e[b], t, ref_tokens[b],
+                                              int(ref_counts[b]))
+            ts, us = (torch.tensor(x) for x in zip(*path))
+            m = models[CARD]
+            pp = m.joint.project_pred(m.prediction(ref_tokens[b:b + 1, :int(ref_counts[b])]
+                                                .long().to(CARD))[0])
+            tok, dur = (x.cpu() for x in m.joint.from_projected(e[b, ts.to(CARD)],
+                                                                pp[us.to(CARD)]))
+        logit_err = max(logit_err, float((tok - ref_tok).abs().max()),
+                        float((dur - ref_dur).abs().max()))
+        points += len(path)
+        got, want = tokens[b, :int(counts[b])], ref_tokens[b, :int(ref_counts[b])]
+        k = min(len(got), len(want))
+        diff = (got[:k] != want[:k]).nonzero()
+        first = int(diff[0]) if len(diff) else (k if len(got) != len(want) else None)
+        same.append(first is None)
+        if first is not None:  # allowed only after a near-tie of the CPU's joint
+            upto = us <= first
+            gaps = [x[upto].topk(2, dim=-1).values for x in (ref_tok, ref_dur)]
+            if not any(bool(((g[:, 0] - g[:, 1]) < 2 * tol).any()) for g in gaps):
+                raise AssertionError(f"row {b}: tokens differ at label {first}, not after a "
+                                     "near-tie of the CPU's joint")
+    log(f"tdt fp32, FastConformer-XL width x {TDT_EXACT_LAYERS} layers, cuda (K1 dh128) vs cpu "
+        f"(plain), B=2 x 5 s, blank bias shifted by {shift:+.2f}: max_abs_enc_diff="
+        f"{enc_err:.3e}, max_abs_joint_logit_diff={logit_err:.3e} (token and duration) at the "
+        f"CPU's {points} path points (tolerance {tol:g}), tokens {ref_counts.tolist()} (cpu) "
+        f"and {counts.tolist()} (cuda) for frames {ref_n.tolist()}, identical rows {sum(same)}/2")
+    if enc_err > tol or logit_err > tol or not torch.isfinite(enc).all():
+        raise AssertionError("whole-model TDT outputs disagree")
+
+    gen = torch.Generator().manual_seed(6)
+    targets = torch.randint(1, 28, (2, 8), generator=gen)
+    t_len = torch.tensor([8, 5])
+    with torch.no_grad():
+        feats = models["cpu"].mel_features(pcm, lens)
+    relus = ("encoder.pre_encode.conv0", "encoder.pre_encode.pw1", "encoder.pre_encode.pw2",
+             "joint.enc_proj", "joint.pred_proj")
+    value, grads, card = {}, {}, {}
+    for device in (CARD, "cpu"):
+        model = models[device]
+        args = [x.to(device) for x in (*feats, targets, t_len)]
+
+        def loss_fn():
+            logits, enc_len = model(*args[:3])
+            return model.loss(logits, args[2], enc_len, args[3])
+
+        with torch.no_grad():
+            value[device] = float(loss_fn())
+        hooks = []
+        for name in relus:
+            if device == CARD:
+                def hook(mod, inputs, output, name=name):
+                    card[name] = output.detach().cpu()
+            else:
+                def hook(mod, inputs, output, name=name):
+                    return output + (card[name] - output).detach()
+            hooks.append(model.get_submodule(name).register_forward_hook(hook))
+        names, leaves = zip(*model.named_parameters())
+        k3.launches = k4.launches = 0
+        grads[device] = [g.cpu() for g in torch.autograd.grad(loss_fn(), leaves)]
+        launches[device] = (k3.launches, k4.launches)
+        for h in hooks:
+            h.remove()
+    if launches[CARD] != (TDT_EXACT_LAYERS, TDT_EXACT_LAYERS):
+        raise AssertionError(f"K3, K4 launches of the backward: {launches[CARD]}")
+    floor = 1e-6 * max(float(r.abs().max()) for r in grads["cpu"])
+    worst, bad = 0.0, []
+    for name, g, r in zip(names, grads[CARD], grads["cpu"]):
+        limit = grad_tol * float(r.abs().max()) + floor
+        err = float((g - r).abs().max())
+        worst = max(worst, err / limit)
+        if not torch.isfinite(g).all() or err > limit:
+            bad.append(name)
+    rel = abs(value[CARD] - value["cpu"]) / abs(value["cpu"])
+    log(f"tdt loss fp32 (full joint, U=8): {value[CARD]:.6f} (cuda) vs {value['cpu']:.6f} "
+        f"(cpu), rel diff {rel:.2e} (tolerance 1e-5); {len(names)} parameters' gradients "
+        f"(K3, K4 dh128 on the card), worst at {worst:.3f} of its tolerance ({grad_tol:g} of "
+        f"the leaf's max-abs + {floor:.1e})")
+    if rel > 1e-5 or bad:
+        raise AssertionError(f"the TDT loss or its gradients disagree: {bad}")
+
+
+def phase_tdt_calibration(counters: dict):
+    """35. bench.py:bench_rnnt's calibration on FastConformer-XL TDT (bf16,
+    24 layers): rounds of 150 framewise steps (through a linear probe) and
+    150 head-only TDT steps (the encoder frozen) at B=4 x 30 s, U=40, each
+    round ended by the blank-bias trim, until a held-out probe decodes >= 20
+    tokens/utt (at most 3 rounds). Launches: K1 24 a framewise step, a
+    head-fit step and a decode (the trim's and the probe's); K3 and K4 24 a
+    framewise step; K2 none (dw_striding is cuDNN's)."""
+    from nemo_tpu_torch.models.asr.synthetic import calibrated_tone_batches
+
+    model = _tdt_model("bfloat16", None)
+    n_params = sum(p.numel() for p in model.parameters())
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with rnnt_calls(model) as calls:
+        staged, density, rounds = calibrated_tone_batches(
+            model, B, SECS, RNNT_UTT_TOKENS, RNNT_TIMED, fit_steps=RNNT_FIT_STEPS,
+            density_floor=RNNT_DENSITY_FLOOR, fit_batch=FIT_BATCH, log=log)
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    fits = [i for i, (kind, _) in enumerate(calls) if kind == "fit"]
+    if len(fits) != len(rounds):
+        raise AssertionError(f"{len(fits)} head fits in {len(rounds)} calibration rounds")
+    ends = fits[1:] + [len(calls)]
+    for i, r in enumerate(rounds):  # a round: its framewise steps, its head fit, its decodes
+        r["head_fit_s"] = calls[fits[i]][1]
+        r["framewise_s"] = r["seconds"] - r["head_fit_s"]
+        r["decodes"] = sum(kind == "decode" for kind, _ in calls[fits[i]:ends[i]])
+        log(f"tdt calibration round {i}: framewise {1e3 * r['framewise_s'] / r['steps']:.2f} "
+            f"ms/step, head fit {1e3 * r['head_fit_s'] / r['steps']:.2f} ms/step (B={FIT_BATCH} "
+            f"x {SECS:g} s, U={RNNT_UTT_TOKENS}), final framewise loss {r['loss']:.4f}, trim "
+            f"delta {r['trim_delta']:+.4f} -> {r['trim_density']:.1f} tokens/utt, probe density "
+            f"{r['density']:.1f} tokens/utt, {r['decodes']} decodes, "
+            f"peak_mem={r['peak_mem_gib']:.2f} GiB")
+    steps = RNNT_FIT_STEPS * len(rounds)
+    decodes = sum(r["decodes"] for r in rounds)
+    want = {"k1": TDT_LAYERS * (2 * steps + decodes), "k2": 0, "k3": TDT_LAYERS * steps,
+            "k4": TDT_LAYERS * steps}
+    log(f"tdt calibration, FastConformer-XL TDT ({n_params / 1e6:.1f} M parameters): "
+        f"{len(rounds)} round(s), {steps} framewise and {steps} head-fit steps, {decodes} "
+        f"decodes, {wall:.1f} s in all, probe density {density:.1f} tokens/utt, launches "
+        f"{launches}")
+    if launches != want:
+        raise AssertionError(f"tdt calibration launch counts {launches}, expected {want}")
+    return model, staged, launches
+
+
+def phase_tdt_main_path(model, staged, k1, k2, profile: bool) -> dict:
+    """36. `transcribe_staged` of the calibrated FastConformer-XL TDT over
+    held-out tone batches (B=32 x 30 s int16, make_eval_batch seeds 100 + i):
+    one warm batch and 3 timed ones; more than 20 tokens/utt (bench.py:214),
+    K1 24 launches a batch, K2 none."""
+    model.transcribe_staged(staged[:1])  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = k2.launches = 0
+    with rnnt_calls(model) as calls:
+        t0 = time.perf_counter()
+        texts = model.transcribe_staged(staged[1:])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {"k1": k1.launches, "k2": k2.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rtfx = B * SECS * RNNT_TIMED / wall
+    density = sum(map(len, texts)) / len(texts)
+    loops = [n for _, n in calls]
+    log(f"tdt main path, transcribe_staged bf16 B={B} x {SECS:g} s, FastConformer-XL TDT, "
+        f"calibrated weights, held-out tone audio, {RNNT_TIMED} timed batches: "
+        f"fastconformer_tdt_transcribe_rtfx={rtfx:.1f}, {1e3 * wall / RNNT_TIMED:.1f} ms/batch, "
+        f"{density:.1f} tokens/utt, TDT decoder loops per batch {loops}, "
+        f"peak_mem={peak:.2f} GiB, launches K1={launches['k1']} K2={launches['k2']}")
+    if len(texts) != B * RNNT_TIMED or len(loops) != RNNT_TIMED or not all(
+            isinstance(s, str) for s in texts):
+        raise AssertionError("transcribe_staged returned the wrong number of texts")
+    if density <= RNNT_DENSITY_FLOOR:
+        raise AssertionError(f"tdt decode density {density:.1f} <= {RNNT_DENSITY_FLOOR}")
+    want = {"k1": TDT_LAYERS * RNNT_TIMED, "k2": 0}
+    if launches != want:
+        raise AssertionError(f"tdt launch counts {launches}, expected {want}")
+    profile_tdt(model, staged[1:2], profile)
+    return launches
+
+
+def profile_tdt(model, staged, profile: bool) -> None:
+    """Where a TDT batch's time goes, by the host's clock after a sync: the
+    encoder alone (mel, encoder, enc_proj) against the whole decode, so the
+    decoder loop's ms and µs a loop. With `profile`, one batch and then 6
+    head-fit steps (after the main path: they move the weights) under
+    torch.profiler: device time by kind, the card's idle share."""
+    from nemo_tpu_torch.models.asr.synthetic import fit_synthetic_asr
+
+    sig, lens, _ = staged[0]
+
+    def encoder_only():
+        with torch.inference_mode():
+            enc, _ = model.encode(*model.mel_features(sig, lens))
+            model.joint.project_enc(enc)
+
+    walls = {}
+    for name, fn in (("encoder", encoder_only), ("decode", lambda: model.decode(sig, lens))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        walls[name] = 1e3 * (time.perf_counter() - t0) / 3
+    loop_ms = walls["decode"] - walls["encoder"]
+    log(f"tdt batch by the host's clock: encoder {walls['encoder']:.2f} ms, whole decode "
+        f"{walls['decode']:.2f} ms, so the TDT decoder loop {loop_ms:.2f} ms "
+        f"({model.last_loop_iterations} loops, {1e3 * loop_ms / model.last_loop_iterations:.1f} "
+        f"us each)")
+    if not profile:
+        return
+    profile_by_kind(lambda: model.transcribe_staged(staged), TDT_KERNEL_KINDS,
+                    f"one TDT batch (FastConformer-XL, B={B} x {SECS:g} s)")
+    steps = 6
+    profile_by_kind(lambda: fit_synthetic_asr(model, steps=steps, batch=FIT_BATCH, secs=SECS,
+                                              utt_tokens=RNNT_UTT_TOKENS, lr=3e-3, seed=7),
+                    TDT_KERNEL_KINDS, f"TDT head-fit step (B={FIT_BATCH} x {SECS:g} s, "
+                    f"U={RNNT_UTT_TOKENS})", n_steps=steps)
+
+
 # LLM serving at bench.py:bench_decode's geometry (scripts/decode_throughput.py:23-110): slots,
 # max_len, prompt tokens, the one prefill bucket, tokens a decode_steps call, timed calls, and
 # the one KV bucket that covers the run (decode_throughput.py:58)
@@ -3859,6 +4250,17 @@ def time_forward() -> int:
                                      for s in ("diagonal", "off_diagonal")):
         r = (pos_tile_ranges(qpos), pos_tile_ranges(kpos))
         timed(f"k11_{step}", lambda: _k11_launch(q, k, v, qpos, kpos, 0.125, True, None, r))
+    del q, k, v
+    # K1 at dh 128: FastConformer-XL's transcription shape (B=32, H=8, T'=376)
+    p32, base = relpos_backward_inputs(gen, B, 8, 376, 128)
+    qu, qv, k, v = (t.to("cuda", torch.bfloat16).transpose(1, 2) for t in base[:4])
+    p = p32.to("cuda", torch.bfloat16).transpose(0, 1)
+    lens = torch.full((B,), 376, dtype=torch.int32, device="cuda")
+    scale = 1.0 / math.sqrt(128)
+    timed("k1_dh128", lambda: relpos_flash_attention(qu, qv, k, v, p, lens, scale))
+    bias = relpos_bias(qv, p, lens, scale, torch.bfloat16)
+    timed("sdpa_relpos_dh128", lambda: F.scaled_dot_product_attention(qu, k, v, attn_mask=bias,
+                                                                      scale=scale))
     print(json.dumps(out), flush=True)
     return 0
 
@@ -3930,6 +4332,23 @@ def time_backward() -> int:
         args = (q, k, v, qpos, kpos, 0.125, True, None, lse, pos_delta(o, do), do, r)
         timed(f"k12_{step}", lambda: flash_pos_dq(*args))
         timed(f"k13_{step}", lambda: flash_pos_dkv(*args))
+    # K3, K4 at dh 128: FastConformer-XL's calibration shape (B=4, H=8, T'=376)
+    p32, base = relpos_backward_inputs(gen, FIT_BATCH, 8, 376, 128)
+    qu, qv, k, v, do = (t.to("cuda", torch.bfloat16).transpose(1, 2) for t in base)
+    p = p32.to("cuda", torch.bfloat16).transpose(0, 1)
+    lens = torch.full((FIT_BATCH,), 376, dtype=torch.int32, device="cuda")
+    scale = 1.0 / math.sqrt(128)
+    args = (qu, qv, k, v, p, lens, scale)
+    o, lse = relpos_flash_attention(*args)
+    delta = row_delta(o, do)
+    timed("k3_dh128", lambda: relpos_flash_dq(*args, lse, delta, do))
+    timed("k4_dh128", lambda: relpos_flash_dkv(*args, lse, delta, do))
+    timed("row_delta_relpos_dh128", lambda: row_delta(o, do))
+    bias = relpos_bias(qv, p, lens, scale, torch.bfloat16)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (qu, k, v))
+    o_lib = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=bias, scale=scale)
+    timed("sdpa_backward_relpos_dh128",
+          lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do, retain_graph=True))
     print(json.dumps(out), flush=True)
     return 0
 
@@ -4073,6 +4492,22 @@ def main() -> int:
     phase_bench_llm_1b(counters, adamw_ms, args.profile)
     lap("phase 32 (bench_llm_1b: Llama-3.2-1B, Adafactor)")
     log(f"time: phases 29-32 {time.perf_counter() - t29:.1f} s")
+    t33 = time.perf_counter()
+    gen128 = torch.Generator().manual_seed(14)  # the earlier phases' inputs stay as they were
+    dh128_rows = [phase_k1(gen128, T=376, dh=128), *phase_k3_k4(gen128, T=376, dh=128)]
+    lap("phase 33 (K1, K3, K4 at dh 128)")
+    phase_tdt_exactness(k1, k3, k4)
+    lap("phase 34 (FastConformer-XL TDT exactness)")
+    model, staged, tdt_fit = phase_tdt_calibration({"k1": k1, "k2": k2, "k3": k3, "k4": k4})
+    lap("phase 35 (FastConformer-XL TDT calibration)")
+    tdt_launches = phase_tdt_main_path(model, staged, k1, k2, args.profile)
+    del model, staged
+    torch.cuda.empty_cache()
+    lap("phase 36 (FastConformer-XL TDT main path)")
+    dh128_rows[0]["launches"] = tdt_launches["k1"]
+    dh128_rows[1]["launches"], dh128_rows[2]["launches"] = tdt_fit["k3"], tdt_fit["k4"]
+    rows += dh128_rows
+    log(f"time: phases 33-36 {time.perf_counter() - t33:.1f} s")
     # `launches` in the kernels line is each kernel's main path's; the serving paths'
     # own counts, each read just after its run, go on a line of their own
     log("launches on the serving paths: " + "; ".join(

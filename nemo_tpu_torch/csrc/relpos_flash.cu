@@ -5,7 +5,8 @@
 // nemo_tpu/ops/attention.py:_relpos_flash calls it (non-causal, G = H, with
 // the Transformer-XL rel-pos term and the key padding folded into a 640-wide
 // augmented contraction). Here the rel-pos term is computed per tile from the
-// projected table p instead, at head width dh = 64:
+// projected table p instead, at head width dh = D, 64 (Conformer-Large) or
+// 128 (FastConformer-XL):
 //
 //   s[i,j] = scale * (qu_i . k_j + qv_i . p_{(T-1)-i+j})   for j < len_b
 //   s[i,j] = -1e30                                          otherwise
@@ -18,7 +19,9 @@
 //
 // Bound on the H100: 6 * B * H * T * len * dh operations (q.k, q.p, p.v)
 // against ~125 MB of q/k/v/o traffic at the main path's shape (B=32, H=8,
-// T=751), so the operations bound it: 0.056 ms at the bf16 tensor-core peak.
+// T=751, dh 64), so the operations bound it: 0.056 ms at the bf16
+// tensor-core peak. At FastConformer-XL's (B=32, H=8, T=376, dh 128) the
+// same ~125 MB bounds it: 0.037 ms against 0.028 ms of products.
 //
 // - bf16 (the main path; csrc/hopper.cuh, TMA and wgmma, no mma.sync): the
 //   causal forward's shape (flash_fwd.cu) with K3's band (relpos_flash_bwd.cu).
@@ -33,12 +36,19 @@
 //   diagonal and read back as plain rows; the online softmax in registers;
 //   o += P v by wgmma RS (P rounded to bf16 in registers, v MN-major), one
 //   tile behind, so that it runs back to back with the next tile's two
-//   products. See wg:: below.
+//   products. See wg:: below. At dh 128 a 64-row tile of q, k, v or p is two
+//   128-byte swizzle boxes, and the dh-64 block does not fit in 227 KB of
+//   shared memory (q 64 KB, 3 stages of 80 KB, the G rings 64 KB): a block
+//   there is one consumer warpgroup of 64 query rows and the producer (256
+//   threads, no setmaxnreg: ptxas may take 255 registers a thread for the 64
+//   x 128 fp32 o accumulator beside the scores, the band chunk and P), with 2
+//   stages of k, v and the 128 rows of p (192 KB in all).
 // - fp32 (the exactness check): scalar fp32 FMAs from shared-memory tiles,
-//   16 x 16 threads with 4 x 4 scores each.
+//   16 x 16 threads with 4 x 4 scores each (4 x 8 outputs at dh 128, whose
+//   200 KB of tiles fit one block an SM).
 //
-// Layouts: qu, qv, k, v and o are [B, T, H, 64] (the Linear outputs viewed
-// per head); p is [2T-1, H, 64]; lengths is [B] int32; lse is [B, H, T] fp32.
+// Layouts: qu, qv, k, v and o are [B, T, H, D] (the Linear outputs viewed
+// per head); p is [2T-1, H, D]; lengths is [B] int32; lse is [B, H, T] fp32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -51,7 +61,6 @@ namespace {
 
 constexpr int BQ = 64;
 constexpr int BKV = 64;
-constexpr int D = 64;
 constexpr float NEG = -1e30f;
 
 // ---------------------------------------------------------------- fp32 path
@@ -64,9 +73,12 @@ constexpr int NP = BQ + BKV - 1;   // rel-pos rows one tile pair needs
 constexpr int LDP = 128 + 4;       // stride of the transposed p tile
 
 // shared memory, in floats: Qu^T, Qv^T, K^T (reused for the probabilities), V, P^T
-constexpr size_t SMEM = (3 * D * LDT + BKV * D + D * LDP) * sizeof(float);
+template <int D>
+constexpr size_t smem() { return (3 * D * LDT + BKV * D + D * LDP) * sizeof(float); }
 
-__global__ void __launch_bounds__(NT, 2) kernel(
+// two blocks an SM at dh 64 (100 KB each); one at dh 128 (200 KB)
+template <int D>
+__global__ void __launch_bounds__(NT, D == 64 ? 2 : 1) kernel(
     const float* __restrict__ qu, const float* __restrict__ qv, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ p, const int* __restrict__ lengths,
     float* __restrict__ o, float* __restrict__ lse, int H, int Tn, float scale) {
@@ -77,6 +89,7 @@ __global__ void __launch_bounds__(NT, 2) kernel(
   float* sK = sQv + D * LDT;       // [D][LDT]; then probabilities [BKV][LDT]
   float* sV = sK + D * LDT;        // [BKV][D]
   float* sP = sV + BKV * D;        // [D][LDP]
+  constexpr int NC = D / 64;       // output column groups of 64 a thread
 
   const int i0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
@@ -95,13 +108,13 @@ __global__ void __launch_bounds__(NT, 2) kernel(
     sQv[d * LDT + r] = c;
   }
 
-  float m[4], l[4], acc[4][4];
+  float m[4], l[4], acc[4][4 * NC];
 #pragma unroll
   for (int ii = 0; ii < 4; ++ii) {
     m[ii] = NEG;
     l[ii] = 0.f;
 #pragma unroll
-    for (int dd = 0; dd < 4; ++dd) acc[ii][dd] = 0.f;
+    for (int dd = 0; dd < 4 * NC; ++dd) acc[ii][dd] = 0.f;
   }
 
   // local p row of score (ii, jj) of this thread is pb + 3 + jj - ii
@@ -176,7 +189,7 @@ __global__ void __launch_bounds__(NT, 2) kernel(
       l[ii] = l[ii] * alpha + ps;
       m[ii] = m_new;
 #pragma unroll
-      for (int dd = 0; dd < 4; ++dd) acc[ii][dd] *= alpha;
+      for (int dd = 0; dd < 4 * NC; ++dd) acc[ii][dd] *= alpha;
     }
     __syncthreads();  // every thread is done reading K^T: reuse it for probabilities
     float* sS = sK;   // [BKV][LDT], sS[j][i]
@@ -188,13 +201,17 @@ __global__ void __launch_bounds__(NT, 2) kernel(
 #pragma unroll 4
     for (int j = 0; j < BKV; ++j) {
       const float4 pp = *reinterpret_cast<const float4*>(&sS[j * LDT + 4 * ty]);
-      const float4 vv = *reinterpret_cast<const float4*>(&sV[j * D + 4 * tx]);
       const float pa[4] = {pp.x, pp.y, pp.z, pp.w};
-      const float va[4] = {vv.x, vv.y, vv.z, vv.w};
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
+      for (int c = 0; c < NC; ++c) {
+        const float4 vv = *reinterpret_cast<const float4*>(&sV[j * D + 64 * c + 4 * tx]);
+        const float va[4] = {vv.x, vv.y, vv.z, vv.w};
 #pragma unroll
-        for (int dd = 0; dd < 4; ++dd) acc[ii][dd] = fmaf(pa[ii], va[dd], acc[ii][dd]);
+        for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+          for (int dd = 0; dd < 4; ++dd)
+            acc[ii][4 * c + dd] = fmaf(pa[ii], va[dd], acc[ii][4 * c + dd]);
+      }
     }
   }
 
@@ -205,7 +222,10 @@ __global__ void __launch_bounds__(NT, 2) kernel(
     const float lv = fmaxf(l[ii], 1e-30f);
     const float inv = 1.f / lv;
 #pragma unroll
-    for (int dd = 0; dd < 4; ++dd) o[base + i * rs + 4 * tx + dd] = acc[ii][dd] * inv;
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd)
+        o[base + i * rs + 64 * c + 4 * tx + dd] = acc[ii][4 * c + dd] * inv;
     if (tx == 0) lse[((long long)b * H + h) * Tn + i] = m[ii] + logf(lv);
   }
 }
@@ -222,48 +242,62 @@ using flash::tc::pack_p;
 using hopper::product_rs;
 using hopper::product_ss;
 
-constexpr int WGS = 2;               // consumer warpgroups, 64 query rows each
-constexpr int NT = 128 * (WGS + 1);  // and a producer warpgroup, one thread of it at work
-constexpr int PRODUCER_REGS = 40;    // registers a thread, after the split (setmaxnreg):
-constexpr int CONSUMER_REGS = 232;   // 128 x 40 + 256 x 232 = 384 x 168 at launch
+constexpr int PRODUCER_REGS = 40;    // registers a thread, after the split (setmaxnreg) at
+constexpr int CONSUMER_REGS = 232;   // dh 64: 128 x 40 + 256 x 232 = 384 x 168 at launch
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr uint32_t BOX64 = 64 * hopper::BOX_ROW_BYTES;  // a bf16 box of 64 rows, 8 KB
 
-// A block of 384 threads owns 128 query rows of one (b, h), a consumer
-// warpgroup 64 of them (rows i0 + 64 w), in a persistent grid over the
-// (query tile, h, b) items. The producer's first thread loads qu and qv once
-// an item and, per key tile kt of 64 keys up to the last valid key, k, v and
-// the 192 rows of p from T - 128 - i0 + 64 kt (both warpgroups' band chunks
-// kt and kt + 1, which overlap) by TMA into a ring of stages; rows before
-// p's first or past its last read as zeros.
+// A block owns TQ = 64 WGS query rows of one (b, h), a consumer warpgroup 64
+// of them (rows i0 + 64 w), in a persistent grid over the (query tile, h, b)
+// items. The producer's first thread loads qu and qv once an item and, per
+// key tile kt of 64 keys up to the last valid key, k, v and the 64 (WGS + 1)
+// rows of p from T - TQ - i0 + 64 kt (the warpgroups' band chunks kt and kt
+// + 1, which overlap) by TMA into a ring of stages; rows before p's first or
+// past its last read as zeros. A 64-row tile of D columns is D / 64 boxes of
+// 64 columns, one after the other.
 //
 // The band (relpos_band.cuh, shared with K3): warpgroup w's chunk kt of qv
-// p^T reads the stage's p box 1 - w, chunk kt + 1 box 2 - w; a tile computes
-// the new chunk kt + 1 (tile 0 chunk 0 first) and scatters it into its G
-// ring, from which the tile's scores take their rel-pos terms.
+// p^T reads the stage's p rows from box WGS - 1 - w, chunk kt + 1 the next
+// 64; a tile computes the new chunk kt + 1 (tile 0 chunk 0 first) and
+// scatters it into its G ring, from which the tile's scores take their
+// rel-pos terms.
 //
 // A tile: s = qu k^T and the new band chunk by wgmma SS, then the online
 // softmax in registers (2^x, the running max in raw units), then o += P v by
 // wgmma RS (P rounded to bf16 in registers, v MN-major). P v of a tile is
 // issued with the next tile's two products, so the tensor cores run them
 // back to back; the stage goes back once its P v is done.
+//
+// dh 64: two consumer warpgroups (384 threads, setmaxnreg), 3 stages (~217
+// KB). dh 128: one consumer warpgroup (256 threads; its 64 x 128 o
+// accumulator takes 64 registers more), 2 stages (~193 KB): three stages or
+// a second warpgroup's q and G ring would pass the 227 KB a block can have.
+template <int D>
 struct Layout {
-  static constexpr int STAGES = 3;
-  static constexpr uint32_t Q = 2 * WGS * BOX64;   // qu, qv: a box a warpgroup each
-  static constexpr uint32_t STAGE = 5 * BOX64;     // k, v, then 192 rows of p
+  static constexpr int WGS = D == 64 ? 2 : 1;   // consumer warpgroups, 64 query rows each
+  static constexpr int NT = 128 * (WGS + 1);    // and a producer warpgroup, one thread at work
+  static constexpr int TQ = 64 * WGS;           // query rows an item
+  static constexpr int NB = D / 64;             // boxes a row
+  static constexpr int STAGES = D == 64 ? 3 : 2;
+  static constexpr uint32_t TILE = NB * BOX64;  // 64 rows of D columns
+  static constexpr uint32_t Q = 2 * WGS * TILE;  // qu, qv: a tile a warpgroup each
+  static constexpr uint32_t STAGE = (WGS + 3) * TILE;  // k, v, then 64 (WGS + 1) rows of p
   static constexpr uint32_t G = Q + STAGES * STAGE;
   static constexpr uint32_t GBYTES = 64 * 128 * 4;  // a warpgroup's G ring
   static constexpr uint32_t BARS = G + WGS * GBYTES;  // q loaded, q free, full, empty
   static constexpr uint32_t BYTES = BARS + 8 * (2 + 2 * STAGES) + hopper::ATOM;  // + alignment
+  static_assert(BYTES <= 232448, "K1: more shared memory than a block can have");
 };
 
-__global__ void __launch_bounds__(NT, 1) fwd_kernel(
+template <int D>
+__global__ void __launch_bounds__(Layout<D>::NT, 1) fwd_kernel(
     const __grid_constant__ CUtensorMap tqu, const __grid_constant__ CUtensorMap tqv,
     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
     const __grid_constant__ CUtensorMap tp, const int* __restrict__ lengths,
     bf16* __restrict__ o, float* __restrict__ lse, int B, int H, int Tn, float scale) {
-  using L = Layout;
-  constexpr int STAGES = L::STAGES;
+  using L = Layout<D>;
+  constexpr int STAGES = L::STAGES, WGS = L::WGS, TQ = L::TQ, NB = L::NB;
+  constexpr uint32_t TILE = L::TILE;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
   const uint32_t base = (raw + hopper::ATOM - 1) & ~(hopper::ATOM - 1);
@@ -272,11 +306,11 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(
   auto full = [&](int s) { return base + L::BARS + 8 * (2 + s); };
   auto empty = [&](int s) { return base + L::BARS + 8 * (2 + STAGES + s); };
 
-  // work item it: 128 query rows from i0 of head h, batch row b
-  const int n_q = (Tn + 127) / 128, n_items = n_q * H * B;
+  // work item it: TQ query rows from i0 of head h, batch row b
+  const int n_q = (Tn + TQ - 1) / TQ, n_items = n_q * H * B;
   auto item_of = [&](int it, int& i0, int& h, int& b) {
     const int rem = it % (H * B);
-    i0 = it / (H * B) * 128;
+    i0 = it / (H * B) * TQ;
     h = rem % H;
     b = rem / H;
   };
@@ -294,7 +328,7 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(
   __syncthreads();
 
   if (warp < 4) {
-    hopper::reg_dealloc<PRODUCER_REGS>();
+    if constexpr (WGS == 2) hopper::reg_dealloc<PRODUCER_REGS>();
     if (threadIdx.x != 0) return;
     int n = 0, k = 0;  // stages filled, items taken
     for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
@@ -304,21 +338,26 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(
       item_of(it, i0, h, b);
       if (k > 0) hopper::mbar_wait(q_free, (k - 1) & 1);  // the last item is done with q
       hopper::mbar_arrive_tx(q_loaded, L::Q);
-      for (int w = 0; w < WGS; ++w) {
-        hopper::tma_load_4d(base + w * BOX64, &tqu, q_loaded, 0, h, i0 + 64 * w, b);
-        hopper::tma_load_4d(base + (WGS + w) * BOX64, &tqv, q_loaded, 0, h, i0 + 64 * w, b);
-      }
+      for (int w = 0; w < WGS; ++w)
+        for (int c = 0; c < NB; ++c) {
+          hopper::tma_load_4d(base + w * TILE + c * BOX64, &tqu, q_loaded, 64 * c, h,
+                              i0 + 64 * w, b);
+          hopper::tma_load_4d(base + (WGS + w) * TILE + c * BOX64, &tqv, q_loaded, 64 * c, h,
+                              i0 + 64 * w, b);
+        }
       const int nk = (length(b) + 63) / 64;
       for (int kt = 0; kt < nk; ++kt, ++n) {
         const int s = n % STAGES, use = n / STAGES;
         if (use > 0) hopper::mbar_wait(empty(s), (use - 1) & 1);  // the stage is read out
         const uint32_t st = base + L::Q + s * L::STAGE;
         hopper::mbar_arrive_tx(full(s), L::STAGE);
-        hopper::tma_load_4d(st, &tk, full(s), 0, h, 64 * kt, b);
-        hopper::tma_load_4d(st + BOX64, &tv, full(s), 0, h, 64 * kt, b);
-        for (int x = 0; x < 3; ++x)  // rows past either end of p read as zeros
-          hopper::tma_load_4d(st + (2 + x) * BOX64, &tp, full(s), 0, h,
-                              Tn - 128 - i0 + 64 * kt + 64 * x, 0);
+        for (int c = 0; c < NB; ++c) {
+          hopper::tma_load_4d(st + c * BOX64, &tk, full(s), 64 * c, h, 64 * kt, b);
+          hopper::tma_load_4d(st + TILE + c * BOX64, &tv, full(s), 64 * c, h, 64 * kt, b);
+          for (int x = 0; x <= WGS; ++x)  // rows past either end of p read as zeros
+            hopper::tma_load_4d(st + (2 + x) * TILE + c * BOX64, &tp, full(s), 64 * c, h,
+                                Tn - TQ - i0 + 64 * kt + 64 * x, 0);
+        }
       }
       ++k;
     }
@@ -327,12 +366,12 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(
 
   // consumer warpgroup w: query rows i0 + 64 w .. + 63 of each item; this
   // thread's local rows rl and rl + 8 (global ia, ib)
-  hopper::reg_alloc<CONSUMER_REGS>();
+  if constexpr (WGS == 2) hopper::reg_alloc<CONSUMER_REGS>();
   const int w = (warp >> 2) - 1, g = lane >> 2, t = lane & 3, rl = 16 * (warp & 3) + g;
   const float scale2 = scale * LOG2E;  // P = 2^((s - m) scale2), s and m in raw units
-  const long long rs = (long long)H * 64;
+  const long long rs = (long long)H * D;
   float* const G = reinterpret_cast<float*>(sm + L::G + w * L::GBYTES);
-  const uint32_t qu_at = base + w * BOX64, qv_at = base + (WGS + w) * BOX64;
+  const uint32_t qu_at = base + w * TILE, qv_at = base + (WGS + w) * TILE;
   auto release = [&](uint32_t bar) {  // this warp is done with what `bar` guards
     __syncwarp();
     if (lane == 0) hopper::mbar_arrive(bar);
@@ -398,9 +437,9 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(
     item_of(it, i0, h, b);
     const int len = length(b), nk = (len + 63) / 64;
     const int ia = i0 + 64 * w + rl, ib = ia + 8;
-    float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, acc[8][4], sc[8][4], bd[8][4], alpha[2];
+    float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, acc[D / 8][4], sc[8][4], bd[8][4], alpha[2];
     uint32_t pa[4][4];  // the held tile's probabilities as A fragments
-    flash::tc::zero<8>(acc);
+    flash::tc::zero<D / 8>(acc);
     hopper::mbar_wait(q_loaded, k & 1);
     if (nk > 0) {
       // One tile behind, as flash_fwd.cu's: P v of a tile is issued with the
@@ -409,15 +448,16 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(
       int s = n % STAGES;
       hopper::mbar_wait(full(s), (n / STAGES) & 1);
       uint32_t k_at = base + L::Q + s * L::STAGE;
-      uint32_t old_at = k_at + (3 - w) * BOX64;  // chunk kt of this warpgroup; kt + 1 follows
+      // chunk kt of this warpgroup; chunk kt + 1 follows
+      uint32_t old_at = k_at + (WGS + 1 - w) * TILE;
       hopper::wgmma_fence();
-      product_ss<64, 64>(bd, qv_at, old_at);  // chunk 0
+      product_ss<64, D>(bd, qv_at, old_at);  // chunk 0
       hopper::wgmma_wait<0>();
       hopper::fence_regs(bd);
       scatter(bd, 0);
       hopper::wgmma_fence();
-      product_ss<64, 64>(sc, qu_at, k_at);             // s = qu k^T
-      product_ss<64, 64>(bd, qv_at, old_at + BOX64);  // chunk 1 of qv p^T
+      product_ss<64, D>(sc, qu_at, k_at);            // s = qu k^T
+      product_ss<64, D>(bd, qv_at, old_at + TILE);  // chunk 1 of qv p^T
       hopper::wgmma_wait<0>();
       hopper::fence_regs(sc);
       hopper::fence_regs(bd);
@@ -430,11 +470,11 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(
         s = ++n % STAGES;
         hopper::mbar_wait(full(s), (n / STAGES) & 1);
         k_at = base + L::Q + s * L::STAGE;
-        old_at = k_at + (3 - w) * BOX64;
+        old_at = k_at + (WGS + 1 - w) * TILE;
         hopper::wgmma_fence();
-        product_ss<64, 64>(sc, qu_at, k_at);
-        product_ss<64, 64>(bd, qv_at, old_at + BOX64);  // chunk kt + 1
-        product_rs<64, 64>(acc, pa, base + L::Q + held * L::STAGE + BOX64);  // o += P v
+        product_ss<64, D>(sc, qu_at, k_at);
+        product_ss<64, D>(bd, qv_at, old_at + TILE);  // chunk kt + 1
+        product_rs<D, 64>(acc, pa, base + L::Q + held * L::STAGE + TILE);  // o += P v
         hopper::wgmma_wait<1>();  // the scores and the band chunk are in
         hopper::fence_regs(sc);
         hopper::fence_regs(bd);
@@ -446,7 +486,7 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(
         hopper::fence_regs(pa);
         release(empty(held));
 #pragma unroll
-        for (int dt = 0; dt < 8; ++dt) {
+        for (int dt = 0; dt < D / 8; ++dt) {
           acc[dt][0] *= alpha[0];
           acc[dt][1] *= alpha[0];
           acc[dt][2] *= alpha[1];
@@ -458,7 +498,7 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(
       ++n;
       release(q_free);  // every product of the item that reads qu and qv is done
       hopper::wgmma_fence();
-      product_rs<64, 64>(acc, pa, base + L::Q + held * L::STAGE + BOX64);
+      product_rs<D, 64>(acc, pa, base + L::Q + held * L::STAGE + TILE);
       hopper::wgmma_wait<0>();
       hopper::fence_regs(acc);
       release(empty(held));
@@ -480,16 +520,18 @@ __global__ void __launch_bounds__(NT, 1) fwd_kernel(
       if (t == 0 && i < Tn)
         lse[((long long)b * H + h) * Tn + i] = (nk > 0 ? m[hh] * scale : NEG) + logf(lv);
     }
-    flash::tc::store_rows<8>(o + (long long)b * Tn * rs + (long long)h * 64, acc, ia, ib, Tn, rs,
-                             t, inv);
+    flash::tc::store_rows<D / 8>(o + (long long)b * Tn * rs + (long long)h * D, acc, ia, ib, Tn,
+                                 rs, t, inv);
     ++k;
   }
 }
 
 // the tensor maps and the launch, on a persistent grid
+template <int D>
 int launch(const void* qu, const void* qv, const void* k, const void* v, const void* p,
            const int* lengths, void* o, float* lse, int B, int H, int Tn, float scale,
            cudaStream_t stream) {
+  using L = Layout<D>;
   CUtensorMap mqu, mqv, mk, mv, mp;
   int err = hopper::encode_bthd(&mqu, qu, B, Tn, H, D, 64);
   if (err == 0) err = hopper::encode_bthd(&mqv, qv, B, Tn, H, D, 64);
@@ -497,11 +539,11 @@ int launch(const void* qu, const void* qv, const void* k, const void* v, const v
   if (err == 0) err = hopper::encode_bthd(&mv, v, B, Tn, H, D, 64);
   if (err == 0) err = hopper::encode_bthd(&mp, p, 1, 2 * Tn - 1, H, D, 64);
   int grid = 0;
-  if (err == 0) err = flash::persistent_grid((Tn + 127) / 128 * H * B, grid);
+  if (err == 0) err = flash::persistent_grid((Tn + L::TQ - 1) / L::TQ * H * B, grid);
   if (err != 0) return err;
   bf16* out = static_cast<bf16*>(o);
   void* args[] = {&mqu, &mqv, &mk, &mv, &mp, &lengths, &out, &lse, &B, &H, &Tn, &scale};
-  return flash::launch(fwd_kernel, Layout::BYTES, NT, grid, 1, 1, stream, args);
+  return flash::launch(fwd_kernel<D>, L::BYTES, L::NT, grid, 1, 1, stream, args);
 }
 
 }  // namespace wg
@@ -526,23 +568,28 @@ int launch(void (*kernel)(const T*, const T*, const T*, const T*, const T*, cons
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (every tensor 16-byte aligned). head_dim
-// must be 64. Returns a cudaError_t.
+// 64 or 128. Returns a cudaError_t.
 extern "C" int relpos_flash_fwd(int dtype, const void* qu, const void* qv, const void* k,
                                 const void* v, const void* p, const void* lengths, void* o,
                                 void* lse, int B, int H, int Tn, int head_dim, float scale,
                                 void* stream) {
-  if (head_dim != D || B <= 0 || H <= 0 || Tn <= 0) return (int)cudaErrorInvalidValue;
+  if ((head_dim != 64 && head_dim != 128) || B <= 0 || H <= 0 || Tn <= 0)
+    return (int)cudaErrorInvalidValue;
   const int* len = static_cast<const int*>(lengths);
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(f32::kernel, f32::SMEM, f32::NT, qu, qv, k, v, p, len, o, l, B, H, Tn,
-                         scale, s);
+    return head_dim == 64
+               ? launch<float>(f32::kernel<64>, f32::smem<64>(), f32::NT, qu, qv, k, v, p, len,
+                               o, l, B, H, Tn, scale, s)
+               : launch<float>(f32::kernel<128>, f32::smem<128>(), f32::NT, qu, qv, k, v, p,
+                               len, o, l, B, H, Tn, scale, s);
   if (dtype == 1) {
     const void* tensors[] = {qu, qv, k, v, p, o};
     for (const void* ptr : tensors)
       if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return (int)cudaErrorMisalignedAddress;
-    return wg::launch(qu, qv, k, v, p, len, o, l, B, H, Tn, scale, s);
+    return head_dim == 64 ? wg::launch<64>(qu, qv, k, v, p, len, o, l, B, H, Tn, scale, s)
+                          : wg::launch<128>(qu, qv, k, v, p, len, o, l, B, H, Tn, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

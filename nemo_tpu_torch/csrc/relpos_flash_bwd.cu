@@ -17,7 +17,8 @@
 //
 // Both recompute s as K1 does, per 64 x 64 tile pair: qu.k^T plus the rel-pos
 // term, from the BQ + BKV - 1 = 127 rows p[r0 .. r0+126] the pair reaches
-// (r0 = T - 64 - i0 + j0, local row q = j - i + 63). K3 walks the key tiles
+// (r0 = T - 64 - i0 + j0, local row q = j - i + 63; the fp32 path at dh 128
+// takes query tiles of 32 rows, 95 rows of p). K3 walks the key tiles
 // up to the last valid key; K4 walks every query tile (every row is a query,
 // padded rows included). P = 0 on masked pairs is set, never computed.
 //
@@ -35,14 +36,16 @@
 // for dp, which is summed across blocks by TMA reductions.
 // fp32 (the exactness check): scalar fp32 FMAs from shared-memory tiles.
 //
-// Bound on the H100: per tile pair K3 does 5 products of 64 x 64 x 64 (q.k,
+// Bound on the H100: per tile pair K3 does 5 products of 64 x 64 x dh (q.k,
 // q.p band, dO.v, dS.k, band.p) and K4 6 (q.k, q.p, dO.v, P.dO, dS.q and the
-// dp product), against ~6 x 2 B x T x H x 64 bytes of inputs and outputs, so
+// dp product), against ~6 x 2 B x T x H x dh bytes of inputs and outputs, so
 // operations bound both at the main path's shapes. The wgmma band products
 // of K4 are 64 rows wide where 127 of 128 rows are used, so K4 issues 8.
+// Head widths dh = D of 64 (Conformer-Large) and 128 (FastConformer-XL);
+// the dh-128 blocks are described at DqLayout and DkvLayout.
 //
-// Layouts: qu, qv, k, v, dO and dqu, dqv, dk, dv are [B, T, H, 64]; p is
-// [2T-1, H, 64], dp [2T-1, H, 64] fp32 (zeroed by the caller); lse and delta
+// Layouts: qu, qv, k, v, dO and dqu, dqv, dk, dv are [B, T, H, D]; p is
+// [2T-1, H, D], dp [2T-1, H, D] fp32 (zeroed by the caller); lse and delta
 // are [B, H, T] fp32; lengths [B] int32.
 
 #include <cuda_runtime.h>
@@ -54,30 +57,40 @@
 
 namespace {
 
-constexpr int BQ = 64;
 constexpr int BKV = 64;
-constexpr int D = 64;
-constexpr int NP = BQ + BKV - 1;  // rel-pos rows one tile pair reaches
-constexpr int NPR = 128;          // rel-pos rows staged per tile pair
 
 // ---------------------------------------------------------------- fp32 path
 
 namespace f32 {
 
 constexpr int NT = 256;       // 16 x 16 threads
-constexpr int LD = D + 1;     // stride of the [rows][64] tiles
-constexpr int LDT = BKV + 1;  // stride of the [64][64] score tiles
+constexpr int LDT = BKV + 1;  // stride of the [rows][64] score tiles
 
-// shared memory, floats. K3: Qu, Qv, dO [BQ][LD]; K, V [BKV][LD]; p [NPR][LD]; dS [BQ][LDT]
-constexpr size_t SMEM_DQ = (3 * BQ * LD + 2 * BKV * LD + NPR * LD + BQ * LDT) * sizeof(float);
-// K4: K, V [BKV][LD]; Qu, Qv, dO [BQ][LD]; p [NPR][LD]; dS, P [BQ][LDT]; lse, delta [BQ]
-constexpr size_t SMEM_DKV =
-    (2 * BKV * LD + 3 * BQ * LD + NPR * LD + 2 * BQ * LDT + 2 * BQ) * sizeof(float);
+// The tiles of head width D: query tiles of FQ rows (32 at dh 128, where 64
+// would pass the 227 KB of shared memory a block can have), the p rows a
+// tile pair reaches (NP) and stages (NPR), and the stride of the [rows][D]
+// tiles.
+template <int D>
+struct Tiles {
+  static constexpr int FQ = D == 64 ? 64 : 32;
+  static constexpr int NP = FQ + BKV - 1;
+  static constexpr int NPR = FQ + BKV;
+  static constexpr int LD = D + 1;
+  // K3: Qu, Qv, dO [FQ][LD]; K, V [BKV][LD]; p [NPR][LD]; dS [FQ][LDT]
+  static constexpr size_t SMEM_DQ =
+      (3 * FQ * LD + 2 * BKV * LD + NPR * LD + FQ * LDT) * sizeof(float);
+  // K4: K, V [BKV][LD]; Qu, Qv, dO [FQ][LD]; p [NPR][LD]; dS, P [FQ][LDT]; lse, delta [FQ]
+  static constexpr size_t SMEM_DKV =
+      (2 * BKV * LD + 3 * FQ * LD + NPR * LD + 2 * FQ * LDT + 2 * FQ) * sizeof(float);
+  static_assert(SMEM_DQ <= 232448 && SMEM_DKV <= 232448, "fp32 K3/K4: too much shared memory");
+};
 
-// rows [row0, row0 + n) of a [rows, H, 64] tensor at head offset hoff into
-// shared memory [n][LD]; rows outside [0, rows) are 0
+// rows [row0, row0 + n) of a [rows, H, D] tensor at head offset hoff into
+// shared memory [n][D + 1]; rows outside [0, rows) are 0
+template <int D>
 __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int row0, int n,
                                       int rows, long long rs, long long hoff) {
+  constexpr int LD = Tiles<D>::LD;
   for (int idx = threadIdx.x; idx < n * D; idx += NT) {
     const int r = idx / D, d = idx % D, t = row0 + r;
     dst[r * LD + d] = (t >= 0 && t < rows) ? src[t * rs + hoff + d] : 0.f;
@@ -85,17 +98,20 @@ __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
 }
 
 // s, P and dS of scores (il = ty + 16a, jl = tx + 16c) of a tile pair:
-// returns the P of each into `pr` and dS into `ds` (both [BQ][LDT])
+// returns the P of each into `pr` and dS into `ds` (both [FQ][LDT])
+template <int D>
 __device__ __forceinline__ void scores(const float* sQu, const float* sQv, const float* sO,
                                        const float* sK, const float* sV, const float* sP,
                                        const float* lse, const float* del, int j0, int i0,
                                        int len, int Tn, float scale, float* pr, float* ds) {
+  using T = Tiles<D>;
+  constexpr int LD = T::LD;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < T::FQ / 16; ++a) {
     const int il = ty + 16 * a;
     for (int c = 0; c < 4; ++c) {
       const int jl = tx + 16 * c;
-      const float* prow = sP + (jl - il + 63) * LD;
+      const float* prow = sP + (jl - il + T::FQ - 1) * LD;
       float s = 0.f, dp = 0.f;
 #pragma unroll 8
       for (int d = 0; d < D; ++d) {
@@ -111,92 +127,98 @@ __device__ __forceinline__ void scores(const float* sQu, const float* sQv, const
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(NT) dq_kernel(
     const float* __restrict__ qu, const float* __restrict__ qv, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ p, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const int* __restrict__ lengths, float* __restrict__ dqu, float* __restrict__ dqv, int H,
     int Tn, float scale) {
+  using T = Tiles<D>;
+  constexpr int FQ = T::FQ, LD = T::LD, NC = D / 16;
   extern __shared__ float4 smem4[];
   float* sQu = reinterpret_cast<float*>(smem4);
-  float* sQv = sQu + BQ * LD;
-  float* sO = sQv + BQ * LD;
-  float* sK = sO + BQ * LD;
+  float* sQv = sQu + FQ * LD;
+  float* sO = sQv + FQ * LD;
+  float* sK = sO + FQ * LD;
   float* sV = sK + BKV * LD;
   float* sP = sV + BKV * LD;
-  float* sDS = sP + NPR * LD;
-  __shared__ float sL[BQ], sDl[BQ];
+  float* sDS = sP + T::NPR * LD;
+  __shared__ float sL[FQ], sDl[FQ];
 
-  const int i0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int i0 = blockIdx.x * FQ, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
   const int len = min(max(lengths[b], 0), Tn);
   const long long rs = (long long)H * D;
   const long long bbase = (long long)b * Tn * rs, hoff = (long long)h * D;
   const long long lrow = ((long long)b * H + h) * Tn;
 
-  stage(sQu, qu + bbase, i0, BQ, Tn, rs, hoff);
-  stage(sQv, qv + bbase, i0, BQ, Tn, rs, hoff);
-  stage(sO, dout + bbase, i0, BQ, Tn, rs, hoff);
-  for (int idx = tid; idx < BQ; idx += NT) {
+  stage<D>(sQu, qu + bbase, i0, FQ, Tn, rs, hoff);
+  stage<D>(sQv, qv + bbase, i0, FQ, Tn, rs, hoff);
+  stage<D>(sO, dout + bbase, i0, FQ, Tn, rs, hoff);
+  for (int idx = tid; idx < FQ; idx += NT) {
     const int i = i0 + idx;
     sL[idx] = i < Tn ? lse[lrow + i] : 0.f;
     sDl[idx] = i < Tn ? delta[lrow + i] : 0.f;
   }
 
-  float aq[4][4], av[4][4];  // rows ty + 16a, columns tx + 16c
-  for (int a = 0; a < 4; ++a)
-    for (int c = 0; c < 4; ++c) aq[a][c] = av[a][c] = 0.f;
+  float aq[FQ / 16][NC], av[FQ / 16][NC];  // rows ty + 16a, columns tx + 16c
+  for (int a = 0; a < FQ / 16; ++a)
+    for (int c = 0; c < NC; ++c) aq[a][c] = av[a][c] = 0.f;
 
   const int n_kv = (len + BKV - 1) / BKV;
   for (int kt = 0; kt < n_kv; ++kt) {
     const int j0 = kt * BKV;
     __syncthreads();  // the previous tile is no longer read
-    stage(sK, k + bbase, j0, BKV, Tn, rs, hoff);
-    stage(sV, v + bbase, j0, BKV, Tn, rs, hoff);
-    stage(sP, p, Tn - BQ - i0 + j0, NPR, 2 * Tn - 1, rs, hoff);
+    stage<D>(sK, k + bbase, j0, BKV, Tn, rs, hoff);
+    stage<D>(sV, v + bbase, j0, BKV, Tn, rs, hoff);
+    stage<D>(sP, p, Tn - FQ - i0 + j0, T::NPR, 2 * Tn - 1, rs, hoff);
     __syncthreads();
-    scores(sQu, sQv, sO, sK, sV, sP, sL, sDl, j0, i0, len, Tn, scale, nullptr, sDS);
+    scores<D>(sQu, sQv, sO, sK, sV, sP, sL, sDl, j0, i0, len, Tn, scale, nullptr, sDS);
     __syncthreads();
-    for (int a = 0; a < 4; ++a) {
+    for (int a = 0; a < FQ / 16; ++a) {
       const int il = ty + 16 * a;
       for (int jl = 0; jl < BKV; ++jl) {
         const float ds = sDS[il * LDT + jl];
-        const float* prow = sP + (jl - il + 63) * LD;
+        const float* prow = sP + (jl - il + FQ - 1) * LD;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
+        for (int c = 0; c < NC; ++c) {
           aq[a][c] = fmaf(ds, sK[jl * LD + tx + 16 * c], aq[a][c]);
           av[a][c] = fmaf(ds, prow[tx + 16 * c], av[a][c]);
         }
       }
     }
   }
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < FQ / 16; ++a) {
     const int i = i0 + ty + 16 * a;
     if (i >= Tn) continue;
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < NC; ++c) {
       dqu[bbase + i * rs + hoff + tx + 16 * c] = aq[a][c];
       dqv[bbase + i * rs + hoff + tx + 16 * c] = av[a][c];
     }
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(NT) dkv_kernel(
     const float* __restrict__ qu, const float* __restrict__ qv, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ p, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const int* __restrict__ lengths, float* __restrict__ dk, float* __restrict__ dv,
     float* __restrict__ dp, int H, int Tn, float scale) {
+  using T = Tiles<D>;
+  constexpr int FQ = T::FQ, LD = T::LD, NP = T::NP, NC = D / 16;
   extern __shared__ float4 smem4[];
   float* sK = reinterpret_cast<float*>(smem4);
   float* sV = sK + BKV * LD;
   float* sQu = sV + BKV * LD;
-  float* sQv = sQu + BQ * LD;
-  float* sO = sQv + BQ * LD;
-  float* sP = sO + BQ * LD;
-  float* sDS = sP + NPR * LD;
-  float* sPr = sDS + BQ * LDT;
-  float* sL = sPr + BQ * LDT;
-  float* sDl = sL + BQ;
+  float* sQv = sQu + FQ * LD;
+  float* sO = sQv + FQ * LD;
+  float* sP = sO + FQ * LD;
+  float* sDS = sP + T::NPR * LD;
+  float* sPr = sDS + FQ * LDT;
+  float* sL = sPr + FQ * LDT;
+  float* sDl = sL + FQ;
 
   const int j0 = blockIdx.x * BKV, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
@@ -205,62 +227,64 @@ __global__ void __launch_bounds__(NT) dkv_kernel(
   const long long bbase = (long long)b * Tn * rs, hoff = (long long)h * D;
   const long long lrow = ((long long)b * H + h) * Tn;
 
-  float ak[4][4], avv[4][4];  // keys ty + 16a, columns tx + 16c
+  float ak[4][NC], avv[4][NC];  // keys ty + 16a, columns tx + 16c
   for (int a = 0; a < 4; ++a)
-    for (int c = 0; c < 4; ++c) ak[a][c] = avv[a][c] = 0.f;
+    for (int c = 0; c < NC; ++c) ak[a][c] = avv[a][c] = 0.f;
 
   if (j0 < len) {  // a tile of masked keys has zero gradients
-    stage(sK, k + bbase, j0, BKV, Tn, rs, hoff);
-    stage(sV, v + bbase, j0, BKV, Tn, rs, hoff);
-    const int n_q = (Tn + BQ - 1) / BQ;
+    stage<D>(sK, k + bbase, j0, BKV, Tn, rs, hoff);
+    stage<D>(sV, v + bbase, j0, BKV, Tn, rs, hoff);
+    const int n_q = (Tn + FQ - 1) / FQ;
     for (int qt = 0; qt < n_q; ++qt) {
-      const int i0 = qt * BQ;
-      const int r0 = Tn - BQ - i0 + j0;
+      const int i0 = qt * FQ;
+      const int r0 = Tn - FQ - i0 + j0;
       __syncthreads();  // the previous tile is no longer read
-      stage(sQu, qu + bbase, i0, BQ, Tn, rs, hoff);
-      stage(sQv, qv + bbase, i0, BQ, Tn, rs, hoff);
-      stage(sO, dout + bbase, i0, BQ, Tn, rs, hoff);
-      stage(sP, p, r0, NPR, 2 * Tn - 1, rs, hoff);
-      for (int idx = tid; idx < BQ; idx += NT) {
+      stage<D>(sQu, qu + bbase, i0, FQ, Tn, rs, hoff);
+      stage<D>(sQv, qv + bbase, i0, FQ, Tn, rs, hoff);
+      stage<D>(sO, dout + bbase, i0, FQ, Tn, rs, hoff);
+      stage<D>(sP, p, r0, T::NPR, 2 * Tn - 1, rs, hoff);
+      for (int idx = tid; idx < FQ; idx += NT) {
         const int i = i0 + idx;
         sL[idx] = i < Tn ? lse[lrow + i] : 0.f;
         sDl[idx] = i < Tn ? delta[lrow + i] : 0.f;
       }
       __syncthreads();
-      scores(sQu, sQv, sO, sK, sV, sP, sL, sDl, j0, i0, len, Tn, scale, sPr, sDS);
+      scores<D>(sQu, sQv, sO, sK, sV, sP, sL, sDl, j0, i0, len, Tn, scale, sPr, sDS);
       __syncthreads();
       for (int a = 0; a < 4; ++a) {
         const int jl = ty + 16 * a;
-        for (int il = 0; il < BQ; ++il) {
+        for (int il = 0; il < FQ; ++il) {
           const float ds = sDS[il * LDT + jl], pp = sPr[il * LDT + jl];
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
+          for (int c = 0; c < NC; ++c) {
             ak[a][c] = fmaf(ds, sQu[il * LD + tx + 16 * c], ak[a][c]);
             avv[a][c] = fmaf(pp, sO[il * LD + tx + 16 * c], avv[a][c]);
           }
         }
       }
-      // dp rows r0 + q (q = ty + 16a): the pairs (il, jl = q + il - 63) of the tile
-      for (int a = 0; a < 8; ++a) {
+      // dp rows r0 + q (q = ty + 16a): the pairs (il, jl = q + il - (FQ - 1)) of the tile
+      for (int a = 0; a < (NP + 15) / 16; ++a) {
         const int q = ty + 16 * a, r = r0 + q;
         if (q >= NP || r < 0 || r >= 2 * Tn - 1) continue;
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-        const int il_lo = max(0, 63 - q), il_hi = min(BQ - 1, NP - 1 - q);
-        for (int il = il_lo; il <= il_hi; ++il) {
-          const float ds = sDS[il * LDT + q + il - 63];
+        float acc[NC];
 #pragma unroll
-          for (int c = 0; c < 4; ++c) acc[c] = fmaf(ds, sQv[il * LD + tx + 16 * c], acc[c]);
+        for (int c = 0; c < NC; ++c) acc[c] = 0.f;
+        const int il_lo = max(0, FQ - 1 - q), il_hi = min(FQ - 1, NP - 1 - q);
+        for (int il = il_lo; il <= il_hi; ++il) {
+          const float ds = sDS[il * LDT + q + il - (FQ - 1)];
+#pragma unroll
+          for (int c = 0; c < NC; ++c) acc[c] = fmaf(ds, sQv[il * LD + tx + 16 * c], acc[c]);
         }
         float* dst = dp + ((long long)r * H + h) * D + tx;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) atomicAdd(dst + 16 * c, acc[c]);
+        for (int c = 0; c < NC; ++c) atomicAdd(dst + 16 * c, acc[c]);
       }
     }
   }
   for (int a = 0; a < 4; ++a) {
     const int j = j0 + ty + 16 * a;
     if (j >= Tn) continue;
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < NC; ++c) {
       dk[bbase + j * rs + hoff + tx + 16 * c] = ak[a][c];
       dv[bbase + j * rs + hoff + tx + 16 * c] = avv[a][c];
     }
@@ -282,10 +306,8 @@ using hopper::product_ss;
 using hopper::product_ss_mn;
 using hopper::sw128;
 
-constexpr int WGS = 2;               // consumer warpgroups, 64 query rows or keys each
-constexpr int NT = 128 * (WGS + 1);  // and a producer warpgroup, one warp of it at work
-constexpr int PRODUCER_REGS = 40;    // registers a thread, after the split (setmaxnreg):
-constexpr int CONSUMER_REGS = 232;   // 128 x 40 + 256 x 232 = 384 x 168 at launch
+constexpr int PRODUCER_REGS = 40;    // registers a thread, after the split (setmaxnreg) at
+constexpr int CONSUMER_REGS = 232;   // dh 64: 128 x 40 + 256 x 232 = 384 x 168 at launch
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr uint32_t BOX64 = 64 * hopper::BOX_ROW_BYTES;  // a bf16 box of 64 rows, 8 KB
 
@@ -340,26 +362,41 @@ __device__ __forceinline__ void pass(int w) { hopper::bar_arrive(4 - w, 256); }
 // Five products of 64 x 64 x 64 a tile pair (s, the band chunk, dP, dqu and
 // the dqv chunk), one more of each band an item.
 
+//
+// At dh 128 a block is one consumer warpgroup (64 query rows, 256 threads,
+// no setmaxnreg, no turns) with 2 stages of k, v and 128 rows of p (~225 KB
+// in all: two warpgroups' q, dO and G rings would not fit), and the band
+// chunk is computed and scattered before s and dP are issued, so that its
+// accumulator is not live beside theirs and the two 64 x 128 dq accumulators.
+template <int D>
 struct DqLayout {
+  static constexpr int WGS = D == 64 ? 2 : 1;   // consumer warpgroups, 64 query rows each
+  static constexpr int NT = 128 * (WGS + 1);    // and a producer warpgroup, one warp at work
+  static constexpr int TQ = 64 * WGS;           // query rows an item
+  static constexpr int NB = D / 64;             // boxes a row
   static constexpr int STAGES = 2;
-  static constexpr uint32_t Q = 3 * WGS * BOX64;   // qu, qv, dO: a box a warpgroup each
-  static constexpr uint32_t STAGE = 5 * BOX64;     // k, v, then 192 rows of p
+  static constexpr uint32_t TILE = NB * BOX64;       // 64 rows of D columns
+  static constexpr uint32_t Q = 3 * WGS * TILE;      // qu, qv, dO: a tile a warpgroup each
+  static constexpr uint32_t STAGE = (WGS + 3) * TILE;  // k, v, then 64 (WGS + 1) rows of p
   static constexpr uint32_t G = Q + STAGES * STAGE;
   static constexpr uint32_t GBYTES = 64 * 128 * 4;  // a warpgroup's G ring
   static constexpr uint32_t BAND = G + WGS * GBYTES;
   static constexpr uint32_t BARS = BAND + WGS * 2 * BOX64;  // q loaded, q free, full, empty
   static constexpr uint32_t BYTES = BARS + 8 * (2 + 2 * STAGES) + ATOM;  // + alignment slack
+  static_assert(BYTES <= 232448, "K3: more shared memory than a block can have");
 };
 
-__global__ void __launch_bounds__(NT, 1) dq_kernel(
+template <int D>
+__global__ void __launch_bounds__(DqLayout<D>::NT, 1) dq_kernel(
     const __grid_constant__ CUtensorMap tqu, const __grid_constant__ CUtensorMap tqv,
     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
     const __grid_constant__ CUtensorMap tp, const __grid_constant__ CUtensorMap tdo,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const int* __restrict__ lengths, bf16* __restrict__ dqu, bf16* __restrict__ dqv, int B, int H,
     int Tn, float scale) {
-  using L = DqLayout;
-  constexpr int STAGES = L::STAGES;
+  using L = DqLayout<D>;
+  constexpr int STAGES = L::STAGES, WGS = L::WGS, TQ = L::TQ, NB = L::NB;
+  constexpr uint32_t TILE = L::TILE;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
   const uint32_t base = (raw + ATOM - 1) & ~(ATOM - 1);
@@ -368,11 +405,11 @@ __global__ void __launch_bounds__(NT, 1) dq_kernel(
   auto full = [&](int s) { return base + L::BARS + 8 * (2 + s); };
   auto empty = [&](int s) { return base + L::BARS + 8 * (2 + STAGES + s); };
 
-  // work item it: 128 query rows from i0 of head h, batch row b
-  const int n_q = (Tn + 127) / 128, n_items = n_q * H * B;
+  // work item it: TQ query rows from i0 of head h, batch row b
+  const int n_q = (Tn + TQ - 1) / TQ, n_items = n_q * H * B;
   auto item_of = [&](int it, int& i0, int& h, int& b) {
     const int rem = it % (H * B);
-    i0 = it / (H * B) * 128;
+    i0 = it / (H * B) * TQ;
     h = rem % H;
     b = rem / H;
   };
@@ -390,7 +427,7 @@ __global__ void __launch_bounds__(NT, 1) dq_kernel(
   __syncthreads();
 
   if (warp < 4) {
-    hopper::reg_dealloc<PRODUCER_REGS>();
+    if constexpr (WGS == 2) hopper::reg_dealloc<PRODUCER_REGS>();
     if (threadIdx.x != 0) return;
     int n = 0, k = 0;  // stages filled, items taken
     for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
@@ -400,22 +437,28 @@ __global__ void __launch_bounds__(NT, 1) dq_kernel(
       item_of(it, i0, h, b);
       if (k > 0) hopper::mbar_wait(q_free, (k - 1) & 1);  // the last item is done with q
       hopper::mbar_arrive_tx(q_loaded, L::Q);
-      for (int w = 0; w < WGS; ++w) {
-        hopper::tma_load_4d(base + w * BOX64, &tqu, q_loaded, 0, h, i0 + 64 * w, b);
-        hopper::tma_load_4d(base + (WGS + w) * BOX64, &tqv, q_loaded, 0, h, i0 + 64 * w, b);
-        hopper::tma_load_4d(base + (2 * WGS + w) * BOX64, &tdo, q_loaded, 0, h, i0 + 64 * w, b);
-      }
+      for (int w = 0; w < WGS; ++w)
+        for (int c = 0; c < NB; ++c) {
+          hopper::tma_load_4d(base + w * TILE + c * BOX64, &tqu, q_loaded, 64 * c, h,
+                              i0 + 64 * w, b);
+          hopper::tma_load_4d(base + (WGS + w) * TILE + c * BOX64, &tqv, q_loaded, 64 * c, h,
+                              i0 + 64 * w, b);
+          hopper::tma_load_4d(base + (2 * WGS + w) * TILE + c * BOX64, &tdo, q_loaded, 64 * c,
+                              h, i0 + 64 * w, b);
+        }
       const int nk = (length(b) + 63) / 64;
       for (int kt = 0; kt < nk; ++kt, ++n) {
         const int s = n % STAGES, use = n / STAGES;
         if (use > 0) hopper::mbar_wait(empty(s), (use - 1) & 1);  // the stage is read out
         const uint32_t st = base + L::Q + s * L::STAGE;
         hopper::mbar_arrive_tx(full(s), L::STAGE);
-        hopper::tma_load_4d(st, &tk, full(s), 0, h, 64 * kt, b);
-        hopper::tma_load_4d(st + BOX64, &tv, full(s), 0, h, 64 * kt, b);
-        for (int x = 0; x < 3; ++x)  // rows past either end of p read as zeros
-          hopper::tma_load_4d(st + (2 + x) * BOX64, &tp, full(s), 0, h,
-                              Tn - 128 - i0 + 64 * kt + 64 * x, 0);
+        for (int c = 0; c < NB; ++c) {
+          hopper::tma_load_4d(st + c * BOX64, &tk, full(s), 64 * c, h, 64 * kt, b);
+          hopper::tma_load_4d(st + TILE + c * BOX64, &tv, full(s), 64 * c, h, 64 * kt, b);
+          for (int x = 0; x <= WGS; ++x)  // rows past either end of p read as zeros
+            hopper::tma_load_4d(st + (2 + x) * TILE + c * BOX64, &tp, full(s), 64 * c, h,
+                                Tn - TQ - i0 + 64 * kt + 64 * x, 0);
+        }
       }
       ++k;
     }
@@ -424,15 +467,15 @@ __global__ void __launch_bounds__(NT, 1) dq_kernel(
 
   // consumer warpgroup w: query rows i0 + 64 w .. + 63 of each item; this
   // thread's local rows rl and rl + 8 (global ia, ib)
-  hopper::reg_alloc<CONSUMER_REGS>();
+  if constexpr (WGS == 2) hopper::reg_alloc<CONSUMER_REGS>();
   const int w = (warp >> 2) - 1, g = lane >> 2, t = lane & 3, rl = 16 * (warp & 3) + g;
   const float scale2 = scale * LOG2E;  // P = 2^(s scale2 - lse log2(e))
-  const long long rs = (long long)H * 64;
+  const long long rs = (long long)H * D;
   float* const G = reinterpret_cast<float*>(sm + L::G + w * L::GBYTES);
   uint8_t* const band = sm + L::BAND + w * 2 * BOX64;
   const uint32_t band_at = base + L::BAND + w * 2 * BOX64;
-  const uint32_t qu_at = base + w * BOX64, qv_at = base + (WGS + w) * BOX64;
-  const uint32_t do_at = base + (2 * WGS + w) * BOX64;
+  const uint32_t qu_at = base + w * TILE, qv_at = base + (WGS + w) * TILE;
+  const uint32_t do_at = base + (2 * WGS + w) * TILE;
 
   // band chunk m (64 x 64 accumulator) into the G ring
   auto scatter = [&](const float (&bd)[8][4], int m) { relpos::scatter_band(G, bd, m, rl, g, t); };
@@ -448,7 +491,9 @@ __global__ void __launch_bounds__(NT, 1) dq_kernel(
       }
   };
 
-  if (w == 1) pass(1);  // the first turn is warpgroup 0's
+  if constexpr (WGS == 2) {
+    if (w == 1) pass(1);  // the first turn is warpgroup 0's
+  }
   int n = 0, k = 0;  // stages consumed, items taken
   for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
     const int it = flash::tc::snake_item(r);
@@ -465,34 +510,48 @@ __global__ void __launch_bounds__(NT, 1) dq_kernel(
       l2[hh] = i < Tn ? lse[lrow + i] * LOG2E : 0.f;
       dl[hh] = i < Tn ? delta[lrow + i] : 0.f;
     }
-    float aq[8][4], av[8][4], sc[8][4], bd[8][4], dp[8][4];
+    float aq[D / 8][4], av[D / 8][4], sc[8][4], bd[8][4], dp[8][4];
     uint32_t pa[4][4];  // dS as A fragments
-    flash::tc::zero<8>(aq);
-    flash::tc::zero<8>(av);
+    flash::tc::zero<D / 8>(aq);
+    flash::tc::zero<D / 8>(av);
     hopper::mbar_wait(q_loaded, k & 1);
     int s = 0;
     for (int kt = 0; kt < nk; ++kt, ++n) {
       s = n % STAGES;
       hopper::mbar_wait(full(s), (n / STAGES) & 1);
-      const uint32_t k_at = base + L::Q + s * L::STAGE, v_at = k_at + BOX64;
-      const uint32_t old_at = k_at + (3 - w) * BOX64, new_at = old_at + BOX64;  // chunks kt, kt+1
+      const uint32_t k_at = base + L::Q + s * L::STAGE, v_at = k_at + TILE;
+      // chunks kt and kt + 1 of this warpgroup's band
+      const uint32_t old_at = k_at + (WGS + 1 - w) * TILE, new_at = old_at + TILE;
       if (kt == 0) {  // chunk 0, and a tile of zeros before the first
         hopper::wgmma_fence();
-        product_ss<64, 64>(bd, qv_at, old_at);
+        product_ss<64, D>(bd, qv_at, old_at);
         hopper::wgmma_wait<0>();
         hopper::fence_regs(bd);
         scatter(bd, 0);
         band_tile(dp, -1, true);
       }
-      turn(w);
-      hopper::wgmma_fence();
-      product_ss<64, 64>(sc, qu_at, k_at);    // s = qu k^T
-      product_ss<64, 64>(bd, qv_at, new_at);  // chunk kt + 1 of qv p^T
-      product_ss<64, 64>(dp, do_at, v_at);    // dP = dO v^T
-      hopper::wgmma_wait<1>();
-      hopper::fence_regs(sc);
-      hopper::fence_regs(bd);
-      scatter(bd, kt + 1);
+      if constexpr (WGS == 2) {
+        turn(w);
+        hopper::wgmma_fence();
+        product_ss<64, D>(sc, qu_at, k_at);    // s = qu k^T
+        product_ss<64, D>(bd, qv_at, new_at);  // chunk kt + 1 of qv p^T
+        product_ss<64, D>(dp, do_at, v_at);    // dP = dO v^T
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs(sc);
+        hopper::fence_regs(bd);
+        scatter(bd, kt + 1);
+      } else {  // the band chunk first, so that its registers are free for s and dP
+        hopper::wgmma_fence();
+        product_ss<64, D>(bd, qv_at, new_at);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(bd);
+        scatter(bd, kt + 1);
+        hopper::wgmma_fence();
+        product_ss<64, D>(sc, qu_at, k_at);
+        product_ss<64, D>(dp, do_at, v_at);
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs(sc);
+      }
       __syncwarp();
       // P = exp(scale (qu.k + qv.p) - lse), 0 on keys past the length
       const float* grow[2] = {relpos::band_row(G, rl, kt), relpos::band_row(G, rl + 8, kt)};
@@ -520,7 +579,7 @@ __global__ void __launch_bounds__(NT, 1) dq_kernel(
             sc[nt][2 * hh + 1] = ex2(fmaf(sc[nt][2 * hh + 1] + gv.y, scale2, -l2[hh]));
           }
       }
-      pass(w);  // the other warpgroup's products overlap this tile's dS and band
+      if constexpr (WGS == 2) pass(w);  // the other warpgroup's products overlap this tile's dS
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dp);
       // dS = P (dP - delta) scale, kept in dp's registers and as A fragments
@@ -533,8 +592,8 @@ __global__ void __launch_bounds__(NT, 1) dq_kernel(
       hopper::fence_proxy_async();
       wg_sync(w);
       hopper::wgmma_fence();
-      product_rs<64, 64>(aq, pa, k_at);  // dqu += dS k, k MN-major
-      product_ss_mn<64, 64>(av, band_at + (kt & 1) * BOX64, old_at, 1);  // dqv += band_kt p_kt
+      product_rs<D, 64>(aq, pa, k_at);  // dqu += dS k, k MN-major
+      product_ss_mn<D, 64>(av, band_at + (kt & 1) * BOX64, old_at, 1);  // dqv += band_kt p_kt
       hopper::wgmma_wait<0>();
       hopper::fence_regs(aq);
       hopper::fence_regs(av);
@@ -546,20 +605,22 @@ __global__ void __launch_bounds__(NT, 1) dq_kernel(
       hopper::fence_proxy_async();
       wg_sync(w);
       hopper::wgmma_fence();
-      product_ss_mn<64, 64>(av, band_at + (nk & 1) * BOX64,
-                            base + L::Q + s * L::STAGE + (4 - w) * BOX64, 1);
+      product_ss_mn<D, 64>(av, band_at + (nk & 1) * BOX64,
+                           base + L::Q + s * L::STAGE + (WGS + 2 - w) * TILE, 1);
       hopper::wgmma_wait<0>();
       hopper::fence_regs(av);
       release(empty(s), lane);
     }
     release(q_free, lane);  // every product of the item that reads qu, qv and dO is done
     const float one[2] = {1.f, 1.f};
-    const long long off = (long long)b * Tn * rs + (long long)h * 64;
-    flash::tc::store_rows<8>(dqu + off, aq, ia, ib, Tn, rs, t, one);
-    flash::tc::store_rows<8>(dqv + off, av, ia, ib, Tn, rs, t, one);
+    const long long off = (long long)b * Tn * rs + (long long)h * D;
+    flash::tc::store_rows<D / 8>(dqu + off, aq, ia, ib, Tn, rs, t, one);
+    flash::tc::store_rows<D / 8>(dqv + off, av, ia, ib, Tn, rs, t, one);
     ++k;
   }
-  if (w == 0) turn(0);  // warpgroup 1's first pass
+  if constexpr (WGS == 2) {
+    if (w == 0) turn(0);  // warpgroup 1's first pass
+  }
 }
 
 // ---- K4: dk, dv and dp. A block of 384 threads owns 128 keys of one (b, h),
@@ -590,29 +651,59 @@ __global__ void __launch_bounds__(NT, 1) dq_kernel(
 //   land, so its last bits vary from run to run.
 // Eight products of 64 x 64 x 64 a tile pair (s^T, the two band halves,
 // dP^T, dv, dk, the two dp chunks).
-
+//
+// At dh 128 the three 64 x 128 accumulators of dk, dv and the dp chunk
+// would not fit beside the scores in a thread's 255 registers, and two
+// warpgroups' k, v, G^T and bands beside stages of 80 KB would not fit in
+// shared memory. So a block is one consumer warpgroup (64 keys, 256
+// threads, no setmaxnreg, no turns) and an item is 64 keys and one half of
+// the head dim: s^T, BD and dP^T are taken over all 128 columns (the two
+// items of a key tile each compute them: 12 products of 64 x 64 x 64 a tile
+// pair and half, 24 a pair, against 16 unsplit), dk, dv and dp over the
+// item's 64. A stage (qu, qv, dO and 128 rows of p, 80 KB) has no room for
+// the rows' lse and delta beside 2 stages, k, v, G^T and the band (~226 KB
+// in all): the consumers read them from global memory.
+template <int D>
 struct DkvLayout {
+  static constexpr int WGS = D == 64 ? 2 : 1;    // consumer warpgroups, 64 keys each
+  static constexpr int NT = 128 * (WGS + 1);     // and a producer warpgroup, one warp at work
+  static constexpr int TK = 64 * WGS;            // keys an item
+  static constexpr int NB = D / 64;              // boxes a row; items a key tile (halves of D)
+  static constexpr bool STAGED_ROWS = D == 64;   // lse and delta staged with the tiles
   static constexpr int STAGES = 2;
-  static constexpr int LDG = 68;                        // fp32 stride of G^T
-  static constexpr uint32_t KV = 2 * WGS * BOX64;       // k boxes, then v boxes
-  static constexpr uint32_t ROWS = 6 * BOX64;           // in a stage: lse log2(e), delta [2][64]
-  static constexpr uint32_t STAGE = ROWS + 1024;        // qu, qv, dO, 192 rows of p; rows
+  static constexpr int LDG = 68;                 // fp32 stride of G^T
+  static constexpr uint32_t TILE = NB * BOX64;   // 64 rows of D columns
+  static constexpr uint32_t KV = 2 * WGS * TILE;  // k tiles, then v tiles
+  static constexpr uint32_t PB = 3 * TILE;        // in a stage: qu, qv, dO, then p
+  static constexpr uint32_t ROWS = PB + (WGS + 1) * TILE;  // then lse log2(e), delta [2][64]
+  static constexpr uint32_t STAGE = ROWS + (STAGED_ROWS ? 1024 : 0);
   static constexpr uint32_t G = KV + STAGES * STAGE;
   static constexpr uint32_t GBYTES = 64 * LDG * 4;      // a warpgroup's G^T, or its dp staging
   static constexpr uint32_t BAND = G + WGS * GBYTES;
   static constexpr uint32_t BARS = BAND + WGS * 2 * BOX64;  // kv loaded, kv free, full, empty
   static constexpr uint32_t BYTES = BARS + 8 * (2 + 2 * STAGES) + ATOM;
+  static_assert(BYTES <= 232448, "K4: more shared memory than a block can have");
 };
 
-__global__ void __launch_bounds__(NT, 1) dkv_kernel(
+// p's rows in a K4 stage: column box c of the 64 (WGS + 1) rows from p's
+// first, then the next box (one operand of BD = qv p_band^T is 128 rows of
+// a column box, contiguous)
+template <int D>
+__device__ __forceinline__ uint32_t p_box(int c, int x) {
+  return DkvLayout<D>::PB + (c * (DkvLayout<D>::WGS + 1) + x) * BOX64;
+}
+
+template <int D>
+__global__ void __launch_bounds__(DkvLayout<D>::NT, 1) dkv_kernel(
     const __grid_constant__ CUtensorMap tqu, const __grid_constant__ CUtensorMap tqv,
     const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
     const __grid_constant__ CUtensorMap tp, const __grid_constant__ CUtensorMap tdo,
     const __grid_constant__ CUtensorMap tdp, const float* __restrict__ lse,
     const float* __restrict__ delta, const int* __restrict__ lengths, bf16* __restrict__ dk,
     bf16* __restrict__ dv, float* __restrict__ dpp, int B, int H, int Tn, float scale) {
-  using L = DkvLayout;
-  constexpr int STAGES = L::STAGES, LDG = L::LDG;
+  using L = DkvLayout<D>;
+  constexpr int STAGES = L::STAGES, LDG = L::LDG, WGS = L::WGS, TK = L::TK, NB = L::NB;
+  constexpr uint32_t TILE = L::TILE;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
   const uint32_t base = (raw + ATOM - 1) & ~(ATOM - 1);
@@ -621,13 +712,15 @@ __global__ void __launch_bounds__(NT, 1) dkv_kernel(
   auto full = [&](int s) { return base + L::BARS + 8 * (2 + s); };
   auto empty = [&](int s) { return base + L::BARS + 8 * (2 + STAGES + s); };
 
-  // work item it: 128 keys from j0 of head h, batch row b
-  const int n_k = (Tn + 127) / 128, n_items = n_k * H * B, n_q = (Tn + 63) / 64;
-  auto item_of = [&](int it, int& j0, int& h, int& b) {
-    const int rem = it % (H * B);
-    j0 = it / (H * B) * 128;
-    h = rem % H;
-    b = rem / H;
+  // work item it: TK keys from j0 of head h, batch row b, head-dim half hd
+  // (0 at dh 64)
+  const int n_k = (Tn + TK - 1) / TK, n_items = n_k * NB * H * B, n_q = (Tn + 63) / 64;
+  auto item_of = [&](int it, int& j0, int& h, int& b, int& hd) {
+    const int rem = it % (H * B * NB), hb = rem % (H * B);
+    j0 = it / (H * B * NB) * TK;
+    hd = rem / (H * B);
+    h = hb % H;
+    b = hb / H;
   };
   auto length = [&](int b) { return min(max(lengths[b], 0), Tn); };
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -635,7 +728,7 @@ __global__ void __launch_bounds__(NT, 1) dkv_kernel(
     hopper::mbar_init(kv_loaded, 1);
     hopper::mbar_init(kv_free, 4 * WGS);  // every consumer warp
     for (int s = 0; s < STAGES; ++s) {
-      hopper::mbar_init(full(s), 1 + 32);    // the TMA bytes, and each lane's rows
+      hopper::mbar_init(full(s), 1 + (L::STAGED_ROWS ? 32 : 0));  // the TMA bytes, each lane's rows
       hopper::mbar_init(empty(s), 4 * WGS);  // every consumer warp
     }
     hopper::mbar_fence_init();
@@ -643,53 +736,63 @@ __global__ void __launch_bounds__(NT, 1) dkv_kernel(
   __syncthreads();
 
   if (warp < 4) {
-    hopper::reg_dealloc<PRODUCER_REGS>();
+    if constexpr (WGS == 2) hopper::reg_dealloc<PRODUCER_REGS>();
     if (warp != 0) return;
     int n = 0, k = 0;  // stages filled, items taken
     for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
       const int it = flash::tc::snake_item(r);
       if (it >= n_items) continue;
-      int j0, h, b;
-      item_of(it, j0, h, b);
+      int j0, h, b, hd;
+      item_of(it, j0, h, b, hd);
       if (lane == 0) {  // k and v, once the last item is done with them
         if (k > 0) hopper::mbar_wait(kv_free, (k - 1) & 1);
         hopper::mbar_arrive_tx(kv_loaded, L::KV);
-        for (int w = 0; w < WGS; ++w) {
-          hopper::tma_load_4d(base + w * BOX64, &tk, kv_loaded, 0, h, j0 + 64 * w, b);
-          hopper::tma_load_4d(base + (WGS + w) * BOX64, &tv, kv_loaded, 0, h, j0 + 64 * w, b);
-        }
+        for (int w = 0; w < WGS; ++w)
+          for (int c = 0; c < NB; ++c) {
+            hopper::tma_load_4d(base + w * TILE + c * BOX64, &tk, kv_loaded, 64 * c, h,
+                                j0 + 64 * w, b);
+            hopper::tma_load_4d(base + (WGS + w) * TILE + c * BOX64, &tv, kv_loaded, 64 * c, h,
+                                j0 + 64 * w, b);
+          }
       }
       const int nq = j0 < length(b) ? n_q : 0;
       const long long lrow = ((long long)b * H + h) * Tn;
       for (int qt = 0; qt < nq; ++qt, ++n) {
         const int s = n % STAGES, use = n / STAGES;
-        float lv[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};  // this lane's rows, loaded first
+        if constexpr (L::STAGED_ROWS) {
+          float lv[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};  // this lane's rows, loaded first
 #pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          const int i = 64 * qt + lane + 32 * x;
-          if (i < Tn) {
-            lv[x] = lse[lrow + i] * LOG2E;
-            dl[x] = delta[lrow + i];
+          for (int x = 0; x < 2; ++x) {
+            const int i = 64 * qt + lane + 32 * x;
+            if (i < Tn) {
+              lv[x] = lse[lrow + i] * LOG2E;
+              dl[x] = delta[lrow + i];
+            }
           }
-        }
-        if (use > 0) hopper::mbar_wait(empty(s), (use - 1) & 1);  // the stage is read out
-        float* rows = reinterpret_cast<float*>(sm + L::KV + s * L::STAGE + L::ROWS);
+          if (use > 0) hopper::mbar_wait(empty(s), (use - 1) & 1);  // the stage is read out
+          float* rows = reinterpret_cast<float*>(sm + L::KV + s * L::STAGE + L::ROWS);
 #pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          rows[lane + 32 * x] = lv[x];
-          rows[64 + lane + 32 * x] = dl[x];
+          for (int x = 0; x < 2; ++x) {
+            rows[lane + 32 * x] = lv[x];
+            rows[64 + lane + 32 * x] = dl[x];
+          }
+        } else {
+          if (use > 0 && lane == 0) hopper::mbar_wait(empty(s), (use - 1) & 1);
         }
         if (lane == 0) {
           const uint32_t st = base + L::KV + s * L::STAGE;
-          hopper::mbar_arrive_tx(full(s), L::ROWS);  // the six boxes
-          hopper::tma_load_4d(st, &tqu, full(s), 0, h, 64 * qt, b);
-          hopper::tma_load_4d(st + BOX64, &tqv, full(s), 0, h, 64 * qt, b);
-          hopper::tma_load_4d(st + 2 * BOX64, &tdo, full(s), 0, h, 64 * qt, b);
-          for (int x = 0; x < 3; ++x)  // rows past either end of p read as zeros
-            hopper::tma_load_4d(st + (3 + x) * BOX64, &tp, full(s), 0, h,
-                                Tn - 64 - 64 * qt + j0 + 64 * x, 0);
+          hopper::mbar_arrive_tx(full(s), L::ROWS);  // the tiles' bytes
+          for (int c = 0; c < NB; ++c) {
+            hopper::tma_load_4d(st + c * BOX64, &tqu, full(s), 64 * c, h, 64 * qt, b);
+            hopper::tma_load_4d(st + TILE + c * BOX64, &tqv, full(s), 64 * c, h, 64 * qt, b);
+            hopper::tma_load_4d(st + 2 * TILE + c * BOX64, &tdo, full(s), 64 * c, h, 64 * qt,
+                                b);
+            for (int x = 0; x <= WGS; ++x)  // rows past either end of p read as zeros
+              hopper::tma_load_4d(st + p_box<D>(c, x), &tp, full(s), 64 * c, h,
+                                  Tn - 64 - 64 * qt + j0 + 64 * x, 0);
+          }
         }
-        hopper::mbar_arrive(full(s));
+        if constexpr (L::STAGED_ROWS) hopper::mbar_arrive(full(s));
       }
       ++k;
     }
@@ -698,25 +801,26 @@ __global__ void __launch_bounds__(NT, 1) dkv_kernel(
 
   // consumer warpgroup w: keys c0 = j0 + 64 w .. + 63 of each item; this
   // thread's local keys rl and rl + 8 (global ja, jb), rows of s^T
-  hopper::reg_alloc<CONSUMER_REGS>();
+  if constexpr (WGS == 2) hopper::reg_alloc<CONSUMER_REGS>();
   const int w = (warp >> 2) - 1, g = lane >> 2, t = lane & 3, rl = 16 * (warp & 3) + g;
   const bool issuer = (threadIdx.x & 127) == 0;  // issues the warpgroup's dp reductions
   const float scale2 = scale * LOG2E;
-  const long long rs = (long long)H * 64;
+  const long long rs = (long long)H * D;
   float* const Gt = reinterpret_cast<float*>(sm + L::G + w * L::GBYTES);
   uint8_t* const staging = sm + L::G + w * L::GBYTES;  // G^T's memory, once G^T is read out
   const uint32_t staging_at = base + L::G + w * L::GBYTES;
   uint8_t* const band = sm + L::BAND + w * 2 * BOX64;
   const uint32_t band_at = base + L::BAND + w * 2 * BOX64;
-  const uint32_t k_at = base + w * BOX64, v_at = base + (WGS + w) * BOX64;
+  const uint32_t k_at = base + w * TILE, v_at = base + (WGS + w) * TILE;
 
-  // a dp chunk (64 rows of p from row r, fp32 accumulator) into the staging
-  // tile, and from there into dp: by a TMA reduction that the issuer starts
-  // or, for the one chunk that starts before row 0 (the first keys' last
-  // query tile, where T is no multiple of 64: once a (b, h)), by atomics. A
-  // TMA reduction's box may not start at a negative row (it faults, error
-  // 715, on the H100); rows past the end are skipped.
-  auto flush = [&](const float (&acc)[8][4], int h, int r) {
+  // a dp chunk (64 rows of p from row r, the item's 64 columns from col0;
+  // fp32 accumulator) into the staging tile, and from there into dp: by a
+  // TMA reduction that the issuer starts or, for the one chunk that starts
+  // before row 0 (the first keys' last query tile, where T is no multiple
+  // of 64: once a (b, h)), by atomics. A TMA reduction's box may not start
+  // at a negative row (it faults, error 715, on the H100); rows past the end
+  // are skipped.
+  auto flush = [&](const float (&acc)[8][4], int h, int r, int col0) {
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -728,31 +832,35 @@ __global__ void __launch_bounds__(NT, 1) dkv_kernel(
     wg_sync(w);
     if (r >= 0) {
       if (issuer) {
-        hopper::tma_reduce_add_3d(&tdp, staging_at, 0, h, r);
-        hopper::tma_reduce_add_3d(&tdp, staging_at + 64 * hopper::BOX_ROW_BYTES, 32, h, r);
+        hopper::tma_reduce_add_3d(&tdp, staging_at, col0, h, r);
+        hopper::tma_reduce_add_3d(&tdp, staging_at + 64 * hopper::BOX_ROW_BYTES, col0 + 32, h,
+                                  r);
         hopper::bulk_commit();
       }
     } else {
       for (int idx = threadIdx.x & 127; idx < 64 * 64; idx += 128) {
         const int row = idx >> 6, col = idx & 63;
         if (r + row >= 0)
-          atomicAdd(dpp + ((long long)(r + row) * H + h) * 64 + col,
+          atomicAdd(dpp + ((long long)(r + row) * H + h) * D + col0 + col,
                     *reinterpret_cast<const float*>(staging + hopper::sw128_f32(row, col, 64)));
       }
     }
   };
 
-  if (w == 1) pass(1);  // the first turn is warpgroup 0's
+  if constexpr (WGS == 2) {
+    if (w == 1) pass(1);  // the first turn is warpgroup 0's
+  }
   int n = 0, k = 0;  // stages consumed, items taken
   for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
     const int it = flash::tc::snake_item(r);
     if (it >= n_items) continue;
-    int j0, h, b;
-    item_of(it, j0, h, b);
+    int j0, h, b, hd;
+    item_of(it, j0, h, b, hd);
     const int len = length(b), nq = j0 < len ? n_q : 0, c0 = j0 + 64 * w;
     const bool dead = c0 >= len;  // every key of this warpgroup is masked
     const int ja = c0 + rl, jb = ja + 8;
     const bool kok[2] = {ja < len, jb < len};
+    const long long lrow = ((long long)b * H + h) * Tn;
     float dka[8][4], dva[8][4], carry[8][4], sc[8][4], dp[8][4];
     uint32_t pa[4][4], pd[4][4];  // P^T and dS^T as A fragments
     flash::tc::zero<8>(dka);
@@ -764,21 +872,32 @@ __global__ void __launch_bounds__(NT, 1) dkv_kernel(
       const int s = n % STAGES;
       hopper::mbar_wait(full(s), (n / STAGES) & 1);
       if (dead) {
-        turn(w);  // a dead warpgroup keeps the turns balanced
-        pass(w);
+        if constexpr (WGS == 2) {
+          turn(w);  // a dead warpgroup keeps the turns balanced
+          pass(w);
+        }
         release(empty(s), lane);
         continue;
       }
-      const uint32_t qu_at = base + L::KV + s * L::STAGE, qv_at = qu_at + BOX64;
-      const uint32_t do_at = qu_at + 2 * BOX64, pb_at = qu_at + (3 + w) * BOX64;
-      const float* rows = reinterpret_cast<const float*>(sm + L::KV + s * L::STAGE + L::ROWS);
+      const uint32_t qu_at = base + L::KV + s * L::STAGE, qv_at = qu_at + TILE;
+      const uint32_t do_at = qu_at + 2 * TILE, pb_at = qu_at + p_box<D>(0, w);
       const int i0 = 64 * qt;
+      // row i of the query tile's lse log2(e) and delta (i < Tn - i0 where it is read)
+      const float* rows = reinterpret_cast<const float*>(sm + L::KV + s * L::STAGE + L::ROWS);
+      auto lse2_of = [&](int i) -> float {
+        if constexpr (L::STAGED_ROWS) return rows[i];
+        else return lse[lrow + min(i0 + i, Tn - 1)] * LOG2E;
+      };
+      auto delta_of = [&](int i) -> float {
+        if constexpr (L::STAGED_ROWS) return rows[64 + i];
+        else return delta[lrow + min(i0 + i, Tn - 1)];
+      };
       r0 = Tn - 64 - i0 + c0;
       {
         float bd[16][4];  // BD = qv p_band^T: query i by band row q
-        turn(w);
+        if constexpr (WGS == 2) turn(w);
         hopper::wgmma_fence();
-        product_ss<128, 64>(bd, qv_at, pb_at);
+        product_ss<128, D>(bd, qv_at, pb_at);
         hopper::wgmma_wait<0>();  // BD, and the last tile's dp chunk
         hopper::fence_regs(bd);
         hopper::fence_regs(carry);
@@ -800,10 +919,10 @@ __global__ void __launch_bounds__(NT, 1) dkv_kernel(
             *((unsigned)c < 64u ? Gt + c * LDG + i : spare) = bd[nt][e];
           }
       }
-      pass(w);  // the other warpgroup's band product overlaps this tile's s^T and dP^T
+      if constexpr (WGS == 2) pass(w);  // the other warpgroup's band product overlaps s^T, dP^T
       hopper::wgmma_fence();
-      product_ss<64, 64>(sc, k_at, qu_at);  // s^T = k qu^T
-      product_ss<64, 64>(dp, v_at, do_at);  // dP^T = v dO^T
+      product_ss<64, D>(sc, k_at, qu_at);  // s^T = k qu^T
+      product_ss<64, D>(dp, v_at, do_at);  // dP^T = v dO^T
       wg_sync(w);
       hopper::wgmma_wait<1>();
       hopper::fence_regs(sc);
@@ -816,7 +935,7 @@ __global__ void __launch_bounds__(NT, 1) dkv_kernel(
           for (int e = 0; e < 4; ++e) {
             const int hh = e >> 1, i = 8 * nt + 2 * t + (e & 1);
             const float x = sc[nt][e] + Gt[(rl + 8 * hh) * LDG + i];
-            sc[nt][e] = kok[hh] && i < imax ? ex2(fmaf(x, scale2, -rows[i])) : 0.f;
+            sc[nt][e] = kok[hh] && i < imax ? ex2(fmaf(x, scale2, -lse2_of(i))) : 0.f;
           }
       } else {
 #pragma unroll
@@ -825,12 +944,12 @@ __global__ void __launch_bounds__(NT, 1) dkv_kernel(
           for (int e = 0; e < 4; ++e) {
             const int hh = e >> 1, i = 8 * nt + 2 * t + (e & 1);
             const float x = sc[nt][e] + Gt[(rl + 8 * hh) * LDG + i];
-            sc[nt][e] = kok[hh] ? ex2(fmaf(x, scale2, -rows[i])) : 0.f;
+            sc[nt][e] = kok[hh] ? ex2(fmaf(x, scale2, -lse2_of(i))) : 0.f;
           }
       }
       pack_p<64>(pa, sc);
       hopper::wgmma_fence();
-      product_rs<64, 64>(dva, pa, do_at);  // dv += P^T dO, dO MN-major
+      product_rs<64, 64>(dva, pa, do_at + hd * BOX64);  // dv += P^T dO, dO MN-major
       hopper::wgmma_wait<1>();
       hopper::fence_regs(dp);
       // dS^T = P^T (dP^T - delta) scale, as A fragments and into the band
@@ -839,11 +958,11 @@ __global__ void __launch_bounds__(NT, 1) dkv_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = 8 * nt + 2 * t + (e & 1);
-          dp[nt][e] = sc[nt][e] * (dp[nt][e] - rows[64 + i]) * scale;
+          dp[nt][e] = sc[nt][e] * (dp[nt][e] - delta_of(i)) * scale;
         }
       pack_p<64>(pd, dp);
       hopper::wgmma_fence();
-      product_rs<64, 64>(dka, pd, qu_at);  // dk += dS^T qu, qu MN-major
+      product_rs<64, 64>(dka, pd, qu_at + hd * BOX64);  // dk += dS^T qu, qu MN-major
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -854,16 +973,17 @@ __global__ void __launch_bounds__(NT, 1) dkv_kernel(
       hopper::fence_proxy_async();
       wg_sync(w);
       hopper::wgmma_fence();
-      product_ss_mn<64, 64>(carry, band_at + BOX64, qv_at, 1);  // + the upper chunk
+      product_ss_mn<64, 64>(carry, band_at + BOX64, qv_at + hd * BOX64, 1);  // + the upper chunk
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dva);
       hopper::fence_regs(dka);
       hopper::fence_regs(carry);
       hopper::fence_regs(pa);
       hopper::fence_regs(pd);
-      flush(carry, h, r0 + 64);  // rows r0 + 64 ..: no later tile reaches them
+      flush(carry, h, r0 + 64, 64 * hd);  // rows r0 + 64 ..: no later tile reaches them
       hopper::wgmma_fence();
-      product_ss_mn<64, 64>(carry, band_at, qv_at, 0);  // the lower chunk, the next tile's upper
+      // the lower chunk, the next tile's upper
+      product_ss_mn<64, 64>(carry, band_at, qv_at + hd * BOX64, 0);
       held = s;
     }
     if (held >= 0) {  // the last tile's lower chunk
@@ -871,22 +991,25 @@ __global__ void __launch_bounds__(NT, 1) dkv_kernel(
       hopper::fence_regs(carry);
       if (issuer) hopper::bulk_wait_read();
       wg_sync(w);
-      flush(carry, h, r0);
+      flush(carry, h, r0, 64 * hd);
       release(empty(held), lane);
     }
     release(kv_free, lane);  // every product of the item that reads k and v is done
     const float one[2] = {1.f, 1.f};
-    const long long off = (long long)b * Tn * rs + (long long)h * 64;
+    const long long off = (long long)b * Tn * rs + (long long)h * D + 64 * hd;
     flash::tc::store_rows<8>(dk + off, dka, ja, jb, Tn, rs, t, one);
     flash::tc::store_rows<8>(dv + off, dva, ja, jb, Tn, rs, t, one);
     ++k;
   }
-  if (w == 0) turn(0);  // warpgroup 1's first pass
+  if constexpr (WGS == 2) {
+    if (w == 0) turn(0);  // warpgroup 1's first pass
+  }
   if (issuer) hopper::bulk_wait_read();  // the staging outlives no reduction
 }
 
 // the tensor maps and the launch; dp == nullptr: K3 (dqu, dqv into out0,
 // out1), else K4 (dk, dv into out0, out1, dp added to)
+template <int D>
 int launch(void* qu, void* qv, void* k, void* v, void* p, void* dout, void* lse, void* delta,
            void* lengths, void* out0, void* out1, void* dp, int B, int H, int Tn, float scale,
            cudaStream_t stream) {
@@ -901,17 +1024,22 @@ int launch(void* qu, void* qv, void* k, void* v, void* p, void* dout, void* lse,
   // a persistent grid, items in a snake order; one block an item measured
   // the same at the calibration shape (192 items of equal work) on the
   // H100: K3 0.6 % faster, K4 within the spread of two runs
+  const int items = dp == nullptr
+                        ? (Tn + DqLayout<D>::TQ - 1) / DqLayout<D>::TQ * H * B
+                        : (Tn + DkvLayout<D>::TK - 1) / DkvLayout<D>::TK * DkvLayout<D>::NB * H * B;
   int grid = 0;
-  if (err == 0) err = flash::persistent_grid((Tn + 127) / 128 * H * B, grid);
+  if (err == 0) err = flash::persistent_grid(items, grid);
   if (err != 0) return err;
   if (dp == nullptr) {
     void* args[] = {&mqu, &mqv, &mk,  &mv,   &mp, &mdo, &lse, &delta, &lengths,
                     &out0, &out1, &B, &H, &Tn, &scale};
-    return flash::launch(dq_kernel, DqLayout::BYTES, NT, grid, 1, 1, stream, args);
+    return flash::launch(dq_kernel<D>, DqLayout<D>::BYTES, DqLayout<D>::NT, grid, 1, 1, stream,
+                         args);
   }
   void* args[] = {&mqu, &mqv, &mk,  &mv, &mp, &mdo, &mdp, &lse, &delta,
                   &lengths, &out0, &out1, &dp, &B, &H, &Tn, &scale};
-  return flash::launch(dkv_kernel, DkvLayout::BYTES, NT, grid, 1, 1, stream, args);
+  return flash::launch(dkv_kernel<D>, DkvLayout<D>::BYTES, DkvLayout<D>::NT, grid, 1, 1, stream,
+                       args);
 }
 
 }  // namespace wg
@@ -919,48 +1047,61 @@ int launch(void* qu, void* qv, void* k, void* v, void* p, void* dout, void* lse,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (every bf16 tensor 16-byte aligned).
-// head_dim must be 64. Each returns a cudaError_t.
+// head_dim 64 or 128. Each returns a cudaError_t.
 
-// K3: dqu, dqv [B, T, H, 64] in the input dtype.
+// K3: dqu, dqv [B, T, H, D] in the input dtype.
 extern "C" int relpos_flash_bwd_dq(int dtype, void* qu, void* qv, void* k, void* v, void* p,
                                    void* dout, void* lse, void* delta, void* lengths, void* dqu,
                                    void* dqv, int B, int H, int Tn, int head_dim, float scale,
                                    void* stream) {
-  if (head_dim != D || B <= 0 || H <= 0 || Tn <= 0) return (int)cudaErrorInvalidValue;
+  if ((head_dim != 64 && head_dim != 128) || B <= 0 || H <= 0 || Tn <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     void* args[] = {&qu, &qv, &k, &v, &p, &dout, &lse, &delta, &lengths, &dqu, &dqv, &H, &Tn,
                     &scale};
-    return flash::launch(f32::dq_kernel, f32::SMEM_DQ, f32::NT, (Tn + BQ - 1) / BQ, H, B, s,
-                         args);
+    if (head_dim == 64)
+      return flash::launch(f32::dq_kernel<64>, f32::Tiles<64>::SMEM_DQ, f32::NT,
+                           (Tn + f32::Tiles<64>::FQ - 1) / f32::Tiles<64>::FQ, H, B, s, args);
+    return flash::launch(f32::dq_kernel<128>, f32::Tiles<128>::SMEM_DQ, f32::NT,
+                         (Tn + f32::Tiles<128>::FQ - 1) / f32::Tiles<128>::FQ, H, B, s, args);
   }
   if (dtype == 1) {
     const void* bf[] = {qu, qv, k, v, p, dout, dqu, dqv};
     if (!flash::aligned16(bf, 8)) return (int)cudaErrorMisalignedAddress;
-    return wg::launch(qu, qv, k, v, p, dout, lse, delta, lengths, dqu, dqv, nullptr, B, H, Tn,
-                      scale, s);
+    return head_dim == 64 ? wg::launch<64>(qu, qv, k, v, p, dout, lse, delta, lengths, dqu, dqv,
+                                           nullptr, B, H, Tn, scale, s)
+                          : wg::launch<128>(qu, qv, k, v, p, dout, lse, delta, lengths, dqu,
+                                            dqv, nullptr, B, H, Tn, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// K4: dk, dv [B, T, H, 64] in the input dtype; dp [2T-1, H, 64] fp32, added to
+// K4: dk, dv [B, T, H, D] in the input dtype; dp [2T-1, H, D] fp32, added to
 // (16-byte aligned for bf16).
 extern "C" int relpos_flash_bwd_dkv(int dtype, void* qu, void* qv, void* k, void* v, void* p,
                                     void* dout, void* lse, void* delta, void* lengths, void* dk,
                                     void* dv, void* dp, int B, int H, int Tn, int head_dim,
                                     float scale, void* stream) {
-  if (head_dim != D || B <= 0 || H <= 0 || Tn <= 0) return (int)cudaErrorInvalidValue;
+  if ((head_dim != 64 && head_dim != 128) || B <= 0 || H <= 0 || Tn <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     void* args[] = {&qu, &qv, &k, &v, &p, &dout, &lse, &delta, &lengths, &dk, &dv, &dp, &H, &Tn,
                     &scale};
-    return flash::launch(f32::dkv_kernel, f32::SMEM_DKV, f32::NT, (Tn + BKV - 1) / BKV, H, B, s,
-                         args);
+    if (head_dim == 64)
+      return flash::launch(f32::dkv_kernel<64>, f32::Tiles<64>::SMEM_DKV, f32::NT,
+                           (Tn + BKV - 1) / BKV, H, B, s, args);
+    return flash::launch(f32::dkv_kernel<128>, f32::Tiles<128>::SMEM_DKV, f32::NT,
+                         (Tn + BKV - 1) / BKV, H, B, s, args);
   }
   if (dtype == 1) {
     const void* bf[] = {qu, qv, k, v, p, dout, dk, dv, dp};
     if (!flash::aligned16(bf, 9)) return (int)cudaErrorMisalignedAddress;
-    return wg::launch(qu, qv, k, v, p, dout, lse, delta, lengths, dk, dv, dp, B, H, Tn, scale, s);
+    return head_dim == 64 ? wg::launch<64>(qu, qv, k, v, p, dout, lse, delta, lengths, dk, dv,
+                                           dp, B, H, Tn, scale, s)
+                          : wg::launch<128>(qu, qv, k, v, p, dout, lse, delta, lengths, dk, dv,
+                                            dp, B, H, Tn, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -83,3 +83,13 @@ def conformer_transducer(
     cfg.joint = ConfigDict(joint_hidden=640)
     cfg.decoding = ConfigDict(strategy=decoding_strategy, max_symbols=10)
     return cfg
+
+
+def fastconformer_ctc(size: str = "large", labels: Optional[List[str]] = None) -> ConfigDict:
+    """FastConformer: the `conformer_ctc` config with ×8 depthwise-striding
+    subsampling through 256 channels (the JAX config's). The conv module
+    keeps conformer_ctc's kernel of 31, as JAX's does (NeMo's FastConformer
+    configs use 9)."""
+    cfg = conformer_ctc(size, labels, subsampling="dw_striding", subsampling_factor=8)
+    cfg.encoder.subsampling_conv_channels = 256
+    return cfg

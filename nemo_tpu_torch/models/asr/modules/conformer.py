@@ -49,25 +49,44 @@ def layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 
 class ConvSubsampling(nn.Module):
-    """'striding' 2-D conv subsampling: [B, T, F] → [B, T/2^n, d_model].
+    """'striding' or 'dw_striding' 2-D conv subsampling: [B, T, F] → [B,
+    T/2^n, d_model]. Each of the n layers is a 3×3 stride-2 conv (`conv{i}`)
+    and a ReLU; with 'dw_striding' (FastConformer) every layer after the
+    first is a depthwise 3×3 stride-2 conv (`dw{i}`) and a 1×1 conv
+    (`pw{i}`) before its ReLU. These convolutions are cuDNN's, as they are
+    XLA's in JAX.
 
-    With `fused_kernel` (and factor 4) both convs run as the fused kernel K2
-    (ops/subsampling_kernel.py) on the same parameters, unless the caller
-    asks for the conv pair (`conv_pair=True`, the training forward)."""
+    With `fused_kernel` ('striding' at factor 4 only, as in JAX) both convs
+    run as the fused kernel K2 (ops/subsampling_kernel.py) on the same
+    parameters, unless the caller asks for the conv pair (`conv_pair=True`,
+    the training forward)."""
 
     def __init__(self, d_model: int, feat_in: int, subsampling_factor: int = 4,
                  conv_channels: int = -1, fused_kernel: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, subsampling: str = "striding"):
         super().__init__()
+        if subsampling not in ("striding", "dw_striding"):
+            raise ValueError(f"subsampling {subsampling!r} is not ported")
         self.n_layers = int(math.log2(subsampling_factor))
-        self.fused_kernel = fused_kernel and self.n_layers == 2
+        self.depthwise = subsampling == "dw_striding"
+        self.fused_kernel = fused_kernel and self.n_layers == 2 and not self.depthwise
         ch = conv_channels if conv_channels > 0 else d_model
         f = feat_in
         for i in range(self.n_layers):
-            self.add_module(f"conv{i}", nn.Conv2d(1 if i == 0 else ch, ch, 3, stride=2,
-                                                  padding=1, dtype=dtype))
+            if self.depthwise and i > 0:
+                self.add_module(f"dw{i}", nn.Conv2d(ch, ch, 3, stride=2, padding=1, groups=ch,
+                                                    dtype=dtype))
+                self.add_module(f"pw{i}", nn.Conv2d(ch, ch, 1, dtype=dtype))
+            else:
+                self.add_module(f"conv{i}", nn.Conv2d(1 if i == 0 else ch, ch, 3, stride=2,
+                                                      padding=1, dtype=dtype))
             f = (f - 1) // 2 + 1
         self.out = nn.Linear(f * ch, d_model, dtype=dtype)
+
+    def _layer(self, i: int, h: torch.Tensor) -> torch.Tensor:
+        if self.depthwise and i > 0:
+            return getattr(self, f"pw{i}")(getattr(self, f"dw{i}")(h)).relu()
+        return getattr(self, f"conv{i}")(h).relu()
 
     def forward(self, x: torch.Tensor, length: torch.Tensor,
                 conv_pair: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -78,7 +97,7 @@ class ConvSubsampling(nn.Module):
         else:
             h = x[:, None]  # [B, 1, T, F]
             for i in range(self.n_layers):
-                h = getattr(self, f"conv{i}")(h).relu()
+                h = self._layer(i, h)
             B, C, T, Fo = h.shape
             # flatten (f, c) as the JAX [B, T, F, C] reshape does
             h = h.permute(0, 2, 3, 1).reshape(B, T, Fo * C)
@@ -221,13 +240,13 @@ class ConformerEncoder(nn.Module):
                  att_impl: str = "decomposed", fused_subsampling: bool = False,
                  compute_dtype: str = "float32", **unused):
         super().__init__()
-        if subsampling != "striding" or conv_norm_type != "batch_norm":
-            raise ValueError("only striding subsampling with batch_norm is ported")
+        if conv_norm_type != "batch_norm":
+            raise ValueError("only the batch_norm conv module is ported")
         self.n_layers = n_layers
         self.dtype = DTYPES[compute_dtype]
         self.pre_encode = ConvSubsampling(d_model, feat_in, subsampling_factor,
                                           subsampling_conv_channels, fused_subsampling,
-                                          self.dtype)
+                                          self.dtype, subsampling)
         self.pos_enc = RelPositionalEncoding(
             d_model, pos_emb_max_len, math.sqrt(d_model) if xscaling else None)
         for i in range(n_layers):

@@ -141,25 +141,31 @@ class PredictionNetwork(nn.Module):
 
 class RNNTJoint(nn.Module):
     """act(enc_proj(enc) + pred_proj(pred)) → out_proj: V + 1 logits, blank
-    last (index V). TDT (`num_durations`) and multiblank (`num_big_blanks`)
-    joints are not ported."""
+    last (index V). With `num_durations` > 0 it is the TDT joint: a second
+    head `dur_proj` over the same hidden gives the duration logits, and the
+    joint returns (token logits, duration logits). The multiblank joint
+    (`num_big_blanks`) is not ported."""
 
     def __init__(self, num_classes: int, enc_hidden: int, pred_hidden: int,
                  joint_hidden: int = 640, activation: str = "relu", num_durations: int = 0,
                  num_big_blanks: int = 0):
         super().__init__()
-        if num_durations > 0 or num_big_blanks > 0:
-            raise NotImplementedError("TDT and multiblank joints are not ported "
-                                      "(ROADMAP.md A3, what is left of RNNT)")
+        if num_big_blanks > 0:
+            raise NotImplementedError("the multiblank joint is not ported "
+                                      "(ROADMAP.md A5, what is left of RNNT)")
         self.num_classes = num_classes
         self.act = _ACTIVATIONS[activation]
         self.enc_proj = nn.Linear(enc_hidden, joint_hidden)
         self.pred_proj = nn.Linear(pred_hidden, joint_hidden)
         self.out_proj = nn.Linear(joint_hidden, num_classes + 1)
+        if num_durations > 0:
+            self.dur_proj = nn.Linear(joint_hidden, num_durations)
+        self.num_durations = num_durations
 
-    def forward(self, enc: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    def forward(self, enc: torch.Tensor, pred: torch.Tensor):
         """enc [..., H_e], pred [..., H_p] broadcastable ([B, T, 1, H] and
-        [B, 1, U+1, H] in training, [B, H] and [B, H] in decode) → [..., V+1]."""
+        [B, 1, U+1, H] in training, [B, H] and [B, H] in decode) → [..., V+1]
+        (TDT: and the duration logits [..., D])."""
         return self.from_projected(self.project_enc(enc), self.project_pred(pred))
 
     def project_enc(self, enc: torch.Tensor) -> torch.Tensor:
@@ -171,14 +177,18 @@ class RNNTJoint(nn.Module):
         return self.pred_proj(pred.to(torch.promote_types(pred.dtype,
                                                            self.pred_proj.weight.dtype)))
 
-    def from_projected(self, e: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-        """The logits from projected encoder and prediction outputs."""
-        return self.out_proj(self.act(e + p))
+    def from_projected(self, e: torch.Tensor, p: torch.Tensor):
+        """The logits from projected encoder and prediction outputs (TDT: the
+        token and the duration logits)."""
+        h = self.act(e + p)
+        if self.num_durations:
+            return self.out_proj(h), self.dur_proj(h)
+        return self.out_proj(h)
 
     def fused_log_probs(self, enc: torch.Tensor, pred: torch.Tensor, targets: torch.Tensor,
                         chunk: int = 32) -> Tuple[torch.Tensor, torch.Tensor]:
         """enc [B, T, H_e], pred [B, U+1, H_p], targets [B, U] → (lp_blank,
-        lp_label) [B, T, U+1] fp32, the two planes the loss reads, from
+        lp_label) [B, T, U+1] fp32, the two planes the RNNT loss reads, from
         chunks of `chunk` frames: only one chunk's [B, chunk, U+1, V+1]
         logits exist at a time, in the backward too (each chunk is
         recomputed there, as JAX's `jax.checkpoint` body is)."""

@@ -114,7 +114,8 @@ def fit_synthetic_asr(model, steps: int = 40, batch: int = 8, secs: float = 2.0,
     """Brief tone-coded fit of a transducer's prediction net and joint over
     its frozen encoder, in place (the JAX package's `fit_synthetic_asr` with
     `head_only=True`): the RNNT loss of the memory-chunked joint (chunks of
-    16 frames), the encoder run without autograd (through the fused
+    16 frames), or a TDT model's loss over its full joint, the encoder run
+    without autograd (through the fused
     subsampling kernel where the flag is set) and its BatchNorm stats
     untouched; clip 5.0 and AdamW under a warmup-cosine schedule on the
     `prediction` and `joint` variables only. Returns the final loss.
@@ -144,8 +145,12 @@ def fit_synthetic_asr(model, steps: int = 40, batch: int = 8, secs: float = 2.0,
         tgt = model.upload(targets.astype(np.int32))
         with torch.no_grad():  # the frozen encoder: through the fused subsampling kernel
             enc, enc_len = model.encode(*model.mel_features(model.upload(audio), lens))
-        lp_b, lp_l = model.joint.fused_log_probs(enc, model.predict(tgt), tgt, chunk=16)
-        loss = rnnt_loss_from_log_probs(lp_b, lp_l, enc_len, tlen + 1).mean()
+        if model.durations:  # TDT: the full joint and the TDT loss, as JAX's loss_fused
+            logits = model.joint(enc[:, :, None], model.predict(tgt)[:, None])
+            loss = model.loss(logits, tgt, enc_len, tlen)
+        else:
+            lp_b, lp_l = model.joint.fused_log_probs(enc, model.predict(tgt), tgt, chunk=16)
+            loss = rnnt_loss_from_log_probs(lp_b, lp_l, enc_len, tlen + 1).mean()
         opt.step(torch.autograd.grad(loss, head))
     return float(loss.detach())
 
@@ -224,7 +229,8 @@ def trim_blank_bias(model, secs: float, utt_tokens: int,
                     band: Tuple[float, float] = (0.05, 0.15), batch: int = 4, seed: int = 990,
                     iters: int = 9) -> Tuple[float, float]:
     """Bisect an offset on the transducer joint's blank logit bias
-    (`joint.out_proj.bias[blank_id]`, the only entry it changes) so that
+    (`joint.out_proj.bias[blank_id]`, the only entry it changes; a TDT
+    joint's duration head is left as it is) so that
     greedy decoding of held-out tone audio (`make_eval_batch` seed `seed`,
     B = `batch`) lands in `band` labels per encoder frame. The offset spans
     [-14, 14] (the density falls as it grows), at most `iters` bisection

@@ -155,8 +155,8 @@ def _check(what: str, qu, qv, k, v, p, lengths) -> None:
     dtype = qu.dtype
     if dtype not in _DTYPES:
         raise ValueError(f"{what}: dtype {dtype} not supported")
-    if dh != 64:
-        raise ValueError(f"{what}: head dim {dh} != 64")
+    if dh not in (64, 128):
+        raise ValueError(f"{what}: head dim {dh} is neither 64 nor 128")
     for name, t in (("qv", qv), ("k", k), ("v", v)):
         if t.shape != qu.shape or t.dtype != dtype or t.device != qu.device:
             raise ValueError(f"{what}: {name} does not match qu")
@@ -248,7 +248,7 @@ def relpos_flash_attention(
     in qu, qv, k, v and p.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (fp32, or bf16 at 16-byte aligned addresses; dh = 64) or raise. The
+    (fp32, or bf16 at 16-byte aligned addresses; dh 64 or 128) or raise. The
     kernel reads qu/qv/k/v in the [B, T, H, dh] layout (a view of the Linear
     outputs needs no copy) and writes o in that layout too."""
     o, lse = RelposFlashAttention.apply(qu, qv, k, v, p, lengths, scale)

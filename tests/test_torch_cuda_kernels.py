@@ -80,8 +80,7 @@ def test_wgmma_plain_tile_forms_match_matmul(cuda, n, b_layout, a_source):
     torch.testing.assert_close(c, ref, atol=1e-3, rtol=1e-4)
 
 
-def _attention_inputs(B, H, T, lengths, seed):
-    dh = 64
+def _attention_inputs(B, H, T, lengths, seed, dh=64):
     g = torch.Generator().manual_seed(seed)
     qu, qv, k, v = (torch.randn(B, T, H, dh, generator=g).transpose(1, 2) for _ in range(4))
     _, pos_emb = RelPositionalEncoding(H * dh)(torch.zeros(1, T, H * dh))
@@ -110,6 +109,30 @@ def test_relpos_flash_kernel_matches_plain(cuda, dtype, tol, T, lengths):
     assert relpos_flash_attention.launches == launches + 1
     o_ref, lse_ref = relpos_flash_attention_plain(*args)
     assert o.dtype == dtype and o.shape == (B, H, T, 64) and lse.shape == (B, H, T)
+    for b, n in enumerate(lengths):  # padded query rows are garbage by design
+        torch.testing.assert_close(o[b, :, :n].float(), o_ref[b, :, :n].float(),
+                                   atol=tol, rtol=tol)
+        torch.testing.assert_close(lse[b, :, :n], lse_ref[b, :, :n], atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("T,lengths", [(64, [64, 64]), (100, [100, 37]), (129, [129, 1]),
+                                       (200, [1, 133]), (376, [376, 300]), (376, [376, 376])])
+def test_relpos_flash_kernel_matches_plain_dh128(cuda, dtype, tol, T, lengths):
+    """K1 at head dim 128 (FastConformer-XL's 1024 over 8 heads) against its
+    plain version: T under one 64-row query tile (its band's p rows start
+    before row 0), a last tile of one row (129), a row of length 1, and the
+    transcription's T' = 376 (30 s at x8), ragged and full."""
+    B, H = len(lengths), 2
+    args = [a.to(cuda, dtype) if torch.is_tensor(a) and a.is_floating_point() else
+            (a.to(cuda) if torch.is_tensor(a) else a)
+            for a in _attention_inputs(B, H, T, lengths, seed=T + 5, dh=128)]
+    launches = relpos_flash_attention.launches
+    o, lse = relpos_flash_attention(*args)
+    torch.cuda.synchronize()
+    assert relpos_flash_attention.launches == launches + 1
+    o_ref, lse_ref = relpos_flash_attention_plain(*args)
+    assert o.dtype == dtype and o.shape == (B, H, T, 128) and lse.shape == (B, H, T)
     for b, n in enumerate(lengths):  # padded query rows are garbage by design
         torch.testing.assert_close(o[b, :, :n].float(), o_ref[b, :, :n].float(),
                                    atol=tol, rtol=tol)
@@ -195,6 +218,36 @@ def test_relpos_flash_backward_kernels_match_plain(cuda, dtype, tol, T, lengths,
     args = [a.to(cuda, dtype) if torch.is_tensor(a) and a.is_floating_point() else
             (a.to(cuda) if torch.is_tensor(a) else a)
             for a in _attention_inputs(B, H, T, lengths, seed=T + 1)]
+    o, lse = relpos_flash_attention(*args)
+    do = torch.randn(o.shape, generator=torch.Generator().manual_seed(T)).to(cuda, dtype)
+    delta = row_delta(o, do)
+    launches = relpos_flash_dq.launches, relpos_flash_dkv.launches
+    out = (*relpos_flash_dq(*args, lse, delta, do), *relpos_flash_dkv(*args, lse, delta, do))
+    torch.cuda.synchronize()
+    assert (relpos_flash_dq.launches, relpos_flash_dkv.launches) == (launches[0] + 1,
+                                                                     launches[1] + 1)
+    ref = relpos_flash_attention_backward_plain(*args, o, lse, do)
+    for name, x, r in zip(("dqu", "dqv", "dk", "dv", "dp"), out, ref):
+        assert x.shape == r.shape and x.dtype == dtype, name
+        r = r.float()
+        torch.testing.assert_close(x.float(), r, atol=tol * float(r.abs().max()), rtol=0,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("T,lengths,H", [(64, [64, 64], 2), (129, [129, 65], 2),
+                                         (200, [1, 133], 2), (376, [376, 300], 2),
+                                         (376, [376, 376], 1), (25, [25, 10], 2)])
+def test_relpos_flash_backward_kernels_match_plain_dh128(cuda, dtype, tol, T, lengths, H):
+    """K3 and K4 at head dim 128 against the plain backward, each gradient
+    within tol of its max-abs value (as the dh-64 test above): whole 64-row
+    tiles (64), one row past them (129), p's band past both of its ends and
+    a row of length 1 (200), the calibration's T' = 376 (30 s at x8), ragged
+    and full, and a clip shorter than one tile."""
+    B = len(lengths)
+    args = [a.to(cuda, dtype) if torch.is_tensor(a) and a.is_floating_point() else
+            (a.to(cuda) if torch.is_tensor(a) else a)
+            for a in _attention_inputs(B, H, T, lengths, seed=T + 7, dh=128)]
     o, lse = relpos_flash_attention(*args)
     do = torch.randn(o.shape, generator=torch.Generator().manual_seed(T)).to(cuda, dtype)
     delta = row_delta(o, do)
@@ -823,6 +876,28 @@ def test_bf16_relpos_backward_kernels_are_deterministic(cuda):
     second = (*relpos_flash_dq(*args, lse, delta, do), *relpos_flash_dkv(*args, lse, delta, do)[:2])
     torch.cuda.synchronize()
     for name, x, y in zip(("dqu", "dqv", "dk", "dv"), first, second):
+        assert torch.isfinite(x.float()).all() and x.abs().sum() > 0, name
+        assert torch.equal(x, y), name
+
+
+def test_bf16_relpos_kernels_dh128_are_deterministic(cuda):
+    """Two launches of the bf16 K1, K3 and K4 at head dim 128 on the same
+    inputs give the same bits for o, lse, dqu, dqv, dk and dv (dp, summed
+    across blocks, is held to the plain backward above)."""
+    lengths = [376, 300, 1, 250]
+    args = [a.to(cuda, torch.bfloat16) if torch.is_tensor(a) and a.is_floating_point() else
+            (a.to(cuda) if torch.is_tensor(a) else a)
+            for a in _attention_inputs(len(lengths), 8, 376, lengths, seed=15, dh=128)]
+    runs = []
+    for _ in range(2):
+        o, lse = relpos_flash_attention(*args)
+        do = torch.randn(o.shape, generator=torch.Generator().manual_seed(16)).to(
+            cuda, torch.bfloat16)
+        delta = row_delta(o, do)
+        runs.append((o, lse, *relpos_flash_dq(*args, lse, delta, do),
+                     *relpos_flash_dkv(*args, lse, delta, do)[:2]))
+    torch.cuda.synchronize()
+    for name, x, y in zip(("o", "lse", "dqu", "dqv", "dk", "dv"), *runs):
         assert torch.isfinite(x.float()).all() and x.abs().sum() > 0, name
         assert torch.equal(x, y), name
 

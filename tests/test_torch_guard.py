@@ -35,6 +35,10 @@ SERVING = ("nemo_tpu_torch.ops.quant", "nemo_tpu_torch.models.llm.generate",
            "nemo_tpu_torch.models.tts.hifigan_model", "nemo_tpu_torch.models.tts.modules.fastpitch",
            "nemo_tpu_torch.models.tts.modules.hifigan", "nemo_tpu_torch.serve.audio_server",
            "nemo_tpu_torch.agents.voice_agent", "nemo_tpu_torch.data.text_tokenizers")
+# the FastConformer-TDT slice's modules, which the walk must reach as well
+TDT = ("nemo_tpu_torch.ops.tdt", "nemo_tpu_torch.models.asr.rnnt_models",
+       "nemo_tpu_torch.models.asr.modules.rnnt", "nemo_tpu_torch.models.asr.modules.conformer",
+       "nemo_tpu_torch.models.asr.synthetic", "nemo_tpu_torch.models.asr.configs")
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -44,6 +48,7 @@ def test_port_and_chip_smoke_import_no_jax():
     names = out.stdout.split()
     assert len(names) >= 20  # every module of the package was imported
     assert set(SERVING) <= set(names), sorted(set(SERVING) - set(names))
+    assert set(TDT) <= set(names), sorted(set(TDT) - set(names))
 
 
 def test_chip_smoke_alone_fails_without_a_result(tmp_path):
@@ -102,6 +107,23 @@ def test_serving_without_device_needs_cuda(monkeypatch):
                  lambda: LLMServer(tiny_test(), {}, tokenizer=None)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
+
+
+def test_tdt_model_without_device_needs_cuda(monkeypatch):
+    """The FastConformer-TDT model runs on the card unless `device="cpu"`
+    is given: without a card it raises."""
+    from nemo_tpu_torch.core.config import ConfigDict
+    from nemo_tpu_torch.models.asr.configs import fastconformer_ctc
+    from nemo_tpu_torch.models.asr.rnnt_models import EncDecRNNTModel
+
+    cfg = fastconformer_ctc("small")
+    cfg.encoder.n_layers = 1
+    cfg.decoder = ConfigDict(pred_hidden=16, vocabulary=cfg.labels)
+    cfg.joint = ConfigDict(joint_hidden=16)
+    cfg.model_defaults = ConfigDict(tdt_durations=(0, 1, 2))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        EncDecRNNTModel(cfg)
 
 
 def test_tts_without_device_needs_cuda(monkeypatch):
