@@ -257,7 +257,10 @@ Phases, each printing a line; any failure raises and exits non-zero:
    held to its own max (`compare_rows`): K1 at the transcription shape (B=32,
    H=8, T'=376), K3 and K4 at the calibration shape (B=4), ragged and full
    lengths, fp32 and bf16, with their times, device times, bounds, the plain
-   versions' times and SDPA's forward and backward given the bias;
+   versions' times and SDPA's forward and backward given the bias; and the
+   launch shape K1 and K4 chose at dh 128 (`phase_dh128_shapes`: threads,
+   warpgroups, cluster, shared-memory bytes, registers and spill bytes a
+   thread);
 34. FastConformer-XL TDT in fp32 at full width, 2 layers, card against CPU,
    B=2 x 5 s (one ragged), the blank bias shifted so that the random decode
    emits and skips: the encoder output, the token and duration logits along
@@ -361,6 +364,22 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean host time of a call of fn() in ms: the wall clock over `iters`
+    calls issued back to back, read before the sync that waits for their
+    kernels. Where it exceeds `device_ms`, `cuda_ms` reads about this: the
+    host's pace, not the kernel's."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds * 1e3 / iters
 
 
 def device_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -598,6 +617,22 @@ def phase_k1(gen: torch.Generator, T: int = 751, dh: int = 64) -> dict:
         row.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, library_ms=library_ms)  # bf16, the main path's type, last
     return row
+
+
+def phase_dh128_shapes() -> None:
+    """33. The launch shape of K1 and K4 at dh 128 (the redesigned blocks),
+    from `cudaFuncGetAttributes` of the built kernels: a spill shows as
+    local bytes on the card's own line, and fails the phase."""
+    from nemo_tpu_torch.ops.flash_attention import relpos_kernel_shape
+
+    for kernel, tag in (("fwd", "K1"), ("dkv", "K4")):
+        shape = relpos_kernel_shape(kernel, 128)
+        log(f"{tag} dh128 launch shape: {shape['threads']} threads, {shape['warpgroups']} consumer "
+            f"warpgroups, cluster {shape['cluster']}, {shape['shared_bytes']} bytes of shared "
+            f"memory, {shape['registers']} registers a thread at launch, "
+            f"{shape['local_bytes']} local (spill) bytes a thread")
+        if shape["local_bytes"]:
+            raise AssertionError(f"{tag} dh128: {shape['local_bytes']} bytes of local memory")
 
 
 def phase_k2(gen: torch.Generator) -> dict:
@@ -2338,7 +2373,7 @@ TDT_LAYERS = 24  # FastConformer-XL's depth: phases 35-36 run it whole
 TDT_EXACT_LAYERS = 2  # phase 34's depth, at full width
 # kinds of device kernels in a TDT batch or head-fit step, by a piece of their names
 TDT_KERNEL_KINDS = (
-    ("K1 rel-pos flash forward dh128", ("fwd_kernel<128>",)),
+    ("K1 rel-pos flash forward dh128", ("fwd128_kernel",)),
     ("cuBLAS GEMM", ("nvjet", "gemm", "cutlass", "sm90_")),
     ("cuDNN convolutions", ("conv", "cudnn", "xmma", "implicit")),
     ("logcumsumexp / scans", ("scan", "cumsum", "logcumsumexp")),
@@ -4174,8 +4209,9 @@ def cp_processes() -> int:
 def _timing_start():
     """(the JSON line's head: tree and card, the timer) of --time-forward and
     --time-backward: timed(key, fn) puts fn's mean time over 50 launches
-    after 3 warm-up ones under `key`_ms (CUDA events, `cuda_ms`) and its
-    device time under `key`_device_ms (torch.profiler, `device_ms`)"""
+    after 3 warm-up ones under `key`_ms (CUDA events, `cuda_ms`), its
+    device time under `key`_device_ms (torch.profiler, `device_ms`) and its
+    host time a call under `key`_host_ms (`host_ms`)"""
     import nemo_tpu_torch
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4185,6 +4221,7 @@ def _timing_start():
     def timed(key: str, fn) -> None:
         out[f"{key}_ms"] = cuda_ms(fn, iters=50, warmup=3)
         out[f"{key}_device_ms"] = device_ms(fn, iters=50, warmup=3)
+        out[f"{key}_host_ms"] = host_ms(fn, iters=50, warmup=3)
 
     return out, timed
 
@@ -4201,8 +4238,8 @@ def time_forward() -> int:
     """--time-forward: only the bf16 forward kernels K1, K2, K5, K8 and K11
     of the `nemo_tpu_torch` on sys.path (another checkout with --tree), each
     timed by CUDA events and by torch.profiler over 50 launches after 3
-    warm-up ones (`_timing_start`: keys `<kernel>_ms` and
-    `<kernel>_device_ms`) at the shape of its path: K1 and K2 at the
+    warm-up ones (`_timing_start`: keys `<kernel>_ms`, `<kernel>_device_ms`
+    and the host's time a call, `<kernel>_host_ms`) at the shape of its path: K1 and K2 at the
     transcription shape (B=32 x 30 s, full lengths), beside SDPA given the
     rel-pos bias (`sdpa_relpos`) and the bf16 cuDNN conv pair
     (`cudnn_pair_bf16`); K5 at B=8, H=32 over G=8, S=2048, dh 64, causal
@@ -4275,7 +4312,9 @@ def time_backward() -> int:
     one rank's CP shape (B=1, Tl=8,192), rank 0's diagonal and off-diagonal
     ring steps; K3, K4 and row_delta at the calibration shape (B=4, H=8,
     T=751, dh 64, full lengths), beside SDPA's backward given the rel-pos
-    bias. Each given the lse of its forward. Prints one JSON line."""
+    bias; and the same at dh 128 (T'=376), with K4 also on 2 rows
+    (`k4_dh128_b2`, one round of the persistent grid). Each given the lse of
+    its forward. Prints one JSON line."""
     from nemo_tpu_torch.ops.flash_attention import (
         _k5_launch, _k8_launch, _k11_launch, flash_dkv, flash_dq, flash_pos_dkv, flash_pos_dq,
         flash_seg_dkv, flash_seg_dq, pos_delta, pos_tile_ranges, relpos_flash_attention,
@@ -4344,6 +4383,10 @@ def time_backward() -> int:
     timed("k3_dh128", lambda: relpos_flash_dq(*args, lse, delta, do))
     timed("k4_dh128", lambda: relpos_flash_dkv(*args, lse, delta, do))
     timed("row_delta_relpos_dh128", lambda: row_delta(o, do))
+    # K4 on the first 2 rows: 96 items of 64 keys, one round on 132 SMs, where
+    # B=4's 192 take two on 60 of them (the tail of a persistent grid)
+    half = [t[:2] for t in (qu, qv, k, v)] + [p, lens[:2], scale]
+    timed("k4_dh128_b2", lambda: relpos_flash_dkv(*half, lse[:2], delta[:2], do[:2]))
     bias = relpos_bias(qv, p, lens, scale, torch.bfloat16)
     ql, kl, vl = (t.detach().requires_grad_() for t in (qu, k, v))
     o_lib = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=bias, scale=scale)
@@ -4495,6 +4538,7 @@ def main() -> int:
     t33 = time.perf_counter()
     gen128 = torch.Generator().manual_seed(14)  # the earlier phases' inputs stay as they were
     dh128_rows = [phase_k1(gen128, T=376, dh=128), *phase_k3_k4(gen128, T=376, dh=128)]
+    phase_dh128_shapes()
     lap("phase 33 (K1, K3, K4 at dh 128)")
     phase_tdt_exactness(k1, k3, k4)
     lap("phase 34 (FastConformer-XL TDT exactness)")

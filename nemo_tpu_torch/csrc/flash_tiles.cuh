@@ -244,6 +244,39 @@ __device__ __forceinline__ void pack_p(uint32_t (&a)[NK / 16][4], const float (&
   }
 }
 
+// x as the compiler sees it anew wherever this is called (an empty asm): a
+// lane index laundered so in each tile keeps ptxas from holding the many
+// loop-invariant shared-memory addresses that follow from it in registers
+// across the tiles (the dh-128 K1 and K4 spilled so)
+__device__ __forceinline__ int fresh(int x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// The register A fragments (K / 16 steps of 16 columns, hopper.cuh) of a
+// warpgroup's 64-row A operand, read from a bf16 [rows][rs] tensor in device
+// memory at src: this thread's rows ra and rb = ra + 8, columns 16 ks + 2 t
+// (+ 8); rows at or past Tn are zeros. Every load is issued, from a row
+// clamped into the tensor, and selected after (no branch an element).
+template <int K>
+__device__ __forceinline__ void load_a(uint32_t (&a)[K / 16][4], const bf16* src, int ra, int rb,
+                                       int Tn, long long rs, int t) {
+  const bool oka = ra < Tn, okb = rb < Tn;
+  const unsigned int* la =
+      reinterpret_cast<const unsigned int*>(src + (long long)min(ra, Tn - 1) * rs + 2 * t);
+  const unsigned int* lb =
+      reinterpret_cast<const unsigned int*>(src + (long long)min(rb, Tn - 1) * rs + 2 * t);
+#pragma unroll
+  for (int ks = 0; ks < K / 16; ++ks) {
+    const unsigned int x0 = __ldg(la + 8 * ks), x1 = __ldg(lb + 8 * ks);
+    const unsigned int x2 = __ldg(la + 8 * ks + 4), x3 = __ldg(lb + 8 * ks + 4);
+    a[ks][0] = oka ? x0 : 0u;
+    a[ks][1] = okb ? x1 : 0u;
+    a[ks][2] = oka ? x2 : 0u;
+    a[ks][3] = okb ? x3 : 0u;
+  }
+}
+
 // A persistent grid's work item for round r: r G + x (G blocks, block x) or,
 // in odd rounds, r G + G - 1 - x: a snake, so that no block takes the
 // heaviest item of every round (a plain round robin did, and measured 3-6 %

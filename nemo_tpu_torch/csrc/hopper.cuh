@@ -465,6 +465,20 @@ __device__ __forceinline__ void product_ss(float (&d)[N / 8][4], uint32_t a_at, 
   wgmma_commit();
 }
 
+// d[64 x N] = A B^T: A [64][K] as register A fragments (K / 16 steps of 16
+// columns) and B [N][K] at b_at, K-major in shared memory as in product_ss
+// (s = q k^T with q held in registers: relpos_flash.cu's and
+// relpos_flash_bwd.cu's dh-128 kernels).
+template <int N, int K>
+__device__ __forceinline__ void product_rs_k(float (&d)[N / 8][4], const uint32_t (&a)[K / 16][4],
+                                             uint32_t b_at) {
+  constexpr uint32_t BBOX = N * BOX_ROW_BYTES;
+#pragma unroll
+  for (int ks = 0; ks < K / 16; ++ks)
+    wgmma_rs<N, 0>(d, a[ks], desc_sw128(b_at + (ks / 4) * BBOX + (ks % 4) * 32, 0), ks);
+  wgmma_commit();
+}
+
 // d[64 x N] += A B: A [64][K] as register A fragments (K / 16 steps of 16
 // columns) and B [K][N] at b_at, MN-major (the transposed-B bit): N / 64
 // boxes of K rows, step kk of 16 rows 2048 bytes further (o += p v).

@@ -42,7 +42,10 @@
 // operations bound both at the main path's shapes. The wgmma band products
 // of K4 are 64 rows wide where 127 of 128 rows are used, so K4 issues 8.
 // Head widths dh = D of 64 (Conformer-Large) and 128 (FastConformer-XL);
-// the dh-128 blocks are described at DqLayout and DkvLayout.
+// the dh-128 K3 block is described at DqLayout. K4 at dh 128 is a kernel of
+// its own (dkv128_kernel): an item of 64 keys at full width, its two
+// consumer warpgroups split by output (P^T and dv; dS^T, dk and dp), k and v
+// held as register fragments; what bounds it and its budget are noted there.
 //
 // Layouts: qu, qv, k, v, dO and dqu, dqv, dk, dv are [B, T, H, D]; p is
 // [2T-1, H, D], dp [2T-1, H, D] fp32 (zeroed by the caller); lse and delta
@@ -299,6 +302,7 @@ namespace wg {
 
 using bf16 = __nv_bfloat16;
 using flash::tc::ex2;
+using flash::tc::fresh;
 using flash::tc::pack_p;
 using hopper::ATOM;
 using hopper::product_rs;
@@ -623,7 +627,8 @@ __global__ void __launch_bounds__(DqLayout<D>::NT, 1) dq_kernel(
   }
 }
 
-// ---- K4: dk, dv and dp. A block of 384 threads owns 128 keys of one (b, h),
+// ---- K4 at dh 64 (dh 128 is dkv128_kernel below): dk, dv and dp. A block
+// of 384 threads owns 128 keys of one (b, h),
 // a consumer warpgroup 64 of them (keys c0 = j0 + 64 w), and walks every
 // query tile of 64 rows (padded rows are queries too); a warpgroup whose 64
 // keys all lie at or past the length computes nothing and writes zeros, and
@@ -651,32 +656,19 @@ __global__ void __launch_bounds__(DqLayout<D>::NT, 1) dq_kernel(
 //   land, so its last bits vary from run to run.
 // Eight products of 64 x 64 x 64 a tile pair (s^T, the two band halves,
 // dP^T, dv, dk, the two dp chunks).
-//
-// At dh 128 the three 64 x 128 accumulators of dk, dv and the dp chunk
-// would not fit beside the scores in a thread's 255 registers, and two
-// warpgroups' k, v, G^T and bands beside stages of 80 KB would not fit in
-// shared memory. So a block is one consumer warpgroup (64 keys, 256
-// threads, no setmaxnreg, no turns) and an item is 64 keys and one half of
-// the head dim: s^T, BD and dP^T are taken over all 128 columns (the two
-// items of a key tile each compute them: 12 products of 64 x 64 x 64 a tile
-// pair and half, 24 a pair, against 16 unsplit), dk, dv and dp over the
-// item's 64. A stage (qu, qv, dO and 128 rows of p, 80 KB) has no room for
-// the rows' lse and delta beside 2 stages, k, v, G^T and the band (~226 KB
-// in all): the consumers read them from global memory.
 template <int D>
 struct DkvLayout {
-  static constexpr int WGS = D == 64 ? 2 : 1;    // consumer warpgroups, 64 keys each
+  static_assert(D == 64, "K4 at dh 128 is dkv128_kernel");
+  static constexpr int WGS = 2;                  // consumer warpgroups, 64 keys each
   static constexpr int NT = 128 * (WGS + 1);     // and a producer warpgroup, one warp at work
   static constexpr int TK = 64 * WGS;            // keys an item
-  static constexpr int NB = D / 64;              // boxes a row; items a key tile (halves of D)
-  static constexpr bool STAGED_ROWS = D == 64;   // lse and delta staged with the tiles
   static constexpr int STAGES = 2;
   static constexpr int LDG = 68;                 // fp32 stride of G^T
-  static constexpr uint32_t TILE = NB * BOX64;   // 64 rows of D columns
+  static constexpr uint32_t TILE = BOX64;        // 64 rows of 64 columns
   static constexpr uint32_t KV = 2 * WGS * TILE;  // k tiles, then v tiles
   static constexpr uint32_t PB = 3 * TILE;        // in a stage: qu, qv, dO, then p
   static constexpr uint32_t ROWS = PB + (WGS + 1) * TILE;  // then lse log2(e), delta [2][64]
-  static constexpr uint32_t STAGE = ROWS + (STAGED_ROWS ? 1024 : 0);
+  static constexpr uint32_t STAGE = ROWS + 1024;
   static constexpr uint32_t G = KV + STAGES * STAGE;
   static constexpr uint32_t GBYTES = 64 * LDG * 4;      // a warpgroup's G^T, or its dp staging
   static constexpr uint32_t BAND = G + WGS * GBYTES;
@@ -684,14 +676,6 @@ struct DkvLayout {
   static constexpr uint32_t BYTES = BARS + 8 * (2 + 2 * STAGES) + ATOM;
   static_assert(BYTES <= 232448, "K4: more shared memory than a block can have");
 };
-
-// p's rows in a K4 stage: column box c of the 64 (WGS + 1) rows from p's
-// first, then the next box (one operand of BD = qv p_band^T is 128 rows of
-// a column box, contiguous)
-template <int D>
-__device__ __forceinline__ uint32_t p_box(int c, int x) {
-  return DkvLayout<D>::PB + (c * (DkvLayout<D>::WGS + 1) + x) * BOX64;
-}
 
 template <int D>
 __global__ void __launch_bounds__(DkvLayout<D>::NT, 1) dkv_kernel(
@@ -702,7 +686,7 @@ __global__ void __launch_bounds__(DkvLayout<D>::NT, 1) dkv_kernel(
     const float* __restrict__ delta, const int* __restrict__ lengths, bf16* __restrict__ dk,
     bf16* __restrict__ dv, float* __restrict__ dpp, int B, int H, int Tn, float scale) {
   using L = DkvLayout<D>;
-  constexpr int STAGES = L::STAGES, LDG = L::LDG, WGS = L::WGS, TK = L::TK, NB = L::NB;
+  constexpr int STAGES = L::STAGES, LDG = L::LDG, WGS = L::WGS, TK = L::TK;
   constexpr uint32_t TILE = L::TILE;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
@@ -712,15 +696,13 @@ __global__ void __launch_bounds__(DkvLayout<D>::NT, 1) dkv_kernel(
   auto full = [&](int s) { return base + L::BARS + 8 * (2 + s); };
   auto empty = [&](int s) { return base + L::BARS + 8 * (2 + STAGES + s); };
 
-  // work item it: TK keys from j0 of head h, batch row b, head-dim half hd
-  // (0 at dh 64)
-  const int n_k = (Tn + TK - 1) / TK, n_items = n_k * NB * H * B, n_q = (Tn + 63) / 64;
-  auto item_of = [&](int it, int& j0, int& h, int& b, int& hd) {
-    const int rem = it % (H * B * NB), hb = rem % (H * B);
-    j0 = it / (H * B * NB) * TK;
-    hd = rem / (H * B);
-    h = hb % H;
-    b = hb / H;
+  // work item it: TK keys from j0 of head h, batch row b
+  const int n_k = (Tn + TK - 1) / TK, n_items = n_k * H * B, n_q = (Tn + 63) / 64;
+  auto item_of = [&](int it, int& j0, int& h, int& b) {
+    const int rem = it % (H * B);
+    j0 = it / (H * B) * TK;
+    h = rem % H;
+    b = rem / H;
   };
   auto length = [&](int b) { return min(max(lengths[b], 0), Tn); };
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -728,7 +710,7 @@ __global__ void __launch_bounds__(DkvLayout<D>::NT, 1) dkv_kernel(
     hopper::mbar_init(kv_loaded, 1);
     hopper::mbar_init(kv_free, 4 * WGS);  // every consumer warp
     for (int s = 0; s < STAGES; ++s) {
-      hopper::mbar_init(full(s), 1 + (L::STAGED_ROWS ? 32 : 0));  // the TMA bytes, each lane's rows
+      hopper::mbar_init(full(s), 1 + 32);    // the TMA bytes, each lane's rows
       hopper::mbar_init(empty(s), 4 * WGS);  // every consumer warp
     }
     hopper::mbar_fence_init();
@@ -736,63 +718,53 @@ __global__ void __launch_bounds__(DkvLayout<D>::NT, 1) dkv_kernel(
   __syncthreads();
 
   if (warp < 4) {
-    if constexpr (WGS == 2) hopper::reg_dealloc<PRODUCER_REGS>();
+    hopper::reg_dealloc<PRODUCER_REGS>();
     if (warp != 0) return;
     int n = 0, k = 0;  // stages filled, items taken
     for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
       const int it = flash::tc::snake_item(r);
       if (it >= n_items) continue;
-      int j0, h, b, hd;
-      item_of(it, j0, h, b, hd);
+      int j0, h, b;
+      item_of(it, j0, h, b);
       if (lane == 0) {  // k and v, once the last item is done with them
         if (k > 0) hopper::mbar_wait(kv_free, (k - 1) & 1);
         hopper::mbar_arrive_tx(kv_loaded, L::KV);
-        for (int w = 0; w < WGS; ++w)
-          for (int c = 0; c < NB; ++c) {
-            hopper::tma_load_4d(base + w * TILE + c * BOX64, &tk, kv_loaded, 64 * c, h,
-                                j0 + 64 * w, b);
-            hopper::tma_load_4d(base + (WGS + w) * TILE + c * BOX64, &tv, kv_loaded, 64 * c, h,
-                                j0 + 64 * w, b);
-          }
+        for (int w = 0; w < WGS; ++w) {
+          hopper::tma_load_4d(base + w * TILE, &tk, kv_loaded, 0, h, j0 + 64 * w, b);
+          hopper::tma_load_4d(base + (WGS + w) * TILE, &tv, kv_loaded, 0, h, j0 + 64 * w, b);
+        }
       }
       const int nq = j0 < length(b) ? n_q : 0;
       const long long lrow = ((long long)b * H + h) * Tn;
       for (int qt = 0; qt < nq; ++qt, ++n) {
         const int s = n % STAGES, use = n / STAGES;
-        if constexpr (L::STAGED_ROWS) {
-          float lv[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};  // this lane's rows, loaded first
+        float lv[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};  // this lane's rows, loaded first
 #pragma unroll
-          for (int x = 0; x < 2; ++x) {
-            const int i = 64 * qt + lane + 32 * x;
-            if (i < Tn) {
-              lv[x] = lse[lrow + i] * LOG2E;
-              dl[x] = delta[lrow + i];
-            }
+        for (int x = 0; x < 2; ++x) {
+          const int i = 64 * qt + lane + 32 * x;
+          if (i < Tn) {
+            lv[x] = lse[lrow + i] * LOG2E;
+            dl[x] = delta[lrow + i];
           }
-          if (use > 0) hopper::mbar_wait(empty(s), (use - 1) & 1);  // the stage is read out
-          float* rows = reinterpret_cast<float*>(sm + L::KV + s * L::STAGE + L::ROWS);
+        }
+        if (use > 0) hopper::mbar_wait(empty(s), (use - 1) & 1);  // the stage is read out
+        float* rows = reinterpret_cast<float*>(sm + L::KV + s * L::STAGE + L::ROWS);
 #pragma unroll
-          for (int x = 0; x < 2; ++x) {
-            rows[lane + 32 * x] = lv[x];
-            rows[64 + lane + 32 * x] = dl[x];
-          }
-        } else {
-          if (use > 0 && lane == 0) hopper::mbar_wait(empty(s), (use - 1) & 1);
+        for (int x = 0; x < 2; ++x) {
+          rows[lane + 32 * x] = lv[x];
+          rows[64 + lane + 32 * x] = dl[x];
         }
         if (lane == 0) {
           const uint32_t st = base + L::KV + s * L::STAGE;
           hopper::mbar_arrive_tx(full(s), L::ROWS);  // the tiles' bytes
-          for (int c = 0; c < NB; ++c) {
-            hopper::tma_load_4d(st + c * BOX64, &tqu, full(s), 64 * c, h, 64 * qt, b);
-            hopper::tma_load_4d(st + TILE + c * BOX64, &tqv, full(s), 64 * c, h, 64 * qt, b);
-            hopper::tma_load_4d(st + 2 * TILE + c * BOX64, &tdo, full(s), 64 * c, h, 64 * qt,
-                                b);
-            for (int x = 0; x <= WGS; ++x)  // rows past either end of p read as zeros
-              hopper::tma_load_4d(st + p_box<D>(c, x), &tp, full(s), 64 * c, h,
-                                  Tn - 64 - 64 * qt + j0 + 64 * x, 0);
-          }
+          hopper::tma_load_4d(st, &tqu, full(s), 0, h, 64 * qt, b);
+          hopper::tma_load_4d(st + TILE, &tqv, full(s), 0, h, 64 * qt, b);
+          hopper::tma_load_4d(st + 2 * TILE, &tdo, full(s), 0, h, 64 * qt, b);
+          for (int x = 0; x <= WGS; ++x)  // rows past either end of p read as zeros
+            hopper::tma_load_4d(st + L::PB + x * TILE, &tp, full(s), 0, h,
+                                Tn - 64 - 64 * qt + j0 + 64 * x, 0);
         }
-        if constexpr (L::STAGED_ROWS) hopper::mbar_arrive(full(s));
+        hopper::mbar_arrive(full(s));
       }
       ++k;
     }
@@ -801,7 +773,7 @@ __global__ void __launch_bounds__(DkvLayout<D>::NT, 1) dkv_kernel(
 
   // consumer warpgroup w: keys c0 = j0 + 64 w .. + 63 of each item; this
   // thread's local keys rl and rl + 8 (global ja, jb), rows of s^T
-  if constexpr (WGS == 2) hopper::reg_alloc<CONSUMER_REGS>();
+  hopper::reg_alloc<CONSUMER_REGS>();
   const int w = (warp >> 2) - 1, g = lane >> 2, t = lane & 3, rl = 16 * (warp & 3) + g;
   const bool issuer = (threadIdx.x & 127) == 0;  // issues the warpgroup's dp reductions
   const float scale2 = scale * LOG2E;
@@ -813,14 +785,14 @@ __global__ void __launch_bounds__(DkvLayout<D>::NT, 1) dkv_kernel(
   const uint32_t band_at = base + L::BAND + w * 2 * BOX64;
   const uint32_t k_at = base + w * TILE, v_at = base + (WGS + w) * TILE;
 
-  // a dp chunk (64 rows of p from row r, the item's 64 columns from col0;
-  // fp32 accumulator) into the staging tile, and from there into dp: by a
+  // a dp chunk (64 rows of p from row r; fp32 accumulator) into the staging
+  // tile, and from there into dp: by a
   // TMA reduction that the issuer starts or, for the one chunk that starts
   // before row 0 (the first keys' last query tile, where T is no multiple
   // of 64: once a (b, h)), by atomics. A TMA reduction's box may not start
   // at a negative row (it faults, error 715, on the H100); rows past the end
   // are skipped.
-  auto flush = [&](const float (&acc)[8][4], int h, int r, int col0) {
+  auto flush = [&](const float (&acc)[8][4], int h, int r) {
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -832,35 +804,31 @@ __global__ void __launch_bounds__(DkvLayout<D>::NT, 1) dkv_kernel(
     wg_sync(w);
     if (r >= 0) {
       if (issuer) {
-        hopper::tma_reduce_add_3d(&tdp, staging_at, col0, h, r);
-        hopper::tma_reduce_add_3d(&tdp, staging_at + 64 * hopper::BOX_ROW_BYTES, col0 + 32, h,
-                                  r);
+        hopper::tma_reduce_add_3d(&tdp, staging_at, 0, h, r);
+        hopper::tma_reduce_add_3d(&tdp, staging_at + 64 * hopper::BOX_ROW_BYTES, 32, h, r);
         hopper::bulk_commit();
       }
     } else {
       for (int idx = threadIdx.x & 127; idx < 64 * 64; idx += 128) {
         const int row = idx >> 6, col = idx & 63;
         if (r + row >= 0)
-          atomicAdd(dpp + ((long long)(r + row) * H + h) * D + col0 + col,
+          atomicAdd(dpp + ((long long)(r + row) * H + h) * D + col,
                     *reinterpret_cast<const float*>(staging + hopper::sw128_f32(row, col, 64)));
       }
     }
   };
 
-  if constexpr (WGS == 2) {
-    if (w == 1) pass(1);  // the first turn is warpgroup 0's
-  }
+  if (w == 1) pass(1);  // the first turn is warpgroup 0's
   int n = 0, k = 0;  // stages consumed, items taken
   for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
     const int it = flash::tc::snake_item(r);
     if (it >= n_items) continue;
-    int j0, h, b, hd;
-    item_of(it, j0, h, b, hd);
+    int j0, h, b;
+    item_of(it, j0, h, b);
     const int len = length(b), nq = j0 < len ? n_q : 0, c0 = j0 + 64 * w;
     const bool dead = c0 >= len;  // every key of this warpgroup is masked
     const int ja = c0 + rl, jb = ja + 8;
     const bool kok[2] = {ja < len, jb < len};
-    const long long lrow = ((long long)b * H + h) * Tn;
     float dka[8][4], dva[8][4], carry[8][4], sc[8][4], dp[8][4];
     uint32_t pa[4][4], pd[4][4];  // P^T and dS^T as A fragments
     flash::tc::zero<8>(dka);
@@ -872,30 +840,20 @@ __global__ void __launch_bounds__(DkvLayout<D>::NT, 1) dkv_kernel(
       const int s = n % STAGES;
       hopper::mbar_wait(full(s), (n / STAGES) & 1);
       if (dead) {
-        if constexpr (WGS == 2) {
-          turn(w);  // a dead warpgroup keeps the turns balanced
-          pass(w);
-        }
+        turn(w);  // a dead warpgroup keeps the turns balanced
+        pass(w);
         release(empty(s), lane);
         continue;
       }
       const uint32_t qu_at = base + L::KV + s * L::STAGE, qv_at = qu_at + TILE;
-      const uint32_t do_at = qu_at + 2 * TILE, pb_at = qu_at + p_box<D>(0, w);
+      const uint32_t do_at = qu_at + 2 * TILE, pb_at = qu_at + L::PB + w * TILE;
       const int i0 = 64 * qt;
-      // row i of the query tile's lse log2(e) and delta (i < Tn - i0 where it is read)
+      // the query tile's rows' lse log2(e) (row i at i) and delta (at 64 + i)
       const float* rows = reinterpret_cast<const float*>(sm + L::KV + s * L::STAGE + L::ROWS);
-      auto lse2_of = [&](int i) -> float {
-        if constexpr (L::STAGED_ROWS) return rows[i];
-        else return lse[lrow + min(i0 + i, Tn - 1)] * LOG2E;
-      };
-      auto delta_of = [&](int i) -> float {
-        if constexpr (L::STAGED_ROWS) return rows[64 + i];
-        else return delta[lrow + min(i0 + i, Tn - 1)];
-      };
       r0 = Tn - 64 - i0 + c0;
       {
         float bd[16][4];  // BD = qv p_band^T: query i by band row q
-        if constexpr (WGS == 2) turn(w);
+        turn(w);
         hopper::wgmma_fence();
         product_ss<128, D>(bd, qv_at, pb_at);
         hopper::wgmma_wait<0>();  // BD, and the last tile's dp chunk
@@ -919,7 +877,7 @@ __global__ void __launch_bounds__(DkvLayout<D>::NT, 1) dkv_kernel(
             *((unsigned)c < 64u ? Gt + c * LDG + i : spare) = bd[nt][e];
           }
       }
-      if constexpr (WGS == 2) pass(w);  // the other warpgroup's band product overlaps s^T, dP^T
+      pass(w);  // the other warpgroup's band product overlaps s^T, dP^T
       hopper::wgmma_fence();
       product_ss<64, D>(sc, k_at, qu_at);  // s^T = k qu^T
       product_ss<64, D>(dp, v_at, do_at);  // dP^T = v dO^T
@@ -935,7 +893,7 @@ __global__ void __launch_bounds__(DkvLayout<D>::NT, 1) dkv_kernel(
           for (int e = 0; e < 4; ++e) {
             const int hh = e >> 1, i = 8 * nt + 2 * t + (e & 1);
             const float x = sc[nt][e] + Gt[(rl + 8 * hh) * LDG + i];
-            sc[nt][e] = kok[hh] && i < imax ? ex2(fmaf(x, scale2, -lse2_of(i))) : 0.f;
+            sc[nt][e] = kok[hh] && i < imax ? ex2(fmaf(x, scale2, -rows[i])) : 0.f;
           }
       } else {
 #pragma unroll
@@ -944,12 +902,12 @@ __global__ void __launch_bounds__(DkvLayout<D>::NT, 1) dkv_kernel(
           for (int e = 0; e < 4; ++e) {
             const int hh = e >> 1, i = 8 * nt + 2 * t + (e & 1);
             const float x = sc[nt][e] + Gt[(rl + 8 * hh) * LDG + i];
-            sc[nt][e] = kok[hh] ? ex2(fmaf(x, scale2, -lse2_of(i))) : 0.f;
+            sc[nt][e] = kok[hh] ? ex2(fmaf(x, scale2, -rows[i])) : 0.f;
           }
       }
       pack_p<64>(pa, sc);
       hopper::wgmma_fence();
-      product_rs<64, 64>(dva, pa, do_at + hd * BOX64);  // dv += P^T dO, dO MN-major
+      product_rs<64, 64>(dva, pa, do_at);  // dv += P^T dO, dO MN-major
       hopper::wgmma_wait<1>();
       hopper::fence_regs(dp);
       // dS^T = P^T (dP^T - delta) scale, as A fragments and into the band
@@ -958,11 +916,11 @@ __global__ void __launch_bounds__(DkvLayout<D>::NT, 1) dkv_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = 8 * nt + 2 * t + (e & 1);
-          dp[nt][e] = sc[nt][e] * (dp[nt][e] - delta_of(i)) * scale;
+          dp[nt][e] = sc[nt][e] * (dp[nt][e] - rows[64 + i]) * scale;
         }
       pack_p<64>(pd, dp);
       hopper::wgmma_fence();
-      product_rs<64, 64>(dka, pd, qu_at + hd * BOX64);  // dk += dS^T qu, qu MN-major
+      product_rs<64, 64>(dka, pd, qu_at);  // dk += dS^T qu, qu MN-major
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
@@ -973,17 +931,17 @@ __global__ void __launch_bounds__(DkvLayout<D>::NT, 1) dkv_kernel(
       hopper::fence_proxy_async();
       wg_sync(w);
       hopper::wgmma_fence();
-      product_ss_mn<64, 64>(carry, band_at + BOX64, qv_at + hd * BOX64, 1);  // + the upper chunk
+      product_ss_mn<64, 64>(carry, band_at + BOX64, qv_at, 1);  // + the upper chunk
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dva);
       hopper::fence_regs(dka);
       hopper::fence_regs(carry);
       hopper::fence_regs(pa);
       hopper::fence_regs(pd);
-      flush(carry, h, r0 + 64, 64 * hd);  // rows r0 + 64 ..: no later tile reaches them
+      flush(carry, h, r0 + 64);  // rows r0 + 64 ..: no later tile reaches them
       hopper::wgmma_fence();
       // the lower chunk, the next tile's upper
-      product_ss_mn<64, 64>(carry, band_at, qv_at + hd * BOX64, 0);
+      product_ss_mn<64, 64>(carry, band_at, qv_at, 0);
       held = s;
     }
     if (held >= 0) {  // the last tile's lower chunk
@@ -991,20 +949,424 @@ __global__ void __launch_bounds__(DkvLayout<D>::NT, 1) dkv_kernel(
       hopper::fence_regs(carry);
       if (issuer) hopper::bulk_wait_read();
       wg_sync(w);
-      flush(carry, h, r0, 64 * hd);
+      flush(carry, h, r0);
       release(empty(held), lane);
     }
     release(kv_free, lane);  // every product of the item that reads k and v is done
     const float one[2] = {1.f, 1.f};
-    const long long off = (long long)b * Tn * rs + (long long)h * D + 64 * hd;
+    const long long off = (long long)b * Tn * rs + (long long)h * D;
     flash::tc::store_rows<8>(dk + off, dka, ja, jb, Tn, rs, t, one);
     flash::tc::store_rows<8>(dv + off, dva, ja, jb, Tn, rs, t, one);
     ++k;
   }
-  if constexpr (WGS == 2) {
-    if (w == 0) turn(0);  // warpgroup 1's first pass
-  }
+  if (w == 0) turn(0);  // warpgroup 1's first pass
   if (issuer) hopper::bulk_wait_read();  // the staging outlives no reduction
+}
+
+// ---- K4 at dh 128 (FastConformer-XL): dkv128_kernel.
+//
+// Why this shape: at dh 128 the dh-64 block's two warpgroups' k, v, G^T and
+// bands do not fit beside stages of 80 KB, and one warpgroup's dk, dv and dp
+// chunk at full width (3 x 64 registers) do not fit beside s^T and dP^T. A
+// block of one consumer warpgroup on items of 64 keys x one half of dh
+// recomputes s^T, BD and dP^T for each half (24 products of 64^3 a tile
+// pair where 16 do), reads each query tile's 80 KB stage twice, and waits
+// on every product and exponential; on the H100 such a block took 0.103 ms,
+// 0.029 of it in its loads alone (PERF.md §6).
+//
+// Here an item is 64 keys x all 128 columns of one (b, h), and its two
+// consumer warpgroups split the work by output (setmaxnreg 24 / 240):
+// - A: BD = qv p_band^T (SS, 4 units of 64^3) and its scatter into G^T, then
+//   s^T = k qu^T (RS, 2), P^T, dv += P^T dO (RS, 2). It holds k (A
+//   fragments, 32 registers) and dv (64) across tiles, and BD (64), s^T (32)
+//   and P^T's fragments (16) in turn: the last tile's dv is waited for
+//   before BD, and s^T is issued after BD's scatter (with s^T beside BD and
+//   P^T in flight, ptxas spilled 32 bytes at 240 registers).
+// - B: dP^T = v dO^T (RS, 2), dP^T - delta, dS^T from A's P^T, dk += dS^T
+//   qu (RS, 2), the dS^T band (written from dS^T's bf16 fragments) and the
+//   carried dp chunk band . qv (SS, 4); it holds v (32), dk (64) and the dp
+//   chunk (64) across tiles, dP^T (32) and dS^T's fragments (16).
+// The lane indices are laundered each tile (`fresh`), as ptxas otherwise
+// keeps the ~100 loop-invariant addresses of the scatters in registers, and
+// every path out of a walk waits for its products, as ptxas otherwise
+// serializes every wgmma of the kernel (C7514) for a read it cannot rule out.
+// What bounds it: a tile pair is 16 products of 64^3 and six barrier
+// meetings (G^T's two in A, P^T's two between A and B, the band's and the
+// staging's in B), so the latency of each warpgroup's chain, not the tensor
+// cores nor the loads (a loads-only copy: 0.020 ms of ~0.05), sets its time.
+// A hands P^T (fp32, so dS^T is the dh-64 kernel's) to B through a 16 KB tile
+// in shared memory in the accumulator layout (each thread reads back what its
+// twin thread of A wrote), under two named barriers (P full, P free). k and v
+// are each one warpgroup's A operand, loaded from device memory once an item
+// (flash_tiles.cuh:load_a), so shared memory holds 2 stages of qu, qv, dO,
+// 128 rows of p and the rows' lse log2(e) and delta (162 KB), G^T (17 KB),
+// the P^T tile (16 KB) and the dS^T band (16 KB): 212 KB of 227. A dp chunk
+// (64 x 128 fp32, 32 KB) is staged for its TMA reduction in the stage's p
+// rows, which A's BD has read out by then (B takes P^T after it); the stage
+// goes back once the reduction has read them. 192 items at the calibration
+// shape (B=4, T'=376): 1.45 waves on 132 SMs.
+struct Dkv128Layout {
+  static constexpr int NT = 384;                  // producer, consumer warpgroups A and B
+  static constexpr int STAGES = 2;
+  static constexpr int LDG = 68;                  // fp32 stride of G^T
+  static constexpr uint32_t TILE = 2 * BOX64;     // 64 rows of 128 columns
+  static constexpr uint32_t PB = 3 * TILE;        // in a stage: qu, qv, dO, then 128 rows of p
+  static constexpr uint32_t ROWS = PB + 2 * TILE;  // then lse log2(e), delta [2][64]
+  static constexpr uint32_t STAGE = ROWS + 1024;   // (1024-aligned)
+  static constexpr uint32_t G = STAGES * STAGE;    // G^T [64 keys][LDG]
+  static constexpr uint32_t PT = G + 64 * LDG * 4;  // P^T [8][128 threads] float4
+  static constexpr uint32_t BAND = PT + 128 * 32 * 4;  // the dS^T band [128 q][64 i] bf16
+  static constexpr uint32_t BARS = BAND + 2 * BOX64;   // full, empty
+  static constexpr uint32_t BYTES = BARS + 8 * 2 * STAGES + ATOM;
+  static_assert(STAGE % ATOM == 0 && G % ATOM == 0 && BAND % ATOM == 0, "K4 dh 128: alignment");
+  static_assert(BYTES <= 232448, "K4 dh 128: more shared memory than a block can have");
+};
+constexpr int PRODUCER_REGS_128 = 24;   // 128 x 24 + 256 x 240 = 64,512 of the SM's 65,536
+constexpr int CONSUMER_REGS_128 = 240;
+constexpr int P_FULL = 3, P_FREE = 4;   // named barriers of A and B (256 threads)
+
+__global__ void __launch_bounds__(Dkv128Layout::NT, 1) dkv128_kernel(
+    const __grid_constant__ CUtensorMap tqu, const __grid_constant__ CUtensorMap tqv,
+    const __grid_constant__ CUtensorMap tp, const __grid_constant__ CUtensorMap tdo,
+    const __grid_constant__ CUtensorMap tdp, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const float* __restrict__ lse, const float* __restrict__ delta,
+    const int* __restrict__ lengths, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    float* __restrict__ dpp, int B, int H, int Tn, float scale) {
+  using L = Dkv128Layout;
+  constexpr int D = 128, STAGES = L::STAGES, LDG = L::LDG;
+  constexpr uint32_t TILE = L::TILE;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + ATOM - 1) & ~(ATOM - 1);
+  uint8_t* const sm = smem_raw + (base - raw);
+  auto full = [&](int s) { return base + L::BARS + 8 * s; };
+  auto empty = [&](int s) { return base + L::BARS + 8 * (STAGES + s); };
+
+  // work item it: 64 keys from j0 of head h, batch row b
+  const int n_k = (Tn + 63) / 64, n_items = n_k * H * B, n_q = n_k;
+  auto item_of = [&](int it, int& j0, int& h, int& b) {
+    const int rem = it % (H * B);
+    j0 = it / (H * B) * 64;
+    h = rem % H;
+    b = rem / H;
+  };
+  auto length = [&](int b) { return min(max(lengths[b], 0), Tn); };
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(full(s), 1 + 32);  // the TMA bytes, each lane's rows
+      hopper::mbar_init(empty(s), 8);      // every consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    hopper::reg_dealloc<PRODUCER_REGS_128>();
+    if (warp != 0) return;
+    int n = 0;  // stages filled
+    for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
+      const int it = flash::tc::snake_item(r);
+      if (it >= n_items) continue;
+      int j0, h, b;
+      item_of(it, j0, h, b);
+      const int nq = j0 < length(b) ? n_q : 0;
+      const long long lrow = ((long long)b * H + h) * Tn;
+      for (int qt = 0; qt < nq; ++qt, ++n) {
+        const int s = n % STAGES, use = n / STAGES;
+        float lv[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};  // this lane's rows, loaded first
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int i = 64 * qt + lane + 32 * x;
+          if (i < Tn) {
+            lv[x] = lse[lrow + i] * LOG2E;
+            dl[x] = delta[lrow + i];
+          }
+        }
+        if (use > 0) hopper::mbar_wait(empty(s), (use - 1) & 1);  // the stage is read out
+        float* rows = reinterpret_cast<float*>(sm + s * L::STAGE + L::ROWS);
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          rows[lane + 32 * x] = lv[x];
+          rows[64 + lane + 32 * x] = dl[x];
+        }
+        if (lane == 0) {
+          const uint32_t st = base + s * L::STAGE;
+          hopper::mbar_arrive_tx(full(s), L::ROWS);  // the tiles' bytes
+          for (int c = 0; c < 2; ++c) {
+            hopper::tma_load_4d(st + c * BOX64, &tqu, full(s), 64 * c, h, 64 * qt, b);
+            hopper::tma_load_4d(st + TILE + c * BOX64, &tqv, full(s), 64 * c, h, 64 * qt, b);
+            hopper::tma_load_4d(st + 2 * TILE + c * BOX64, &tdo, full(s), 64 * c, h, 64 * qt,
+                                b);
+            for (int x = 0; x < 2; ++x)  // box c's 128 rows of p; zeros past either end
+              hopper::tma_load_4d(st + L::PB + (2 * c + x) * BOX64, &tp, full(s), 64 * c, h,
+                                  Tn - 64 - 64 * qt + j0 + 64 * x, 0);
+          }
+        }
+        hopper::mbar_arrive(full(s));
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup w (0: A, 1: B); this thread's local keys rl and rl + 8
+  // (global ja, jb), rows of s^T, and its index tid in the warpgroup
+  const int w = (warp >> 2) - 1, t0 = lane & 3, rl0 = 16 * (warp & 3) + (lane >> 2);
+  hopper::reg_alloc<CONSUMER_REGS_128>();
+  const int tid = threadIdx.x & 127;
+  const float scale2 = scale * LOG2E;
+  const long long rs = (long long)H * D;
+  float* const Gt = reinterpret_cast<float*>(sm + L::G);
+  // t0 and rl0 laundered in each tile (tc::fresh): ptxas otherwise keeps the
+  // ~100 addresses of a tile's scatters and reads in registers, and spills
+  float4* const ptile = reinterpret_cast<float4*>(sm + L::PT);
+  int n = 0;  // stages consumed
+
+  if (w == 0) {  // ---- A: BD, s^T, P^T, dv
+    uint32_t kf[8][4];  // the item's keys as A fragments
+    for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
+      const int it = flash::tc::snake_item(r);
+      if (it >= n_items) continue;
+      int j0, h, b;
+      item_of(it, j0, h, b);
+      const int len = length(b), nq = j0 < len ? n_q : 0;
+      const int ja = j0 + rl0, jb = ja + 8;
+      const bool kok[2] = {ja < len, jb < len};
+      const long long off = (long long)b * Tn * rs + (long long)h * D;
+      float dva[16][4], sc[8][4];
+      uint32_t pa[4][4];  // P^T as A fragments
+      flash::tc::zero<16>(dva);
+      if (nq > 0) flash::tc::load_a<D>(kf, k + off, ja, jb, Tn, rs, t0);
+      int held = -1;  // the stage whose dO the last dv product reads
+      for (int qt = 0; qt < nq; ++qt, ++n) {
+        const int s = n % STAGES;
+        hopper::mbar_wait(full(s), (n / STAGES) & 1);
+        const uint32_t qu_at = base + s * L::STAGE, qv_at = qu_at + TILE;
+        const uint32_t do_at = qu_at + 2 * TILE, pb_at = qu_at + L::PB;
+        const float* rows = reinterpret_cast<const float*>(sm + s * L::STAGE + L::ROWS);
+        const int i0 = 64 * qt;
+        const int t = fresh(t0), rl = fresh(rl0);
+        hopper::wgmma_wait<0>();  // the last tile's dv: P^T's fragments are free
+        hopper::fence_regs(dva);
+        hopper::fence_regs(pa);
+        if (held >= 0) release(empty(held), lane);
+        {
+          float bd[16][4];  // BD = qv p_band^T: query i by band row q
+          hopper::wgmma_fence();
+          product_ss<128, D>(bd, qv_at, pb_at);
+          hopper::wgmma_wait<0>();  // BD
+          hopper::fence_regs(bd);
+          wg_sync(0);  // every thread of A has read the last tile's G^T
+          // BD's element (i, q) is the rel-pos term of key c = q + i - 63;
+          // half of them fall outside the tile and go to a padding column
+          float* const spare = Gt + rl * LDG + 64 + t;
+#pragma unroll
+          for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = rl + 8 * (e >> 1), c = 8 * nt + 2 * t + (e & 1) + i - 63;
+              *((unsigned)c < 64u ? Gt + c * LDG + i : spare) = bd[nt][e];
+            }
+        }
+        wg_sync(0);
+        hopper::wgmma_fence();
+        hopper::product_rs_k<64, D>(sc, kf, qu_at);  // s^T = k qu^T, after BD's scatter
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(sc);
+        // P^T = exp(scale (k.qu + p.qv) - lse), 0 on masked keys and on rows past T
+        const int imax = Tn - i0;  // query columns i < imax are rows of the sequence
+        if (__builtin_expect(imax < 64, 0)) {
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int hh = e >> 1, i = 8 * nt + 2 * t + (e & 1);
+              const float x = sc[nt][e] + Gt[(rl + 8 * hh) * LDG + i];
+              sc[nt][e] = kok[hh] && i < imax ? ex2(fmaf(x, scale2, -rows[i])) : 0.f;
+            }
+        } else {
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int hh = e >> 1, i = 8 * nt + 2 * t + (e & 1);
+              const float x = sc[nt][e] + Gt[(rl + 8 * hh) * LDG + i];
+              sc[nt][e] = kok[hh] ? ex2(fmaf(x, scale2, -rows[i])) : 0.f;
+            }
+        }
+        hopper::bar_sync(P_FREE, 256);  // B has read the last tile's P^T
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          ptile[j * 128 + tid] = make_float4(sc[j][0], sc[j][1], sc[j][2], sc[j][3]);
+        hopper::bar_arrive(P_FULL, 256);
+        pack_p<64>(pa, sc);
+        hopper::wgmma_fence();
+        product_rs<D, 64>(dva, pa, do_at);  // dv += P^T dO, dO MN-major
+        held = s;
+      }
+      // on every path, so that ptxas sees no read of an accumulator in flight
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dva);
+      hopper::fence_regs(pa);
+      if (held >= 0) release(empty(held), lane);
+      const float one[2] = {1.f, 1.f};
+      flash::tc::store_rows<16>(dv + off, dva, ja, jb, Tn, rs, t0, one);
+    }
+    hopper::bar_sync(P_FREE, 256);  // B's first arrival: the barrier ends balanced
+    return;
+  }
+
+  // ---- B: dP^T, dS^T, dk, the dp chunks
+  const bool issuer = tid == 0;  // issues B's dp reductions
+  uint8_t* const band = sm + L::BAND;
+  const uint32_t band_at = base + L::BAND;
+  // a dp chunk (64 rows of p from row r, all 128 columns; fp32 accumulator)
+  // into the staging tile (stage s's p rows) and from there into dp: by a
+  // TMA reduction that the issuer starts or, for the one chunk that starts
+  // before row 0 (the first keys' last query tile, where T is no multiple of
+  // 64: once a (b, h)), by atomics, as dkv_kernel's flush
+  auto flush = [&](const float (&acc)[16][4], int h, int r, int s) {
+    const int t = fresh(t0), rl = fresh(rl0);
+    uint8_t* const staging = sm + s * L::STAGE + L::PB;
+    const uint32_t staging_at = base + s * L::STAGE + L::PB;
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(staging +
+                                   hopper::sw128_f32(rl + 8 * hh, 8 * nt + 2 * t, 64)) =
+            make_float2(acc[nt][2 * hh], acc[nt][2 * hh + 1]);
+    hopper::fence_proxy_async();
+    wg_sync(1);
+    if (r >= 0) {
+      if (issuer) {
+        for (int cb = 0; cb < 4; ++cb)
+          hopper::tma_reduce_add_3d(&tdp, staging_at + cb * 64 * hopper::BOX_ROW_BYTES, 32 * cb,
+                                    h, r);
+        hopper::bulk_commit();
+      }
+    } else {
+      for (int idx = tid; idx < 64 * D; idx += 128) {
+        const int row = idx >> 7, col = idx & 127;
+        if (r + row >= 0)
+          atomicAdd(dpp + ((long long)(r + row) * H + h) * D + col,
+                    *reinterpret_cast<const float*>(staging + hopper::sw128_f32(row, col, 64)));
+      }
+    }
+  };
+
+  hopper::bar_arrive(P_FREE, 256);  // A's first P^T finds the tile free
+  uint32_t vf[8][4];  // the item's values as A fragments
+  for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
+    const int it = flash::tc::snake_item(r);
+    if (it >= n_items) continue;
+    int j0, h, b;
+    item_of(it, j0, h, b);
+    const int len = length(b), nq = j0 < len ? n_q : 0;
+    const int ja = j0 + rl0, jb = ja + 8;
+    const long long off = (long long)b * Tn * rs + (long long)h * D;
+    float dka[16][4], carry[16][4], dp[8][4];
+    uint32_t pd[4][4];  // dS^T as A fragments
+    flash::tc::zero<16>(dka);
+    flash::tc::zero<16>(carry);
+    if (nq > 0) flash::tc::load_a<D>(vf, v + off, ja, jb, Tn, rs, t0);
+    int held = -1, r0 = 0;  // the stage whose qv the last dp product reads, and its band's row
+    for (int qt = 0; qt < nq; ++qt, ++n) {
+      const int s = n % STAGES;
+      hopper::mbar_wait(full(s), (n / STAGES) & 1);
+      const uint32_t qu_at = base + s * L::STAGE, qv_at = qu_at + TILE;
+      const uint32_t do_at = qu_at + 2 * TILE;
+      const float* rows = reinterpret_cast<const float*>(sm + s * L::STAGE + L::ROWS);
+      const int i0 = 64 * qt;
+      const int t = fresh(t0), rl = fresh(rl0);
+      hopper::wgmma_fence();
+      hopper::product_rs_k<64, D>(dp, vf, do_at);  // dP^T = v dO^T
+      hopper::wgmma_wait<0>();  // dP^T, and the last tile's dk and lower dp chunk
+      hopper::fence_regs(dp);
+      hopper::fence_regs(dka);
+      hopper::fence_regs(carry);
+      hopper::fence_regs(pd);
+      if (held >= 0) {  // its staged chunk is read out: the stage goes back
+        if (issuer) hopper::bulk_wait_read();
+        release(empty(held), lane);
+      }
+      r0 = Tn - 64 - i0 + j0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)  // dP^T - delta, before P^T's loads
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[j][e] -= rows[64 + 8 * j + 2 * t + (e & 1)];
+      if (qt == 0) {  // the band's cells off the diagonals stay 0 for the item
+        for (int idx = tid; idx < 2 * BOX64 / 16; idx += 128)
+          reinterpret_cast<uint4*>(band)[idx] = make_uint4(0, 0, 0, 0);
+      }
+      hopper::bar_sync(P_FULL, 256);  // A's P^T of this tile
+      // dS^T = P^T (dP^T - delta) scale, as A fragments and into the band
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 pv = ptile[j * 128 + tid];
+        const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[j][e] = pr[e] * dp[j][e] * scale;
+      }
+      hopper::bar_arrive(P_FREE, 256);
+      pack_p<64>(pd, dp);
+      hopper::wgmma_fence();
+      product_rs<D, 64>(dka, pd, qu_at);  // dk += dS^T qu, qu MN-major
+      if (qt == 0) wg_sync(1);  // the band is zeroed
+      // the band from the fragments (dS^T in bf16), so that dp's registers are free
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = rl + 8 * (e >> 1), i = 8 * nt + 2 * t + (e & 1);
+          const uint32_t pair = pd[nt >> 1][2 * (nt & 1) + (e >> 1)];
+          *reinterpret_cast<uint16_t*>(band + sw128(c - i + 63, i)) =
+              (uint16_t)((e & 1) ? pair >> 16 : pair & 0xffffu);
+        }
+      hopper::fence_proxy_async();
+      wg_sync(1);
+      hopper::wgmma_fence();
+      product_ss_mn<D, 64>(carry, band_at + BOX64, qv_at, 1);  // + the upper chunk
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dka);
+      hopper::fence_regs(carry);
+      hopper::fence_regs(pd);
+      flush(carry, h, r0 + 64, s);  // rows r0 + 64 ..: no later tile reaches them
+      hopper::wgmma_fence();
+      product_ss_mn<D, 64>(carry, band_at, qv_at, 0);  // the lower chunk, the next tile's upper
+      held = s;
+    }
+    hopper::wgmma_wait<0>();  // on every path, as A's
+    hopper::fence_regs(carry);
+    if (held >= 0) {  // the last tile's lower chunk, staged where its upper one was
+      if (issuer) hopper::bulk_wait_read();
+      wg_sync(1);
+      flush(carry, h, r0, held);
+      if (issuer) hopper::bulk_wait_read();
+      release(empty(held), lane);
+    }
+    const float one[2] = {1.f, 1.f};
+    flash::tc::store_rows<16>(dk + off, dka, ja, jb, Tn, rs, t0, one);
+  }
+}
+
+// K4 at dh 128: the tensor maps and the launch, on a persistent grid
+int launch_dkv128(void* qu, void* qv, void* k, void* v, void* p, void* dout, void* lse,
+                  void* delta, void* lengths, void* dk, void* dv, void* dp, int B, int H, int Tn,
+                  float scale, cudaStream_t stream) {
+  CUtensorMap mqu, mqv, mp, mdo, mdp;
+  int err = hopper::encode_bthd(&mqu, qu, B, Tn, H, 128, 64);
+  if (err == 0) err = hopper::encode_bthd(&mqv, qv, B, Tn, H, 128, 64);
+  if (err == 0) err = hopper::encode_bthd(&mp, p, 1, 2 * Tn - 1, H, 128, 64);
+  if (err == 0) err = hopper::encode_bthd(&mdo, dout, B, Tn, H, 128, 64);
+  if (err == 0) err = hopper::encode_rows_f32(&mdp, dp, 2 * Tn - 1, H, 128, 64);
+  int grid = 0;
+  if (err == 0) err = flash::persistent_grid((Tn + 63) / 64 * H * B, grid);
+  if (err != 0) return err;
+  void* args[] = {&mqu, &mqv, &mp, &mdo, &mdp, &k, &v, &lse, &delta,
+                  &lengths, &dk, &dv, &dp, &B, &H, &Tn, &scale};
+  return flash::launch(dkv128_kernel, Dkv128Layout::BYTES, Dkv128Layout::NT, grid, 1, 1, stream,
+                       args);
 }
 
 // the tensor maps and the launch; dp == nullptr: K3 (dqu, dqv into out0,
@@ -1024,9 +1386,10 @@ int launch(void* qu, void* qv, void* k, void* v, void* p, void* dout, void* lse,
   // a persistent grid, items in a snake order; one block an item measured
   // the same at the calibration shape (192 items of equal work) on the
   // H100: K3 0.6 % faster, K4 within the spread of two runs
-  const int items = dp == nullptr
-                        ? (Tn + DqLayout<D>::TQ - 1) / DqLayout<D>::TQ * H * B
-                        : (Tn + DkvLayout<D>::TK - 1) / DkvLayout<D>::TK * DkvLayout<D>::NB * H * B;
+  int items = (Tn + DqLayout<D>::TQ - 1) / DqLayout<D>::TQ * H * B;
+  if constexpr (D == 64) {
+    if (dp != nullptr) items = (Tn + DkvLayout<D>::TK - 1) / DkvLayout<D>::TK * H * B;
+  }
   int grid = 0;
   if (err == 0) err = flash::persistent_grid(items, grid);
   if (err != 0) return err;
@@ -1036,10 +1399,13 @@ int launch(void* qu, void* qv, void* k, void* v, void* p, void* dout, void* lse,
     return flash::launch(dq_kernel<D>, DqLayout<D>::BYTES, DqLayout<D>::NT, grid, 1, 1, stream,
                          args);
   }
-  void* args[] = {&mqu, &mqv, &mk,  &mv, &mp, &mdo, &mdp, &lse, &delta,
-                  &lengths, &out0, &out1, &dp, &B, &H, &Tn, &scale};
-  return flash::launch(dkv_kernel<D>, DkvLayout<D>::BYTES, DkvLayout<D>::NT, grid, 1, 1, stream,
-                       args);
+  if constexpr (D == 64) {  // K4 at dh 128 is launch_dkv128's
+    void* args[] = {&mqu, &mqv, &mk,  &mv, &mp, &mdo, &mdp, &lse, &delta,
+                    &lengths, &out0, &out1, &dp, &B, &H, &Tn, &scale};
+    return flash::launch(dkv_kernel<D>, DkvLayout<D>::BYTES, DkvLayout<D>::NT, grid, 1, 1,
+                         stream, args);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace wg
@@ -1100,8 +1466,32 @@ extern "C" int relpos_flash_bwd_dkv(int dtype, void* qu, void* qv, void* k, void
     if (!flash::aligned16(bf, 9)) return (int)cudaErrorMisalignedAddress;
     return head_dim == 64 ? wg::launch<64>(qu, qv, k, v, p, dout, lse, delta, lengths, dk, dv,
                                            dp, B, H, Tn, scale, s)
-                          : wg::launch<128>(qu, qv, k, v, p, dout, lse, delta, lengths, dk, dv,
-                                            dp, B, H, Tn, scale, s);
+                          : wg::launch_dkv128(qu, qv, k, v, p, dout, lse, delta, lengths, dk, dv,
+                                              dp, B, H, Tn, scale, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The launch shape of the bf16 K4 at head_dim 64 or 128 into out[6], as
+// relpos_flash.cu's relpos_flash_fwd_shape: threads a block, consumer
+// warpgroups, blocks a cluster, dynamic shared memory bytes, registers a
+// thread at launch and local memory (spill) bytes a thread. Returns a
+// cudaError_t.
+extern "C" int relpos_flash_bwd_dkv_shape(int head_dim, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err;
+  if (head_dim == 64) {
+    err = cudaFuncGetAttributes(&attr, wg::dkv_kernel<64>);
+    out[0] = wg::DkvLayout<64>::NT, out[1] = wg::DkvLayout<64>::WGS;
+    out[3] = wg::DkvLayout<64>::BYTES;
+  } else if (head_dim == 128) {
+    err = cudaFuncGetAttributes(&attr, wg::dkv128_kernel);
+    out[0] = wg::Dkv128Layout::NT, out[1] = 2, out[3] = wg::Dkv128Layout::BYTES;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  out[2] = 1;
+  out[4] = attr.numRegs;
+  out[5] = (int)attr.localSizeBytes;
+  return (int)err;
 }

@@ -117,12 +117,17 @@ def test_relpos_flash_kernel_matches_plain(cuda, dtype, tol, T, lengths):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("T,lengths", [(64, [64, 64]), (100, [100, 37]), (129, [129, 1]),
-                                       (200, [1, 133]), (376, [376, 300]), (376, [376, 376])])
+                                       (200, [1, 133]), (376, [376, 300]), (376, [376, 376]),
+                                       (150, [150, 150]), (320, [320, 190])])
 def test_relpos_flash_kernel_matches_plain_dh128(cuda, dtype, tol, T, lengths):
     """K1 at head dim 128 (FastConformer-XL's 1024 over 8 heads) against its
     plain version: T under one 64-row query tile (its band's p rows start
     before row 0), a last tile of one row (129), a row of length 1, and the
-    transcription's T' = 376 (30 s at x8), ragged and full."""
+    transcription's T' = 376 (30 s at x8), ragged and full. The bf16 block
+    owns 128 query rows in two warpgroups of 64: at T = 64 and 129 its second
+    warpgroup's rows lie wholly past T, at 150 the first's are partly valid,
+    and 320 is an odd number of 64-row tiles (the last item's second
+    warpgroup past T, beside a ragged row)."""
     B, H = len(lengths), 2
     args = [a.to(cuda, dtype) if torch.is_tensor(a) and a.is_floating_point() else
             (a.to(cuda) if torch.is_tensor(a) else a)
@@ -237,13 +242,18 @@ def test_relpos_flash_backward_kernels_match_plain(cuda, dtype, tol, T, lengths,
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("T,lengths,H", [(64, [64, 64], 2), (129, [129, 65], 2),
                                          (200, [1, 133], 2), (376, [376, 300], 2),
-                                         (376, [376, 376], 1), (25, [25, 10], 2)])
+                                         (376, [376, 376], 1), (25, [25, 10], 2),
+                                         (65, [65, 65], 2), (130, [130, 3], 2)])
 def test_relpos_flash_backward_kernels_match_plain_dh128(cuda, dtype, tol, T, lengths, H):
     """K3 and K4 at head dim 128 against the plain backward, each gradient
     within tol of its max-abs value (as the dh-64 test above): whole 64-row
-    tiles (64), one row past them (129), p's band past both of its ends and
-    a row of length 1 (200), the calibration's T' = 376 (30 s at x8), ragged
-    and full, and a clip shorter than one tile."""
+    tiles (64), one row past them (129, 65: a last query tile and a last key
+    item of one row), p's band past both of its ends and a row of length 1
+    (200), the calibration's T' = 376 (30 s at x8), ragged and full, a clip
+    shorter than one tile, and a length of 3 (130), whose first key item
+    holds 61 keys past the length and whose others hold none before it. The
+    bf16 K4 splits an item of 64 keys between two warpgroups by output (P^T
+    and dv; dS^T, dk and dp), so every such key passes through both."""
     B = len(lengths)
     args = [a.to(cuda, dtype) if torch.is_tensor(a) and a.is_floating_point() else
             (a.to(cuda) if torch.is_tensor(a) else a)
@@ -262,6 +272,22 @@ def test_relpos_flash_backward_kernels_match_plain_dh128(cuda, dtype, tol, T, le
         r = r.float()
         torch.testing.assert_close(x.float(), r, atol=tol * float(r.abs().max()), rtol=0,
                                    msg=name)
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_relpos_kernel_launch_shapes(cuda, kernel, head_dim):
+    """The launch shape of the bf16 K1 and K4: 384 threads, two consumer
+    warpgroups, no cluster, within the 227 KB of shared memory a block can
+    have, and no local memory (a spill) at dh 128, where the blocks hold q,
+    or k and v, as register fragments."""
+    from nemo_tpu_torch.ops.flash_attention import relpos_kernel_shape
+
+    shape = relpos_kernel_shape(kernel, head_dim)
+    assert (shape["threads"], shape["warpgroups"], shape["cluster"]) == (384, 2, 1)
+    assert 0 < shape["shared_bytes"] <= 232448 and shape["registers"] > 0
+    if head_dim == 128:
+        assert shape["local_bytes"] == 0
 
 
 def test_attention_output_is_differentiable_on_cuda(cuda):

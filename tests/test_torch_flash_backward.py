@@ -77,6 +77,28 @@ def test_grads_match_jax_einsum(use_flash):
     _assert_grads_close(_port_grads(a, w, use_flash), ref, 1e-5)
 
 
+@pytest.mark.parametrize("T, lengths", [(65, [65, 3]), (130, [130, 3]), (150, [150, 90])])
+def test_flash_grads_match_jax_einsum_at_tile_edges(T, lengths):
+    """The flash form's gradients against jax.grad of the JAX einsum branch
+    at the lengths where the card tests hold K1, K3 and K4 at dh 128 to this
+    plain backward: one row past a 64-row tile, two past, an odd number of
+    tiles, and keys past a length of 3 inside a key tile; fp32, within 1e-5
+    of each leaf's max."""
+    a = _inputs(B=2, H=2, T=T, dh=8, lengths=lengths, seed=8)
+    w = _row_weights(a, seed=9)
+    pad_mask = jnp.asarray(np.arange(T)[None, :] < a["lengths"][:, None])
+
+    def loss(qu, qv, k, v, w_pos):
+        out = jax_attention.relpos_attention(qu, qv, k, v, w_pos, pad_mask,
+                                             d_model=a["D"], scale=a["scale"])
+        return jnp.sum(out * w)
+
+    ref = jax.grad(loss, argnums=tuple(range(5)))(
+        *(jnp.asarray(a[k]) for k in ("qu", "qv", "k", "v")),
+        jnp.asarray(a["w_pos"]).reshape(a["D"], 2, 8))
+    _assert_grads_close(_port_grads(a, w, use_flash=True), ref, 1e-5)
+
+
 def test_plain_backward_matches_jax_pallas_backward_interpret():
     """The plain backward against the Pallas `_dq_kernel` / `_dkv_kernel` (the
     custom_vjp of `flash_attention`) on the augmented features that
