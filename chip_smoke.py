@@ -257,10 +257,11 @@ Phases, each printing a line; any failure raises and exits non-zero:
    held to its own max (`compare_rows`): K1 at the transcription shape (B=32,
    H=8, T'=376), K3 and K4 at the calibration shape (B=4), ragged and full
    lengths, fp32 and bf16, with their times, device times, bounds, the plain
-   versions' times and SDPA's forward and backward given the bias; and the
-   launch shape K1 and K4 chose at dh 128 (`phase_dh128_shapes`: threads,
-   warpgroups, cluster, shared-memory bytes, registers and spill bytes a
-   thread);
+   versions' times and SDPA's forward and backward given the bias; K3's
+   dqu and dqv bitwise equal over a second launch (bf16, ragged and full);
+   and the launch shape K1, K3 and K4 chose at dh 128 (`phase_dh128_shapes`:
+   threads, warpgroups, cluster, shared-memory bytes, registers and spill
+   bytes a thread);
 34. FastConformer-XL TDT in fp32 at full width, 2 layers, card against CPU,
    B=2 x 5 s (one ragged), the blank bias shifted so that the random decode
    emits and skips: the encoder output, the token and duration logits along
@@ -620,12 +621,12 @@ def phase_k1(gen: torch.Generator, T: int = 751, dh: int = 64) -> dict:
 
 
 def phase_dh128_shapes() -> None:
-    """33. The launch shape of K1 and K4 at dh 128 (the redesigned blocks),
-    from `cudaFuncGetAttributes` of the built kernels: a spill shows as
-    local bytes on the card's own line, and fails the phase."""
+    """33. The launch shape of K1, K3 and K4 at dh 128 (the redesigned
+    blocks), from `cudaFuncGetAttributes` of the built kernels: a spill shows
+    as local bytes on the card's own line, and fails the phase."""
     from nemo_tpu_torch.ops.flash_attention import relpos_kernel_shape
 
-    for kernel, tag in (("fwd", "K1"), ("dkv", "K4")):
+    for kernel, tag in (("fwd", "K1"), ("dq", "K3"), ("dkv", "K4")):
         shape = relpos_kernel_shape(kernel, 128)
         log(f"{tag} dh128 launch shape: {shape['threads']} threads, {shape['warpgroups']} consumer "
             f"warpgroups, cluster {shape['cluster']}, {shape['shared_bytes']} bytes of shared "
@@ -719,6 +720,14 @@ def phase_k3_k4(gen: torch.Generator, T: int = 751, dh: int = 64):
                         f"lengths={'ragged' if lengths is ragged else 'full'} {name}")
                 errs.append(_hold(what, x, r, dh, tol))
             del ref
+            if dh == 128 and dtype == torch.bfloat16:  # one block sums each row, in one order
+                again = relpos_flash_dq(*args, lse, delta, do)
+                torch.cuda.synchronize()
+                same = all(torch.equal(x, y) for x, y in zip(out[:2], again))
+                log(f"K3{tag} bf16 lengths={'ragged' if lengths is ragged else 'full'}: a second "
+                    f"launch gives {'bitwise-equal' if same else 'DIFFERENT'} dqu and dqv")
+                if not same:
+                    raise AssertionError(f"K3{tag}: dqu, dqv differ between two launches")
         args = (qu, qv, k, v, p, lens, scale)  # the calibration's lengths: full 30 s clips
         k3 = lambda: relpos_flash_dq(*args, lse, delta, do)  # noqa: E731
         k4 = lambda: relpos_flash_dkv(*args, lse, delta, do)  # noqa: E731

@@ -152,6 +152,44 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// TMA store: the box at shared address src (as tma_load_4d lays it out) into
+// `map` at (c0 column, c1 head, c2 row, c3 batch row), in a bulk group; rows
+// past the tensor's end are not written, and the source may be rewritten
+// after bulk_wait_read
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// the register A fragments (K / 16 steps of 16 columns) of warp w's 16 rows
+// of a 64 x K bf16 tile at shared address `at`, K / 64 TMA boxes in the
+// 128-byte swizzle: what flash_tiles.cuh:load_a reads from device memory,
+// by ldmatrix .x4 (lane l gives the address of row l % 8 of matrix l / 8,
+// and matrix j lands in a[ks][j] in the mma A layout, mma_bf16.cuh)
+template <int K>
+__device__ __forceinline__ void ldsm_a(uint32_t (&a)[K / 16][4], uint32_t at, int w, int lane) {
+  const int row = 16 * w + (lane & 7) + 8 * ((lane >> 3) & 1), half = lane >> 4;
+#pragma unroll
+  for (int ks = 0; ks < K / 16; ++ks) {
+    const int c = 16 * ks + 8 * half;
+    const uint32_t addr = at + (c >> 6) * 64 * BOX_ROW_BYTES + row * BOX_ROW_BYTES +
+                          ((((c & 63) >> 3) ^ (row & 7)) << 4);
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(a[ks][0]), "=r"(a[ks][1]), "=r"(a[ks][2]), "=r"(a[ks][3])
+                 : "r"(addr)
+                 : "memory");
+  }
+}
+
+// fetch a tensor map (a __grid_constant__ parameter) ahead of its first use
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
 // TMA reduction: add the fp32 box at shared address src (two 32-column boxes
 // of a [rows][64] tile are two calls) into `map` at (c0 column, c1 head, c2
 // row), in a bulk group; the source may be rewritten after bulk_wait_read

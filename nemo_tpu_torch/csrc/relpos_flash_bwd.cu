@@ -41,11 +41,12 @@
 // dp product), against ~6 x 2 B x T x H x dh bytes of inputs and outputs, so
 // operations bound both at the main path's shapes. The wgmma band products
 // of K4 are 64 rows wide where 127 of 128 rows are used, so K4 issues 8.
-// Head widths dh = D of 64 (Conformer-Large) and 128 (FastConformer-XL);
-// the dh-128 K3 block is described at DqLayout. K4 at dh 128 is a kernel of
-// its own (dkv128_kernel): an item of 64 keys at full width, its two
-// consumer warpgroups split by output (P^T and dv; dS^T, dk and dp), k and v
-// held as register fragments; what bounds it and its budget are noted there.
+// Head widths dh = D of 64 (Conformer-Large) and 128 (FastConformer-XL).
+// At dh 128 K3 and K4 are kernels of their own (dq128_kernel,
+// dkv128_kernel): an item of 64 query rows or 64 keys at full width, its two
+// consumer warpgroups split by output (K3: the band chunk, s and P; dP, dS,
+// dqu and dqv. K4: P^T and dv; dS^T, dk and dp), q, or k and v, held as
+// register fragments; what bounds each and its budget are noted there.
 //
 // Layouts: qu, qv, k, v, dO and dqu, dqv, dk, dv are [B, T, H, D]; p is
 // [2T-1, H, D], dp [2T-1, H, D] fp32 (zeroed by the caller); lse and delta
@@ -340,9 +341,9 @@ __device__ __forceinline__ void pass(int w) { hopper::bar_arrive(4 - w, 256); }
 // in [0, 126], r0 = T - 64 - i0 + j0: its lower chunk of 64 rows of p where
 // c <= i, its upper chunk where c > i.
 
-// ---- K3: dqu, dqv. A block of 384 threads owns 128 query rows of one
-// (b, h), a consumer warpgroup 64 of them (rows i0 + 64 w), and walks the key
-// tiles of 64 up to the last valid key. The producer's first warp loads qu,
+// ---- K3 at dh 64 (dh 128 is dq128_kernel below): dqu, dqv. A block of 384
+// threads owns 128 query rows of one (b, h), a consumer warpgroup 64 of them
+// (rows i0 + 64 w), and walks the key tiles of 64 up to the last valid key. The producer's first warp loads qu,
 // qv and dO once an item and, per key tile kt, k, v and the 192 rows of p
 // from T - 128 - i0 + 64 kt (the two warpgroups' chunks kt and kt + 1, which
 // overlap) by TMA into a ring of stages.
@@ -365,21 +366,14 @@ __device__ __forceinline__ void pass(int w) { hopper::bar_arrive(4 - w, 256); }
 //   first tile and after the last fills the cells no tile writes.
 // Five products of 64 x 64 x 64 a tile pair (s, the band chunk, dP, dqu and
 // the dqv chunk), one more of each band an item.
-
-//
-// At dh 128 a block is one consumer warpgroup (64 query rows, 256 threads,
-// no setmaxnreg, no turns) with 2 stages of k, v and 128 rows of p (~225 KB
-// in all: two warpgroups' q, dO and G rings would not fit), and the band
-// chunk is computed and scattered before s and dP are issued, so that its
-// accumulator is not live beside theirs and the two 64 x 128 dq accumulators.
 template <int D>
 struct DqLayout {
-  static constexpr int WGS = D == 64 ? 2 : 1;   // consumer warpgroups, 64 query rows each
+  static_assert(D == 64, "K3 at dh 128 is dq128_kernel");
+  static constexpr int WGS = 2;                 // consumer warpgroups, 64 query rows each
   static constexpr int NT = 128 * (WGS + 1);    // and a producer warpgroup, one warp at work
   static constexpr int TQ = 64 * WGS;           // query rows an item
-  static constexpr int NB = D / 64;             // boxes a row
   static constexpr int STAGES = 2;
-  static constexpr uint32_t TILE = NB * BOX64;       // 64 rows of D columns
+  static constexpr uint32_t TILE = BOX64;            // 64 rows of 64 columns
   static constexpr uint32_t Q = 3 * WGS * TILE;      // qu, qv, dO: a tile a warpgroup each
   static constexpr uint32_t STAGE = (WGS + 3) * TILE;  // k, v, then 64 (WGS + 1) rows of p
   static constexpr uint32_t G = Q + STAGES * STAGE;
@@ -399,7 +393,7 @@ __global__ void __launch_bounds__(DqLayout<D>::NT, 1) dq_kernel(
     const int* __restrict__ lengths, bf16* __restrict__ dqu, bf16* __restrict__ dqv, int B, int H,
     int Tn, float scale) {
   using L = DqLayout<D>;
-  constexpr int STAGES = L::STAGES, WGS = L::WGS, TQ = L::TQ, NB = L::NB;
+  constexpr int STAGES = L::STAGES, WGS = L::WGS, TQ = L::TQ;
   constexpr uint32_t TILE = L::TILE;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
@@ -431,7 +425,7 @@ __global__ void __launch_bounds__(DqLayout<D>::NT, 1) dq_kernel(
   __syncthreads();
 
   if (warp < 4) {
-    if constexpr (WGS == 2) hopper::reg_dealloc<PRODUCER_REGS>();
+    hopper::reg_dealloc<PRODUCER_REGS>();
     if (threadIdx.x != 0) return;
     int n = 0, k = 0;  // stages filled, items taken
     for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
@@ -441,28 +435,22 @@ __global__ void __launch_bounds__(DqLayout<D>::NT, 1) dq_kernel(
       item_of(it, i0, h, b);
       if (k > 0) hopper::mbar_wait(q_free, (k - 1) & 1);  // the last item is done with q
       hopper::mbar_arrive_tx(q_loaded, L::Q);
-      for (int w = 0; w < WGS; ++w)
-        for (int c = 0; c < NB; ++c) {
-          hopper::tma_load_4d(base + w * TILE + c * BOX64, &tqu, q_loaded, 64 * c, h,
-                              i0 + 64 * w, b);
-          hopper::tma_load_4d(base + (WGS + w) * TILE + c * BOX64, &tqv, q_loaded, 64 * c, h,
-                              i0 + 64 * w, b);
-          hopper::tma_load_4d(base + (2 * WGS + w) * TILE + c * BOX64, &tdo, q_loaded, 64 * c,
-                              h, i0 + 64 * w, b);
-        }
+      for (int w = 0; w < WGS; ++w) {
+        hopper::tma_load_4d(base + w * TILE, &tqu, q_loaded, 0, h, i0 + 64 * w, b);
+        hopper::tma_load_4d(base + (WGS + w) * TILE, &tqv, q_loaded, 0, h, i0 + 64 * w, b);
+        hopper::tma_load_4d(base + (2 * WGS + w) * TILE, &tdo, q_loaded, 0, h, i0 + 64 * w, b);
+      }
       const int nk = (length(b) + 63) / 64;
       for (int kt = 0; kt < nk; ++kt, ++n) {
         const int s = n % STAGES, use = n / STAGES;
         if (use > 0) hopper::mbar_wait(empty(s), (use - 1) & 1);  // the stage is read out
         const uint32_t st = base + L::Q + s * L::STAGE;
         hopper::mbar_arrive_tx(full(s), L::STAGE);
-        for (int c = 0; c < NB; ++c) {
-          hopper::tma_load_4d(st + c * BOX64, &tk, full(s), 64 * c, h, 64 * kt, b);
-          hopper::tma_load_4d(st + TILE + c * BOX64, &tv, full(s), 64 * c, h, 64 * kt, b);
-          for (int x = 0; x <= WGS; ++x)  // rows past either end of p read as zeros
-            hopper::tma_load_4d(st + (2 + x) * TILE + c * BOX64, &tp, full(s), 64 * c, h,
-                                Tn - TQ - i0 + 64 * kt + 64 * x, 0);
-        }
+        hopper::tma_load_4d(st, &tk, full(s), 0, h, 64 * kt, b);
+        hopper::tma_load_4d(st + TILE, &tv, full(s), 0, h, 64 * kt, b);
+        for (int x = 0; x <= WGS; ++x)  // rows past either end of p read as zeros
+          hopper::tma_load_4d(st + (2 + x) * TILE, &tp, full(s), 0, h,
+                              Tn - TQ - i0 + 64 * kt + 64 * x, 0);
       }
       ++k;
     }
@@ -471,7 +459,7 @@ __global__ void __launch_bounds__(DqLayout<D>::NT, 1) dq_kernel(
 
   // consumer warpgroup w: query rows i0 + 64 w .. + 63 of each item; this
   // thread's local rows rl and rl + 8 (global ia, ib)
-  if constexpr (WGS == 2) hopper::reg_alloc<CONSUMER_REGS>();
+  hopper::reg_alloc<CONSUMER_REGS>();
   const int w = (warp >> 2) - 1, g = lane >> 2, t = lane & 3, rl = 16 * (warp & 3) + g;
   const float scale2 = scale * LOG2E;  // P = 2^(s scale2 - lse log2(e))
   const long long rs = (long long)H * D;
@@ -495,9 +483,7 @@ __global__ void __launch_bounds__(DqLayout<D>::NT, 1) dq_kernel(
       }
   };
 
-  if constexpr (WGS == 2) {
-    if (w == 1) pass(1);  // the first turn is warpgroup 0's
-  }
+  if (w == 1) pass(1);  // the first turn is warpgroup 0's
   int n = 0, k = 0;  // stages consumed, items taken
   for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
     const int it = flash::tc::snake_item(r);
@@ -534,28 +520,15 @@ __global__ void __launch_bounds__(DqLayout<D>::NT, 1) dq_kernel(
         scatter(bd, 0);
         band_tile(dp, -1, true);
       }
-      if constexpr (WGS == 2) {
-        turn(w);
-        hopper::wgmma_fence();
-        product_ss<64, D>(sc, qu_at, k_at);    // s = qu k^T
-        product_ss<64, D>(bd, qv_at, new_at);  // chunk kt + 1 of qv p^T
-        product_ss<64, D>(dp, do_at, v_at);    // dP = dO v^T
-        hopper::wgmma_wait<1>();
-        hopper::fence_regs(sc);
-        hopper::fence_regs(bd);
-        scatter(bd, kt + 1);
-      } else {  // the band chunk first, so that its registers are free for s and dP
-        hopper::wgmma_fence();
-        product_ss<64, D>(bd, qv_at, new_at);
-        hopper::wgmma_wait<0>();
-        hopper::fence_regs(bd);
-        scatter(bd, kt + 1);
-        hopper::wgmma_fence();
-        product_ss<64, D>(sc, qu_at, k_at);
-        product_ss<64, D>(dp, do_at, v_at);
-        hopper::wgmma_wait<1>();
-        hopper::fence_regs(sc);
-      }
+      turn(w);
+      hopper::wgmma_fence();
+      product_ss<64, D>(sc, qu_at, k_at);    // s = qu k^T
+      product_ss<64, D>(bd, qv_at, new_at);  // chunk kt + 1 of qv p^T
+      product_ss<64, D>(dp, do_at, v_at);    // dP = dO v^T
+      hopper::wgmma_wait<1>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(bd);
+      scatter(bd, kt + 1);
       __syncwarp();
       // P = exp(scale (qu.k + qv.p) - lse), 0 on keys past the length
       const float* grow[2] = {relpos::band_row(G, rl, kt), relpos::band_row(G, rl + 8, kt)};
@@ -583,7 +556,7 @@ __global__ void __launch_bounds__(DqLayout<D>::NT, 1) dq_kernel(
             sc[nt][2 * hh + 1] = ex2(fmaf(sc[nt][2 * hh + 1] + gv.y, scale2, -l2[hh]));
           }
       }
-      if constexpr (WGS == 2) pass(w);  // the other warpgroup's products overlap this tile's dS
+      pass(w);  // the other warpgroup's products overlap this tile's dS
       hopper::wgmma_wait<0>();
       hopper::fence_regs(dp);
       // dS = P (dP - delta) scale, kept in dp's registers and as A fragments
@@ -622,9 +595,7 @@ __global__ void __launch_bounds__(DqLayout<D>::NT, 1) dq_kernel(
     flash::tc::store_rows<D / 8>(dqv + off, av, ia, ib, Tn, rs, t, one);
     ++k;
   }
-  if constexpr (WGS == 2) {
-    if (w == 0) turn(0);  // warpgroup 1's first pass
-  }
+  if (w == 0) turn(0);  // warpgroup 1's first pass
 }
 
 // ---- K4 at dh 64 (dh 128 is dkv128_kernel below): dk, dv and dp. A block
@@ -1369,8 +1340,400 @@ int launch_dkv128(void* qu, void* qv, void* k, void* v, void* p, void* dout, voi
                        args);
 }
 
-// the tensor maps and the launch; dp == nullptr: K3 (dqu, dqv into out0,
-// out1), else K4 (dk, dv into out0, out1, dp added to)
+// ---- K3 at dh 128 (FastConformer-XL): dq128_kernel.
+//
+// Why this shape: at dh 128 the dh-64 block's two warpgroups' q, dO, G rings
+// and bands do not fit beside stages of 64 KB, and one warpgroup's dqu and
+// dqv at full width (2 x 64 registers) leave no room for s, dP and the band
+// chunk in flight together. A block of one consumer warpgroup ran each key
+// tile as one chain of products, waits, scatters and exponentials: 0.035-
+// 0.038 ms on the H100, 5.5 x its bound, half of it its loads (PERF.md §6).
+//
+// Here an item is still 64 query rows x all 128 columns of one (b, h) (192
+// items at the calibration shape, B=4, H=8, T'=376: 1.45 waves on 132 SMs),
+// and two consumer warpgroups split a key tile's work by output (setmaxnreg
+// 24 / 240):
+// - A: the band chunk kt + 1 = qv p^T and s = qu k^T (RS: qu and qv as
+//   register A fragments, taken by ldmatrix from G, where TMA puts them at
+//   the item's start; p and k K-major), the chunk's scatter into G
+//   (relpos_band.cuh) and P, which it hands (fp32, so dS is the dh-64
+//   kernel's) to B through one of two 16 KB tiles in the accumulator layout
+//   (each thread of B reads what its twin thread of A wrote), under named
+//   barriers (P full, P free): A runs up to two key tiles ahead of B.
+// - B: dP = dO v^T (RS, dO as register fragments from device memory), dS =
+//   P (dP - delta) scale, dqu += dS k (RS from dS's bf16 fragments, k
+//   MN-major), the dS band ring (from the same fragments) and dqv += band_kt
+//   p_kt (SS, p MN-major). It holds dO (32 registers), dqu and dqv (64
+//   each), dP (32) and dS's fragments (16): dkv128_kernel's B's budget. It
+//   waits for dqu and dqv at a tile's end, so that the stage goes back before
+//   the next tile's products (A waited on its loads otherwise).
+// A block's timeline (clock stamps a tile, PERF.md §6) showed each item's 64
+// 4-byte loads a thread of qu and qv and 64 4-byte stores of dqu and dqv
+// holding up the shared-memory traffic behind them for ~2-3 us: so qu and qv
+// come by TMA into G, whose 32 KB are free between items, and dqu and dqv
+// go out by TMA stores from the band ring and the 16 KB after it. Shared
+// memory: 2 stages of k, v and the 128 rows of p of chunks kt and kt + 1
+// (128 KB), G (32 KB), the P tiles (32 KB), the band ring and the staging
+// (32 KB): 225 KB of 227. dqu and dqv are summed in one block in a fixed
+// order: bitwise repeatable. Ten products of 64^3 a tile pair (the band
+// chunk, s, dP, dqu, dqv), one band chunk and one dqv product more an item.
+struct Dq128Layout {
+  static constexpr int NT = 384;                     // producer, consumer warpgroups A and B
+  static constexpr int STAGES = 2;
+  static constexpr uint32_t TILE = 2 * BOX64;        // 64 rows of 128 columns
+  static constexpr uint32_t STAGE = 4 * TILE;        // k, v, then p's chunks kt and kt + 1
+  static constexpr uint32_t G = STAGES * STAGE;      // A's G ring [64 i][128] fp32, or qu, qv
+  static constexpr uint32_t PT = G + 64 * 128 * 4;   // the P tiles, [2][8][128 threads] float4
+  static constexpr uint32_t BAND = PT + 2 * 128 * 32 * 4;  // B's band ring [2][64 i][64] bf16,
+  static constexpr uint32_t BARS = BAND + 4 * BOX64;       // or dqu, dqv; full, empty, q loaded
+  static constexpr uint32_t BYTES = BARS + 8 * (2 * STAGES + 1) + ATOM;
+  static_assert(STAGE % ATOM == 0 && BAND % ATOM == 0, "K3 dh 128: alignment");
+  static_assert(BYTES <= 232448, "K3 dh 128: more shared memory than a block can have");
+};
+constexpr int DQ_P_FULL = 3, DQ_P_FREE = 5;  // named barriers of A and B, + the P tile (0, 1)
+
+__global__ void __launch_bounds__(Dq128Layout::NT, 1) dq128_kernel(
+    const __grid_constant__ CUtensorMap tqu, const __grid_constant__ CUtensorMap tqv,
+    const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tp, const __grid_constant__ CUtensorMap tdqu,
+    const __grid_constant__ CUtensorMap tdqv, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const int* __restrict__ lengths, int B, int H, int Tn, float scale) {
+  using L = Dq128Layout;
+  constexpr int D = 128, STAGES = L::STAGES;
+  constexpr uint32_t TILE = L::TILE;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t base = (raw + ATOM - 1) & ~(ATOM - 1);
+  uint8_t* const sm = smem_raw + (base - raw);
+  auto full = [&](int s) { return base + L::BARS + 8 * s; };
+  auto empty = [&](int s) { return base + L::BARS + 8 * (STAGES + s); };
+  const uint32_t q_loaded = base + L::BARS + 8 * 2 * STAGES;  // an item's qu, qv are in G
+
+  // work item it: 64 query rows from i0 of head h, batch row b
+  const int n_q = (Tn + 63) / 64, n_items = n_q * H * B;
+  auto item_of = [&](int it, int& i0, int& h, int& b) {
+    const int rem = it % (H * B);
+    i0 = it / (H * B) * 64;
+    h = rem % H;
+    b = rem / H;
+  };
+  auto length = [&](int b) { return min(max(lengths[b], 0), Tn); };
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    hopper::prefetch_map(&tqu);  // under the barriers' setup
+    hopper::prefetch_map(&tqv);
+    hopper::prefetch_map(&tk);
+    hopper::prefetch_map(&tv);
+    hopper::prefetch_map(&tp);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(full(s), 1);   // the TMA bytes
+      hopper::mbar_init(empty(s), 8);  // every consumer warp
+    }
+    hopper::mbar_init(q_loaded, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    hopper::reg_dealloc<PRODUCER_REGS_128>();
+    if (threadIdx.x != 0) return;
+    int n = 0;  // stages filled
+    for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
+      const int it = flash::tc::snake_item(r);
+      if (it >= n_items) continue;
+      int i0, h, b;
+      item_of(it, i0, h, b);
+      const int nk = (length(b) + 63) / 64;
+      for (int kt = 0; kt < nk; ++kt, ++n) {
+        const int s = n % STAGES, use = n / STAGES;
+        if (use > 0) hopper::mbar_wait(empty(s), (use - 1) & 1);  // the stage is read out
+        const uint32_t st = base + s * L::STAGE;
+        hopper::mbar_arrive_tx(full(s), L::STAGE);
+        for (int c = 0; c < 2; ++c) {
+          hopper::tma_load_4d(st + c * BOX64, &tk, full(s), 64 * c, h, 64 * kt, b);
+          hopper::tma_load_4d(st + TILE + c * BOX64, &tv, full(s), 64 * c, h, 64 * kt, b);
+          for (int x = 0; x < 2; ++x)  // chunk kt + x; rows past either end of p read as zeros
+            hopper::tma_load_4d(st + (2 + x) * TILE + c * BOX64, &tp, full(s), 64 * c, h,
+                                Tn - 64 - i0 + 64 * kt + 64 * x, 0);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup w (0: A, 1: B); this thread's local rows rl0 and rl0
+  // + 8, and its index tid in the warpgroup
+  hopper::reg_alloc<CONSUMER_REGS_128>();
+  const int w = (warp >> 2) - 1, t0 = lane & 3, rl0 = 16 * (warp & 3) + (lane >> 2);
+  const int tid = threadIdx.x & 127;
+  float4* const ptile = reinterpret_cast<float4*>(sm + L::PT);  // P tile x at ptile + 1024 x
+  int n = 0;  // stages consumed, P tiles handed over (tile n % 2)
+
+  if (w == 0) {  // ---- A: the band chunks, s, P
+    const float scale2 = scale * LOG2E;  // P = 2^(s scale2 - lse log2(e))
+    float* const G = reinterpret_cast<float*>(sm + L::G);
+    const uint32_t g_at = base + L::G;
+    uint32_t quf[8][4], qvf[8][4];
+    // item it's qu and qv by TMA into G (2 tiles), which its first scatter
+    // overwrites once every warp has taken its fragments
+    auto load_q = [&](int it) {
+      if (tid != 0) return;
+      int i0, h, b;
+      item_of(it, i0, h, b);
+      hopper::mbar_arrive_tx(q_loaded, 2 * TILE);
+      for (int x = 0; x < 2; ++x) {
+        hopper::tma_load_4d(g_at + x * BOX64, &tqu, q_loaded, 64 * x, h, i0, b);
+        hopper::tma_load_4d(g_at + TILE + x * BOX64, &tqv, q_loaded, 64 * x, h, i0, b);
+      }
+    };
+    load_q(flash::tc::snake_item(0));  // round 0's item is block x's
+    int k = 0;  // items taken
+    for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
+      const int it = flash::tc::snake_item(r);
+      if (it >= n_items) continue;
+      int i0, h, b;
+      item_of(it, i0, h, b);
+      const int len = length(b), nk = (len + 63) / 64;
+      const long long lrow = ((long long)b * H + h) * Tn;
+      float l2[2];  // lse log2(e) of rows i0 + rl0, + 8
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = i0 + rl0 + 8 * hh;
+        l2[hh] = i < Tn ? lse[lrow + i] * LOG2E : 0.f;
+      }
+      float sc[8][4], bd[8][4];
+      hopper::mbar_wait(q_loaded, k & 1);
+      hopper::ldsm_a<D>(quf, g_at, warp & 3, lane);
+      hopper::ldsm_a<D>(qvf, g_at + TILE, warp & 3, lane);
+      wg_sync(0);  // G is free for the scatters
+      for (int kt = 0; kt < nk; ++kt, ++n) {
+        const int s = n % STAGES;
+        hopper::mbar_wait(full(s), (n / STAGES) & 1);
+        const int t = fresh(t0), rl = fresh(rl0), g = rl & 7;
+        const uint32_t k_at = base + s * L::STAGE, pc_at = k_at + 2 * TILE;  // p: chunk kt, kt + 1
+        if (kt == 0) {  // chunk 0
+          hopper::wgmma_fence();
+          hopper::product_rs_k<64, D>(bd, qvf, pc_at);
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(bd);
+          relpos::scatter_band(G, bd, 0, rl, g, t);
+        }
+        hopper::wgmma_fence();
+        hopper::product_rs_k<64, D>(bd, qvf, pc_at + TILE);  // chunk kt + 1 of qv p^T
+        hopper::product_rs_k<64, D>(sc, quf, k_at);          // s = qu k^T
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs(bd);
+        relpos::scatter_band(G, bd, kt + 1, rl, g, t);
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(sc);
+        release(empty(s), lane);  // A has read the stage's k and p
+        __syncwarp();
+        // P = exp(scale (qu.k + qv.p) - lse), 0 on keys past the length
+        const float* grow[2] = {relpos::band_row(G, rl, kt), relpos::band_row(G, rl + 8, kt)};
+        const int kmax = len - 64 * kt;  // keys c < kmax are valid
+        if (__builtin_expect(kmax < 64, 0)) {
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int c = 8 * nt + 2 * t;
+              const float2 gv = *reinterpret_cast<const float2*>(grow[hh] + (c ^ (8 * g)));
+              sc[nt][2 * hh] =
+                  c < kmax ? ex2(fmaf(sc[nt][2 * hh] + gv.x, scale2, -l2[hh])) : 0.f;
+              sc[nt][2 * hh + 1] =
+                  c + 1 < kmax ? ex2(fmaf(sc[nt][2 * hh + 1] + gv.y, scale2, -l2[hh])) : 0.f;
+            }
+        } else {
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const float2 gv =
+                  *reinterpret_cast<const float2*>(grow[hh] + ((8 * nt + 2 * t) ^ (8 * g)));
+              sc[nt][2 * hh] = ex2(fmaf(sc[nt][2 * hh] + gv.x, scale2, -l2[hh]));
+              sc[nt][2 * hh + 1] = ex2(fmaf(sc[nt][2 * hh + 1] + gv.y, scale2, -l2[hh]));
+            }
+        }
+        const int x = n & 1;  // P tile x: B has read what tile n - 2 left there
+        hopper::bar_sync(DQ_P_FREE + x, 256);
+        const int tf = fresh(tid);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          ptile[1024 * x + 128 * j + tf] = make_float4(sc[j][0], sc[j][1], sc[j][2], sc[j][3]);
+        hopper::bar_arrive(DQ_P_FULL + x, 256);
+      }
+      // the next item's q into G once every warp is done with G (the
+      // scatters' generic writes ordered before the TMA's)
+      hopper::fence_proxy_async();
+      wg_sync(0);
+      const int nx = flash::tc::snake_item(r + 1);
+      if ((r + 1) * (int)gridDim.x < n_items && nx < n_items) load_q(nx);
+      ++k;
+    }
+    // B's first arrival at each P tile: the barriers end balanced
+    hopper::bar_sync(DQ_P_FREE, 256);
+    hopper::bar_sync(DQ_P_FREE + 1, 256);
+    return;
+  }
+
+  // ---- B: dP, dS, dqu, the band ring, dqv
+  const bool issuer = tid == 0;  // issues B's TMA stores of dqu and dqv
+  const long long rs = (long long)H * D;
+  uint8_t* const band = sm + L::BAND;
+  const uint32_t band_at = base + L::BAND;
+  uint32_t dof[8][4], pd[4][4];  // dO, and dS as A fragments
+  // dS (bf16, from its fragments) of key tile kt, or zeros, into the band
+  // ring: row i and key 64 kt + c at column Q = 64 kt + c - i + 63, chunk Q / 64
+  auto band_tile = [&](int kt, bool zeros) {
+    const int t = fresh(t0), rl = fresh(rl0);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = rl + 8 * (e >> 1), q = 64 * kt + 8 * nt + 2 * t + (e & 1) - i + 63;
+        const uint32_t pair = pd[nt >> 1][2 * (nt & 1) + (e >> 1)];
+        *reinterpret_cast<uint16_t*>(band + ((q & 64) << 7) + sw128(i, q & 63)) =
+            zeros ? (uint16_t)0 : (uint16_t)((e & 1) ? pair >> 16 : pair & 0xffffu);
+      }
+  };
+  hopper::bar_arrive(DQ_P_FREE, 256);  // A's first two P find their tiles free
+  hopper::bar_arrive(DQ_P_FREE + 1, 256);
+  for (int r = 0; r * (int)gridDim.x < n_items; ++r) {
+    const int it = flash::tc::snake_item(r);
+    if (it >= n_items) continue;
+    int i0, h, b;
+    item_of(it, i0, h, b);
+    const int len = length(b), nk = (len + 63) / 64;
+    const int ia = i0 + rl0, ib = ia + 8;
+    const long long lrow = ((long long)b * H + h) * Tn;
+    const float dl[2] = {ia < Tn ? delta[lrow + ia] : 0.f, ib < Tn ? delta[lrow + ib] : 0.f};
+    float aq[16][4], av[16][4], dp[8][4];
+    // dO at the item's start (loaded during the last item's last tile, beside
+    // dqu and dqv in flight, it made ptxas spill 28 bytes)
+    flash::tc::load_a<D>(dof, dout + (long long)b * Tn * rs + (long long)h * D, ia, ib, Tn, rs,
+                         t0);
+    flash::tc::zero<16>(aq);
+    flash::tc::zero<16>(av);
+    for (int kt = 0; kt < nk; ++kt, ++n) {
+      const int s = n % STAGES;
+      hopper::mbar_wait(full(s), (n / STAGES) & 1);
+      const uint32_t k_at = base + s * L::STAGE, v_at = k_at + TILE, pc_at = k_at + 2 * TILE;
+      hopper::wgmma_fence();
+      hopper::product_rs_k<64, D>(dp, dof, v_at);  // dP = dO v^T
+      hopper::wgmma_wait<0>();  // dP, and the last tile's dqu and dqv
+      hopper::fence_regs(dp);
+      hopper::fence_regs(aq);
+      hopper::fence_regs(av);
+      hopper::fence_regs(pd);
+      hopper::fence_regs(dof);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)  // dP - delta, before P is waited for
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[j][e] -= dl[e >> 1];
+      const int x = n & 1;
+      if (kt == 0 && issuer) hopper::bulk_wait_read();  // the last item's dqu, dqv are out
+      hopper::bar_sync(DQ_P_FULL + x, 256);  // A's P of this tile; every warp of B is past
+                                             // the last tile's products
+      if (kt == 0) {  // the band's cells no tile writes stay 0 for the item
+        for (int idx = tid; idx < 2 * BOX64 / 16; idx += 128)
+          reinterpret_cast<uint4*>(band)[idx] = make_uint4(0, 0, 0, 0);
+      }
+      // dS = P (dP - delta) scale, as A fragments
+      const int tf = fresh(tid);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 pv = ptile[1024 * x + 128 * j + tf];
+        const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[j][e] = pr[e] * dp[j][e] * scale;
+      }
+      hopper::bar_arrive(DQ_P_FREE + x, 256);
+      pack_p<64>(pd, dp);
+      hopper::wgmma_fence();
+      product_rs<D, 64>(aq, pd, k_at);  // dqu += dS k, k MN-major
+      if (kt == 0) wg_sync(1);  // the band is zeroed
+      band_tile(kt, false);     // completes chunk kt, starts chunk kt + 1
+      hopper::fence_proxy_async();
+      wg_sync(1);
+      hopper::wgmma_fence();
+      product_ss_mn<D, 64>(av, band_at + (kt & 1) * BOX64, pc_at, 1);  // dqv += band_kt p_kt
+      if (kt + 1 < nk) {  // the last stage's p serves the last chunk
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(aq);
+        hopper::fence_regs(av);
+        hopper::fence_regs(pd);
+        release(empty(s), lane);  // B has read the stage's k, v and p
+      }
+    }
+    hopper::wgmma_wait<0>();  // on every path, so that ptxas sees no read of an accumulator
+    hopper::fence_regs(aq);   // in flight
+    hopper::fence_regs(av);
+    hopper::fence_regs(pd);
+    if (nk > 0) {  // the last chunk, with a tile of zeros after the last
+      const int s = (n - 1) % STAGES;
+      wg_sync(1);  // every warp's dqv has read the ring
+      band_tile(nk, true);
+      hopper::fence_proxy_async();
+      wg_sync(1);
+      hopper::wgmma_fence();
+      product_ss_mn<D, 64>(av, band_at + (nk & 1) * BOX64, base + s * L::STAGE + 3 * TILE, 1);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(av);
+      release(empty(s), lane);
+    }
+    // dqu and dqv (bf16) into the band ring and the 16 KB after it, in the
+    // 128-byte swizzle, and out by TMA stores, which skip rows past T
+    if (nk == 0 && issuer) hopper::bulk_wait_read();
+    wg_sync(1);  // every warp's last dqv has read the ring
+    {
+      const int t = fresh(t0), rl = fresh(rl0);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int dt = 0; dt < 16; ++dt) {
+          const uint32_t at = (dt >> 3) * BOX64 + sw128(rl + 8 * hh, 8 * (dt & 7) + 2 * t);
+          *reinterpret_cast<uint32_t*>(band + at) =
+              pack_bf16x2(aq[dt][2 * hh], aq[dt][2 * hh + 1]);
+          *reinterpret_cast<uint32_t*>(band + 2 * BOX64 + at) =
+              pack_bf16x2(av[dt][2 * hh], av[dt][2 * hh + 1]);
+        }
+    }
+    hopper::fence_proxy_async();
+    wg_sync(1);
+    if (issuer) {
+      for (int x = 0; x < 2; ++x) {
+        hopper::tma_store_4d(&tdqu, band_at + x * BOX64, 64 * x, h, i0, b);
+        hopper::tma_store_4d(&tdqv, band_at + (2 + x) * BOX64, 64 * x, h, i0, b);
+      }
+      hopper::bulk_commit();
+    }
+  }
+  if (issuer) hopper::bulk_wait_read();  // the staging outlives no store
+}
+
+// K3 at dh 128: the tensor maps and the launch, on a persistent grid
+int launch_dq128(void* qu, void* qv, void* k, void* v, void* p, void* dout, void* lse,
+                 void* delta, void* lengths, void* dqu, void* dqv, int B, int H, int Tn,
+                 float scale, cudaStream_t stream) {
+  CUtensorMap maps[7];  // qu, qv, k, v, dqu, dqv [B, T, H, 128] and p [2T-1, H, 128]
+  const void* tensors[7] = {qu, qv, k, v, p, dqu, dqv};
+  int err = 0;
+  for (int i = 0; i < 7 && err == 0; ++i)
+    err = i == 4 ? hopper::encode_bthd(&maps[i], tensors[i], 1, 2 * Tn - 1, H, 128, 64)
+                 : hopper::encode_bthd(&maps[i], tensors[i], B, Tn, H, 128, 64);
+  int grid = 0;
+  if (err == 0) err = flash::persistent_grid((Tn + 63) / 64 * H * B, grid);
+  if (err != 0) return err;
+  void* args[] = {&maps[0], &maps[1], &maps[2], &maps[3], &maps[4], &maps[5], &maps[6],
+                  &dout,    &lse,     &delta,   &lengths, &B,       &H,       &Tn,
+                  &scale};
+  return flash::launch(dq128_kernel, Dq128Layout::BYTES, Dq128Layout::NT, grid, 1, 1, stream,
+                       args);
+}
+
+// K3 and K4 at dh 64: the tensor maps and the launch; dp == nullptr: K3
+// (dqu, dqv into out0, out1), else K4 (dk, dv into out0, out1, dp added to)
 template <int D>
 int launch(void* qu, void* qv, void* k, void* v, void* p, void* dout, void* lse, void* delta,
            void* lengths, void* out0, void* out1, void* dp, int B, int H, int Tn, float scale,
@@ -1386,12 +1749,9 @@ int launch(void* qu, void* qv, void* k, void* v, void* p, void* dout, void* lse,
   // a persistent grid, items in a snake order; one block an item measured
   // the same at the calibration shape (192 items of equal work) on the
   // H100: K3 0.6 % faster, K4 within the spread of two runs
-  int items = (Tn + DqLayout<D>::TQ - 1) / DqLayout<D>::TQ * H * B;
-  if constexpr (D == 64) {
-    if (dp != nullptr) items = (Tn + DkvLayout<D>::TK - 1) / DkvLayout<D>::TK * H * B;
-  }
+  const int rows = dp == nullptr ? DqLayout<D>::TQ : DkvLayout<D>::TK;  // an item's
   int grid = 0;
-  if (err == 0) err = flash::persistent_grid(items, grid);
+  if (err == 0) err = flash::persistent_grid((Tn + rows - 1) / rows * H * B, grid);
   if (err != 0) return err;
   if (dp == nullptr) {
     void* args[] = {&mqu, &mqv, &mk,  &mv,   &mp, &mdo, &lse, &delta, &lengths,
@@ -1399,13 +1759,10 @@ int launch(void* qu, void* qv, void* k, void* v, void* p, void* dout, void* lse,
     return flash::launch(dq_kernel<D>, DqLayout<D>::BYTES, DqLayout<D>::NT, grid, 1, 1, stream,
                          args);
   }
-  if constexpr (D == 64) {  // K4 at dh 128 is launch_dkv128's
-    void* args[] = {&mqu, &mqv, &mk,  &mv, &mp, &mdo, &mdp, &lse, &delta,
-                    &lengths, &out0, &out1, &dp, &B, &H, &Tn, &scale};
-    return flash::launch(dkv_kernel<D>, DkvLayout<D>::BYTES, DkvLayout<D>::NT, grid, 1, 1,
-                         stream, args);
-  }
-  return (int)cudaErrorInvalidValue;
+  void* args[] = {&mqu, &mqv, &mk,  &mv, &mp, &mdo, &mdp, &lse, &delta,
+                  &lengths, &out0, &out1, &dp, &B, &H, &Tn, &scale};
+  return flash::launch(dkv_kernel<D>, DkvLayout<D>::BYTES, DkvLayout<D>::NT, grid, 1, 1, stream,
+                       args);
 }
 
 }  // namespace wg
@@ -1437,8 +1794,8 @@ extern "C" int relpos_flash_bwd_dq(int dtype, void* qu, void* qv, void* k, void*
     if (!flash::aligned16(bf, 8)) return (int)cudaErrorMisalignedAddress;
     return head_dim == 64 ? wg::launch<64>(qu, qv, k, v, p, dout, lse, delta, lengths, dqu, dqv,
                                            nullptr, B, H, Tn, scale, s)
-                          : wg::launch<128>(qu, qv, k, v, p, dout, lse, delta, lengths, dqu,
-                                            dqv, nullptr, B, H, Tn, scale, s);
+                          : wg::launch_dq128(qu, qv, k, v, p, dout, lse, delta, lengths, dqu,
+                                             dqv, B, H, Tn, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1472,26 +1829,33 @@ extern "C" int relpos_flash_bwd_dkv(int dtype, void* qu, void* qv, void* k, void
   return (int)cudaErrorInvalidValue;
 }
 
-// The launch shape of the bf16 K4 at head_dim 64 or 128 into out[6], as
-// relpos_flash.cu's relpos_flash_fwd_shape: threads a block, consumer
+// The launch shape of the bf16 K3 and K4 at head_dim 64 or 128 into out[6],
+// as relpos_flash.cu's relpos_flash_fwd_shape: threads a block, consumer
 // warpgroups, blocks a cluster, dynamic shared memory bytes, registers a
-// thread at launch and local memory (spill) bytes a thread. Returns a
+// thread at launch and local memory (spill) bytes a thread. Each returns a
 // cudaError_t.
-extern "C" int relpos_flash_bwd_dkv_shape(int head_dim, int* out) {
+template <typename K>
+static int launch_shape(K kernel, int threads, int warpgroups, int bytes, int* out) {
   cudaFuncAttributes attr;
-  cudaError_t err;
-  if (head_dim == 64) {
-    err = cudaFuncGetAttributes(&attr, wg::dkv_kernel<64>);
-    out[0] = wg::DkvLayout<64>::NT, out[1] = wg::DkvLayout<64>::WGS;
-    out[3] = wg::DkvLayout<64>::BYTES;
-  } else if (head_dim == 128) {
-    err = cudaFuncGetAttributes(&attr, wg::dkv128_kernel);
-    out[0] = wg::Dkv128Layout::NT, out[1] = 2, out[3] = wg::Dkv128Layout::BYTES;
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  out[2] = 1;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  out[0] = threads, out[1] = warpgroups, out[2] = 1, out[3] = bytes;
   out[4] = attr.numRegs;
   out[5] = (int)attr.localSizeBytes;
   return (int)err;
+}
+
+extern "C" int relpos_flash_bwd_dq_shape(int head_dim, int* out) {
+  using L64 = wg::DqLayout<64>;
+  using L128 = wg::Dq128Layout;
+  if (head_dim == 64) return launch_shape(wg::dq_kernel<64>, L64::NT, L64::WGS, L64::BYTES, out);
+  if (head_dim == 128) return launch_shape(wg::dq128_kernel, L128::NT, 2, L128::BYTES, out);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int relpos_flash_bwd_dkv_shape(int head_dim, int* out) {
+  using L64 = wg::DkvLayout<64>;
+  using L128 = wg::Dkv128Layout;
+  if (head_dim == 64) return launch_shape(wg::dkv_kernel<64>, L64::NT, L64::WGS, L64::BYTES, out);
+  if (head_dim == 128) return launch_shape(wg::dkv128_kernel, L128::NT, 2, L128::BYTES, out);
+  return (int)cudaErrorInvalidValue;
 }

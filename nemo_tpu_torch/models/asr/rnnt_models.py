@@ -27,7 +27,7 @@ from nemo_tpu_torch.models.asr.modules.rnnt import (PredictionNetwork, RNNTJoint
 from nemo_tpu_torch.ops.rnnt import rnnt_loss_from_log_probs, rnnt_loss_mean
 from nemo_tpu_torch.ops.tdt import tdt_greedy_decode, tdt_loss
 
-_NOT_PORTED = "(ROADMAP.md A3, what is left of RNNT)"
+_NOT_PORTED = "(ROADMAP.md A5, what is left of RNNT and TDT)"
 
 
 class EncDecRNNTModel(ASRModel):

@@ -123,10 +123,10 @@ def fit_synthetic_asr(model, steps: int = 40, batch: int = 8, secs: float = 2.0,
     The full-model fit (`head_only=False`) and CTC models are not ported."""
     if not _is_transducer(model):
         raise NotImplementedError("fit_synthetic_asr of a CTC model is not ported "
-                                  "(ROADMAP.md A3, what is left of RNNT)")
+                                  "(ROADMAP.md A5, what is left of RNNT and TDT)")
     if not head_only:
         raise NotImplementedError("the full transducer train step (make_train_step) is not "
-                                  "ported (ROADMAP.md A3, what is left of RNNT)")
+                                  "ported (ROADMAP.md A5, what is left of RNNT and TDT)")
     rng = np.random.RandomState(seed)
     V = min(len(model.labels), vocab_cap)
     sr = model.sample_rate

@@ -352,12 +352,13 @@ def _lib(name: str = "relpos_flash") -> ctypes.CDLL:
 
 
 def relpos_kernel_shape(kernel: str, head_dim: int) -> dict:
-    """The launch shape of the bf16 K1 (`kernel` "fwd") or K4 ("dkv") at
-    head_dim 64 or 128, from its library on the card: threads a block,
-    consumer warpgroups, blocks a cluster, dynamic shared-memory bytes, and
+    """The launch shape of the bf16 K1 (`kernel` "fwd"), K3 ("dq") or K4
+    ("dkv") at head_dim 64 or 128, from its library on the card: threads a
+    block, consumer warpgroups, blocks a cluster, dynamic shared-memory bytes, and
     `cudaFuncGetAttributes`' registers a thread (at launch, before setmaxnreg
     moves them between warpgroups) and local-memory bytes a thread (spills)."""
     name, fn = {"fwd": ("relpos_flash", "relpos_flash_fwd_shape"),
+                "dq": ("relpos_flash_bwd", "relpos_flash_bwd_dq_shape"),
                 "dkv": ("relpos_flash_bwd", "relpos_flash_bwd_dkv_shape")}[kernel]
     out = (ctypes.c_int * 6)()
     err = getattr(_lib(name), fn)(ctypes.c_int(head_dim), out)

@@ -243,17 +243,23 @@ def test_relpos_flash_backward_kernels_match_plain(cuda, dtype, tol, T, lengths,
 @pytest.mark.parametrize("T,lengths,H", [(64, [64, 64], 2), (129, [129, 65], 2),
                                          (200, [1, 133], 2), (376, [376, 300], 2),
                                          (376, [376, 376], 1), (25, [25, 10], 2),
-                                         (65, [65, 65], 2), (130, [130, 3], 2)])
+                                         (65, [65, 65], 2), (130, [130, 3], 2),
+                                         (376, [376, 376, 376, 376], 8),
+                                         (376, [321, 376], 2)])
 def test_relpos_flash_backward_kernels_match_plain_dh128(cuda, dtype, tol, T, lengths, H):
     """K3 and K4 at head dim 128 against the plain backward, each gradient
     within tol of its max-abs value (as the dh-64 test above): whole 64-row
     tiles (64), one row past them (129, 65: a last query tile and a last key
     item of one row), p's band past both of its ends and a row of length 1
     (200), the calibration's T' = 376 (30 s at x8), ragged and full, a clip
-    shorter than one tile, and a length of 3 (130), whose first key item
-    holds 61 keys past the length and whose others hold none before it. The
-    bf16 K4 splits an item of 64 keys between two warpgroups by output (P^T
-    and dv; dS^T, dk and dp), so every such key passes through both."""
+    shorter than one tile, a length of 3 (130), whose first key item holds
+    61 keys past the length and whose others hold none before it, the
+    calibration's whole B=4 x H=8 (192 items of 64 rows or keys: the
+    persistent grid takes a second round on 132 SMs), and a length that ends
+    one row into a key tile (321). The bf16 K3 and K4 split an item between
+    two warpgroups by output (K3: the band chunk, s and P; dP, dS, dqu and
+    dqv. K4: P^T and dv; dS^T, dk and dp), so every row or key passes
+    through both."""
     B = len(lengths)
     args = [a.to(cuda, dtype) if torch.is_tensor(a) and a.is_floating_point() else
             (a.to(cuda) if torch.is_tensor(a) else a)
@@ -274,13 +280,32 @@ def test_relpos_flash_backward_kernels_match_plain_dh128(cuda, dtype, tol, T, le
                                    msg=name)
 
 
-@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("lengths", [[376, 376, 376, 376], [376, 300, 321, 65]])
+def test_relpos_flash_dq_dh128_is_repeatable(cuda, lengths):
+    """Two launches of the bf16 K3 at dh 128 give bitwise-equal dqu and dqv:
+    each item's sums run in one block, in a fixed order, with no atomics. At
+    the calibration's B=4 x H=8 x T'=376, where the persistent grid takes a
+    second round, full and ragged."""
+    args = [a.to(cuda, torch.bfloat16) if torch.is_tensor(a) and a.is_floating_point() else
+            (a.to(cuda) if torch.is_tensor(a) else a)
+            for a in _attention_inputs(4, 8, 376, lengths, seed=sum(lengths), dh=128)]
+    o, lse = relpos_flash_attention(*args)
+    do = torch.randn(o.shape, generator=torch.Generator().manual_seed(3)).to(cuda, torch.bfloat16)
+    delta = row_delta(o, do)
+    first = relpos_flash_dq(*args, lse, delta, do)
+    second = relpos_flash_dq(*args, lse, delta, do)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dqu", "dqv"), first, second):
+        assert torch.isfinite(x).all() and torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 @pytest.mark.parametrize("head_dim", [64, 128])
 def test_relpos_kernel_launch_shapes(cuda, kernel, head_dim):
-    """The launch shape of the bf16 K1 and K4: 384 threads, two consumer
+    """The launch shape of the bf16 K1, K3 and K4: 384 threads, two consumer
     warpgroups, no cluster, within the 227 KB of shared memory a block can
     have, and no local memory (a spill) at dh 128, where the blocks hold q,
-    or k and v, as register fragments."""
+    dO, or k and v, as register fragments."""
     from nemo_tpu_torch.ops.flash_attention import relpos_kernel_shape
 
     shape = relpos_kernel_shape(kernel, head_dim)

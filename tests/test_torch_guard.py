@@ -135,3 +135,18 @@ def test_tts_without_device_needs_cuda(monkeypatch):
     for make in (FastPitchModel, HifiGanModel, lambda: FastPitchModel(device="cuda")):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
+
+
+def test_fit_synthetic_asr_refusals_name_the_roadmap_item():
+    """`fit_synthetic_asr` refuses a CTC model and the full transducer step,
+    and both refusals send the reader to ROADMAP.md A5 (what is left of
+    RNNT and TDT). Stand-in models: a plain object is no transducer, one with
+    a blank id and a symbol cap is."""
+    from types import SimpleNamespace
+
+    from nemo_tpu_torch.models.asr.synthetic import fit_synthetic_asr
+
+    with pytest.raises(NotImplementedError, match="CTC model.*ROADMAP.md A5"):
+        fit_synthetic_asr(SimpleNamespace())
+    with pytest.raises(NotImplementedError, match="make_train_step.*ROADMAP.md A5"):
+        fit_synthetic_asr(SimpleNamespace(blank_id=0, max_symbols=10), head_only=False)
