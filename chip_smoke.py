@@ -19,7 +19,8 @@ training GEMMs (`ops/quant.py:quant_matmul`, `torch._scaled_mm`), and
 Llama-3.2-1B under clip + Adafactor, through K5-K7; then FastConformer-XL
 TDT (x8 dw_striding subsampling, the TDT joint, loss and frame-skipping
 greedy decode) tone calibration and transcription through K1, K3 and K4 at
-head dim 128.
+head dim 128; then Phi-3-mini-4k (32 heads of dh 96) training and packed
+full-parameter SFT through K5-K10 at head dim 96.
 
     python3 chip_smoke.py            # from the repository root; needs one CUDA card
     python3 chip_smoke.py --profile  # and torch.profiler breakdowns of one batch,
@@ -33,14 +34,16 @@ head dim 128.
                                      # (NCCL), against every rank in one process
     python3 chip_smoke.py --time-forward [--tree DIR]
                                      # only the bf16 forward kernels K1, K2, K5, K8
-                                     # and K11 (and K1 at dh 128) of this checkout
+                                     # and K11 (and K1 at dh 128; K5, K8 at dh 96)
+                                     # of this checkout
                                      # (or of DIR) timed, beside SDPA and the cuDNN
                                      # pair, one JSON line: run two checkouts in
                                      # turns to compare
     python3 chip_smoke.py --time-backward [--tree DIR]
                                      # the same for the bf16 backward kernels K3,
                                      # K4, K6, K7, K9, K10, K12 and K13 (and K3, K4
-                                     # at dh 128), beside SDPA's backward
+                                     # at dh 128; K6, K7, K9, K10 at dh 96), beside
+                                     # SDPA's backward
 
 Phases, each printing a line; any failure raises and exits non-zero:
 
@@ -277,7 +280,32 @@ Phases, each printing a line; any failure raises and exits non-zero:
    30 s int16 held-out tone batches, one warm and 3 timed:
    fastconformer_tdt_transcribe_rtfx, ms/batch, decoder loops per batch and
    us a loop (encoder against the whole decode by the host's clock), peak
-   memory, more than 20 tokens/utt; K1 24 launches a batch.
+   memory, more than 20 tokens/utt; K1 24 launches a batch;
+37. K5-K13 at head dim 96 (Phi-3-mini: 32 heads of dh 96, no query groups;
+   the kernels take dh 128's tiles with a zero tail) against their plain
+   versions, fp32 and bf16, row by row at phase 9's tolerances: K5-K7 at
+   Phi-3's training shape (B=2, 32 over 32, S=4096) and at 32 over 8, S=2048
+   with a window of 512; K8-K10 at B=2, S=2048 on three segment layouts (one
+   segment a row giving K5-K7's bits); K11-K13 at one CP rank's diagonal
+   ring step (Tl=2048); every dq, dk and dv launched twice, bit for bit
+   equal; a head dim of 80 refused (ValueError); then the bf16 times (CUDA
+   events and device time) of K5-K7 at Phi-3's training shape and of K8-K10
+   on the SFT batch (B=8 x 2048), beside their bounds, their plain versions
+   and SDPA (causal; given the dense mask);
+38. Phi-3-mini in fp32 at full width cut to 2 layers, B=1 x S=256, card
+   (K5-K7 at dh 96 under full remat) against CPU: the logits within 1e-3 of
+   their max, the loss within 1e-5 relative, every gradient within 1e-4 of
+   its leaf's max;
+39. Phi-3-mini training, `GPTTrainModule.train_step`: full width, 16 of 32
+   layers (2.01 B parameters), B=2 x 4096, bf16, flash, full remat, clip +
+   AdamW, one warm-up and 10 timed steps from seed 0: tokens/s, ms/step,
+   MFU, peak memory; K5 32, K6 and K7 16 launches a step, none of the other
+   kernels;
+40. packed SFT of Phi-3-mini: `finetune_recipe("phi3_mini_4k",
+   peft_scheme="none", global_batch_size=8)` with its model cut to 16
+   layers, `.run` over the synthetic jsonl of phases 13-14 (S=2048), one
+   warm-up and 5 timed steps: ms/step, tokens/s, MFU, peak memory; K8 32,
+   K9 and K10 16 launches a step, none of the other kernels.
 
 With --profile, one more batch of the transcription path, 6 more calibration
 steps, 2 more LLM training steps, 2 more SFT steps, 2 more CP training steps,
@@ -285,7 +313,8 @@ one more RNNT batch (and its encoder and whole decode by the host's clock),
 6 more RNNT head-fit steps, one more decode bench chunk of each mode and one
 more B=8 text → waveform call, one more GPT-551M step in bf16 and in fp8,
 one more Llama-3.2-1B Adafactor step, one more TDT batch and 6 TDT head-fit
-steps run under torch.profiler, and their
+steps, 2 more Phi-3-mini training steps and 2 more Phi-3-mini SFT steps run
+under torch.profiler, and their
 device time by kernel and the card's busy share of the wall time are
 printed, with the 1B's optimizer steps alone (Adafactor, AdamW). It
 ends with a line of the serving paths' launches (phases 24, 27 and 28, each
@@ -329,6 +358,12 @@ TIMED_BATCHES = 5
 FIT_BATCH, FIT_STEPS, UTT_TOKENS, DENSITY_FLOOR = 4, 250, 60, 50.0
 # LLM training at bench.py:325's shape (bench_llm_1b): batch, sequence, steps
 LLM_B, LLM_S, LLM_WARMUP, LLM_STEPS = 8, 2048, 2, 20
+# Phi-3-mini-4k (phases 37-40): training batch and sequence (its 4k context),
+# the depth of phases 39-40 (16 of 32 layers: 2.01 B parameters, whose fp32
+# weights, gradients and AdamW moments take 32 GB where all 32 layers' take
+# 61 GB before activations), timed steps after one warm-up (training, SFT)
+PHI3_B, PHI3_S, PHI3_LAYERS, PHI3_STEPS, PHI3_SFT_STEPS = 2, 4096, 16, 10, 5
+MODEL_LABELS = {"llama32_1b": "Llama-3.2-1B", "phi3_mini_4k": "Phi-3-mini-4k"}
 # packed SFT: synthetic examples in the jsonl (the batch and steps are the LLM's)
 SFT_EXAMPLES = 2048
 SFT_MID = 6  # SFT steps timed again at the middle of the epoch, the first a warm-up
@@ -337,9 +372,9 @@ SFT_MID = 6  # SFT steps timed again at the middle of the epoch, the first a war
 LLM_LOSS_BAND = (0.0, 1.0)
 # kinds of device kernels in an LLM training step, by a piece of their names
 LLM_KERNEL_KINDS = (
-    ("K8 packed flash forward", ("fwd_kernel<64, 1>",)),
-    ("K9 packed flash dq", ("dq_kernel<64, 1>",)),
-    ("K10 packed flash dk/dv", ("dkv_kernel<64, 1>",)),
+    ("K8 packed flash forward", ("fwd_kernel<64, 1>", "fwd_kernel<96, 1>")),
+    ("K9 packed flash dq", ("dq_kernel<64, 1>", "dq_kernel<96, 1>")),
+    ("K10 packed flash dk/dv", ("dkv_kernel<64, 1>", "dkv_kernel<96, 1>")),
     ("K11 positions flash forward", ("fwd_kernel<64, 2>",)),
     ("K12 positions flash dq", ("dq_kernel<64, 2>",)),
     ("K13 positions flash dk/dv", ("dkv_kernel<64, 2>",)),
@@ -449,6 +484,21 @@ def bound(n_bytes: float, n_ops: float, dtype: torch.dtype):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
 
 
+def flash_bounds(B_: int, H: int, G: int, T: int, dh: int, pairs: float, dtype: torch.dtype,
+                 extra_bytes: float = 0.0) -> list:
+    """The bounds of K5 (K8, K11), K6 (K9, K12) and K7 (K10, K13) at B_ rows
+    of T tokens, H heads over G: each input read and each output written
+    once (q, k, v, o and lse; q, k, v, dO, lse, delta and dq; q, k, v, dO,
+    lse, delta, dk and dv; plus `extra_bytes`: segment ids or positions), and
+    4, 6 and 8 dh operations a kept (query, key) pair."""
+    elt = torch.empty(0, dtype=dtype).element_size()
+    bq, bk = B_ * T * H * dh, B_ * T * G * dh  # elements of q (or o) and of k
+    rows_bytes = 4 * B_ * H * T  # one fp32 value a query row
+    return [bound(elt * (2 * bq + 2 * bk) + rows_bytes + extra_bytes, 4 * dh * pairs, dtype),
+            bound(elt * (3 * bq + 2 * bk) + 2 * rows_bytes + extra_bytes, 6 * dh * pairs, dtype),
+            bound(elt * (2 * bq + 4 * bk) + 2 * rows_bytes + extra_bytes, 8 * dh * pairs, dtype)]
+
+
 def relpos_bias(qv: torch.Tensor, p: torch.Tensor, lens: torch.Tensor, scale: float,
                 dtype) -> torch.Tensor:
     """The rel-pos term and the key mask of K1 as one precomputed additive
@@ -521,8 +571,10 @@ def phase_hopper_check(gen: torch.Generator) -> None:
     bf16 tiles against torch.matmul, N = 64 and 128, b K-major (as k) and
     MN-major (as v), a from shared memory (as q), from registers (as P) and
     from shared memory the threads wrote in the swizzle (as K3's and K4's dS
-    band); and K2's forms, N = 256 and 128 with a written by the threads
-    with no swizzle (its h1 patch) and N = 32 with both so (conv1).
+    band); K2's forms, N = 256 and 128 with a written by the threads with
+    no swizzle (its h1 patch) and N = 32 with both so (conv1); and N = 96
+    with b MN-major over two boxes, the second zero past column 96, and a
+    from registers (the dh-96 flash kernels' P v, dS k, P^T dO, dS^T q).
     The products of bf16 values are exact in fp32; only the order and
     rounding of the fp32 sums differ: atol 1e-3 + rtol 1e-4 (a wrong
     descriptor or swizzle moves entries by O(1))."""
@@ -539,7 +591,7 @@ def phase_hopper_check(gen: torch.Generator) -> None:
                 ref = a.float() @ (b.float() if mn else b.float().T)
                 compare(f"wgmma m64n{n}k16, b {'MN' if mn else 'K'}-major, a from {source}", c,
                         ref, 1e-3, 1e-4)
-    for n, layout, source in PLAIN_FORMS:  # K2's: no swizzle, n 32 and 256
+    for n, layout, source in PLAIN_FORMS:  # K2's (no swizzle, n 32 and 256) and n 96
         a = torch.randn(64, 64, generator=gen).to("cuda", torch.bfloat16)
         mn = layout == "mn"
         b = torch.randn(*((64, n) if mn else (n, 64)), generator=gen).to("cuda", torch.bfloat16)
@@ -983,6 +1035,37 @@ def _gqa_inputs(gen: torch.Generator, B_: int, H: int, G: int, T: int, dh: int, 
     return q, k, v, do
 
 
+def check_k5_k7(what: str, q, k, v, do, scale: float, window):
+    """K5 (through the model's wrapper, its lse from a launch of its own), K6
+    and K7 on one input against their plain versions at phase 9's
+    tolerances: o within (atol, rtol) and row by row, lse within 1e-3 + 1e-4
+    relative, each gradient row by row (one query's o or dq, one key's dk or
+    dv) and by its relative norm. Returns o [B, H, T, dh], lse, (dq, dk, dv)
+    and the max abs errors of K5, K6, K7."""
+    from nemo_tpu_torch.ops.flash_attention import (_k5_launch, flash_attention,
+                                                    flash_attention_backward_plain,
+                                                    flash_attention_plain, flash_dkv, flash_dq,
+                                                    row_delta)
+
+    # (K5 atol, rtol), gradients' tolerance of each row's max, relative norm
+    tol, gtol, ntol = (((1e-4, 1e-4), 1e-4, 1e-5) if q.dtype == torch.float32
+                       else ((1e-2, 2e-2), 3e-2, 1e-2))
+    o = flash_attention(q, k, v, scale, True, window)  # the wrapper the model calls
+    _, lse = _k5_launch(q, k, v, scale, True, window)
+    o_ref, lse_ref = flash_attention_plain(q, k, v, scale, True, window)
+    err5 = compare(f"K5 {what}", o, o_ref, *tol)
+    compare_rows(f"K5 {what} by row", o, o_ref, tol[1], ntol)
+    compare(f"K5 {what} lse", lse, lse_ref, 1e-3, 1e-4)
+    del o_ref, lse_ref
+    args = (q, k, v, scale, True, window, lse, row_delta(o, do), do)
+    out = (flash_dq(*args), *flash_dkv(*args))
+    ref = flash_attention_backward_plain(q, k, v, scale, True, window, o, lse, do)
+    torch.cuda.synchronize()
+    grad_errs = [compare_rows(f"K{6 if name == 'dq' else 7} {what} {name}", x, r, gtol, ntol)
+                 for name, x, r in zip(("dq", "dk", "dv"), out, ref)]
+    return o, lse, out, [err5, grad_errs[0], max(grad_errs[1:])]
+
+
 def phase_k5_k7(gen: torch.Generator):
     """K5, K6 and K7 against their plain versions at B=2, S=2048 (Llama's
     32 heads over 8 kv heads at dh 64, with no window and a window of 512;
@@ -992,9 +1075,7 @@ def phase_k5_k7(gen: torch.Generator):
     (12 heads over 12 at dh 128), each checked again and timed
     (`_time_k5_k7`). Returns the rows of both shapes."""
     from nemo_tpu_torch.ops.flash_attention import (_k5_launch, flash_attention,
-                                                    flash_attention_backward_plain,
-                                                    flash_attention_plain, flash_dkv, flash_dq,
-                                                    row_delta)
+                                                    flash_attention_plain)
 
     rows = [{"name": name, "route": "cuda", "source": f"nemo_tpu_torch/csrc/{src}.cu",
              "replaces": f"nemo_tpu/ops/flash_attention.py:{line} (causal GQA)"}
@@ -1005,31 +1086,14 @@ def phase_k5_k7(gen: torch.Generator):
     for (H, G, dh, window), dtype in ((c, d) for c in ((32, 8, 64, None), (32, 8, 64, 512),
                                                        (12, 12, 128, None))
                                       for d in (torch.float32, torch.bfloat16)):
-        # (K5 atol, rtol), gradients' tolerance of each row's max, relative norm
-        tol, gtol, ntol = (((1e-4, 1e-4), 1e-4, 1e-5) if dtype == torch.float32
-                           else ((1e-2, 2e-2), 3e-2, 1e-2))
         q, k, v, do = _gqa_inputs(gen, 2, H, G, LLM_S, dh, dtype)
-        scale = 1.0 / math.sqrt(dh)
-        o = flash_attention(q, k, v, scale, True, window)  # the wrapper the model calls
-        _, lse = _k5_launch(q, k, v, scale, True, window)
-        o_ref, lse_ref = flash_attention_plain(q, k, v, scale, True, window)
         what = f"{str(dtype)[6:]} B=2 H={H} G={G} dh={dh} window={window}"
-        err5 = compare(f"K5 {what}", o, o_ref, *tol)
-        compare_rows(f"K5 {what} by row", o, o_ref, tol[1], ntol)
-        compare(f"K5 {what} lse", lse, lse_ref, 1e-3, 1e-4)
-        del o_ref, lse_ref
-        args = (q, k, v, scale, True, window, lse, row_delta(o, do), do)
-        out = (flash_dq(*args), *flash_dkv(*args))
-        ref = flash_attention_backward_plain(q, k, v, scale, True, window, o, lse, do)
-        torch.cuda.synchronize()
-        grad_errs = [compare_rows(f"K{6 if name == 'dq' else 7} {what} {name}", x, r, gtol, ntol)
-                     for name, x, r in zip(("dq", "dk", "dv"), out, ref)]
-        del out, ref
+        *_, err = check_k5_k7(what, q, k, v, do, 1.0 / math.sqrt(dh), window)
         if dtype == torch.bfloat16:
-            for key, err in (("k5", err5), ("k6", grad_errs[0]), ("k7", max(grad_errs[1:]))):
-                errs[key] = max(errs.get(key, 0.0), err)
+            for key, e in zip(("k5", "k6", "k7"), err):
+                errs[key] = max(errs.get(key, 0.0), e)
                 if dh == 128:
-                    errs128[key] = err
+                    errs128[key] = e
     for dtype in (torch.float32, torch.bfloat16):  # the serving path's score (phase 24)
         tol, ntol = ((1e-4, 1e-4), 1e-5) if dtype == torch.float32 else ((1e-2, 2e-2), 1e-2)
         q, k, v, _ = _gqa_inputs(gen, 1, 32, 8, SCORE_S, 64, dtype)
@@ -1105,12 +1169,7 @@ def _time_k5_k7(gen: torch.Generator, H: int, G: int, dh: int, dtypes, rows: lis
         lib_both = cuda_ms(lambda: torch.autograd.grad(sdpa(), (ql, kl, vl), do),
                            iters=10 if fast else 3)
         del o_lib
-        elt = q.element_size()
-        bq, bk = LLM_B * LLM_S * H * dh, LLM_B * LLM_S * G * dh  # elements of q (or o) and of k
-        rows_bytes = 4 * LLM_B * H * LLM_S  # one fp32 value a query row
-        bounds = [bound(elt * (2 * bq + 2 * bk) + rows_bytes, 4 * dh * pairs, dtype),
-                  bound(elt * (3 * bq + 2 * bk) + 2 * rows_bytes, 6 * dh * pairs, dtype),
-                  bound(elt * (2 * bq + 4 * bk) + 2 * rows_bytes, 8 * dh * pairs, dtype)]
+        bounds = flash_bounds(LLM_B, H, G, LLM_S, dh, pairs, dtype)
         name = str(dtype)[6:]
         log(f"SDPA {name} B={LLM_B} H={H} G={G} dh={dh} causal GQA: forward {lib_fwd:.4f} ms, "
             f"backward {lib_bwd:.4f} ms, forward+backward {lib_both:.4f} ms")
@@ -1133,20 +1192,17 @@ def _llm_cfg(**kw):
                          "attention_backend": "flash", "remat": "full", **kw})
 
 
-def phase_llm_grad_exactness(cp_size: int = 1) -> None:
-    """fp32 loss and gradients of a 2-layer model at Llama-3.2-1B's width
-    (hidden 2048, 32 heads over 8, FFN 8192, llama3 RoPE; the vocab cut to
-    8192 to keep the CPU side cheap), B=1 x S=256, on the card (K5-K7 under
-    full remat; with cp_size 2 the ring over K11-K13, every rank in one
-    process) against the CPU (plain versions): the loss within 1e-5
-    relative, every gradient within 1e-4 of its leaf's max-abs plus 1e-6."""
+def _card_vs_cpu(cfg, what: str, logits: bool = False) -> None:
+    """fp32 loss and gradients of `cfg`'s model from seed 0 on one seeded
+    batch of B=1 x S=cfg.seq_length, on the card (the flash kernels under
+    full remat) against the CPU (plain versions): the loss within 1e-5
+    relative, every gradient within 1e-4 of its leaf's max-abs plus 1e-6 and,
+    with `logits`, the logits within 1e-3 of their max-abs."""
     from nemo_tpu_torch.models.llm.train import GPTTrainModule
 
-    cfg = _llm_cfg(num_layers=2, vocab_size=8192, seq_length=256, compute_dtype="float32",
-                   cp_size=cp_size)
+    S = cfg.seq_length
     rng = np.random.RandomState(3)
-    tokens, labels = (torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, 256)))
-                      for _ in range(2))
+    tokens, labels = (torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, S))) for _ in range(2))
     cpu = GPTTrainModule(cfg, device="cpu", seed=0)
     card = GPTTrainModule(cfg, device="cuda", seed=0)
     card.model.load_state_dict(cpu.model.state_dict())
@@ -1155,7 +1211,10 @@ def phase_llm_grad_exactness(cp_size: int = 1) -> None:
         loss = mod.loss(tokens.to(mod.device), labels.to(mod.device))
         grads = torch.autograd.grad(loss, mod.params)
         out[name] = (float(loss.detach()), [g.cpu() for g in grads])
-    (loss, grads), (ref_loss, ref_grads) = out["cuda"], out["cpu"]
+        if logits:
+            with torch.no_grad():
+                out[name] += (mod.model(tokens.to(mod.device)).cpu(),)
+    (loss, grads, *z), (ref_loss, ref_grads, *z_ref) = out["cuda"], out["cpu"]
     worst, bad = 0.0, []
     for (pname, _), g, ref in zip(cpu.model.named_parameters(), grads, ref_grads):
         tol = 1e-4 * float(ref.abs().max()) + 1e-6
@@ -1164,13 +1223,33 @@ def phase_llm_grad_exactness(cp_size: int = 1) -> None:
         if not torch.isfinite(g).all() or err > tol:
             bad.append(pname)
     rel = abs(loss - ref_loss) / abs(ref_loss)
-    kernels = "K5-K7" if cp_size == 1 else f"cp {cp_size}, K11-K13"
-    log(f"LLM fp32, 2 layers at Llama-3.2-1B width, vocab cut to {cfg.vocab_size}, B=1 x S=256, "
-        f"cuda ({kernels}, remat full) vs cpu (plain): loss {loss:.6f} vs {ref_loss:.6f} "
-        f"(rel {rel:.2e}, tolerance 1e-5); {len(ref_grads)} gradients, worst max_abs_err = "
-        f"{worst:.3f} of its tolerance (1e-4 of the leaf's max-abs + 1e-6)")
+    z_err = 0.0
+    if logits:
+        z_err = float((z[0] - z_ref[0]).abs().max() / z_ref[0].abs().max())
+        if not torch.isfinite(z[0]).all() or z_err > 1e-3:
+            bad.append("logits")
+    log(f"{what}: loss {loss:.6f} vs {ref_loss:.6f} (rel {rel:.2e}, tolerance 1e-5); "
+        + (f"logits max_abs_err {z_err:.3e} of their max-abs (tolerance 1e-3); " if logits
+           else "") + f"{len(ref_grads)} gradients, worst max_abs_err = {worst:.3f} of its "
+        f"tolerance (1e-4 of the leaf's max-abs + 1e-6)")
     if rel > 1e-5 or bad:
-        raise AssertionError(f"LLM loss or gradients disagree: rel {rel:.2e}, leaves {bad}")
+        raise AssertionError(f"{what}: loss, logits or gradients disagree: rel {rel:.2e}, "
+                             f"failing {bad}")
+
+
+def phase_llm_grad_exactness(cp_size: int = 1) -> None:
+    """fp32 loss and gradients of a 2-layer model at Llama-3.2-1B's width
+    (hidden 2048, 32 heads over 8, FFN 8192, llama3 RoPE; the vocab cut to
+    8192 to keep the CPU side cheap), B=1 x S=256, on the card (K5-K7 under
+    full remat; with cp_size 2 the ring over K11-K13, every rank in one
+    process) against the CPU (plain versions): the loss within 1e-5
+    relative, every gradient within 1e-4 of its leaf's max-abs plus 1e-6."""
+    cfg = _llm_cfg(num_layers=2, vocab_size=8192, seq_length=256, compute_dtype="float32",
+                   cp_size=cp_size)
+    kernels = "K5-K7" if cp_size == 1 else f"cp {cp_size}, K11-K13"
+    _card_vs_cpu(cfg, f"LLM fp32, 2 layers at Llama-3.2-1B width, vocab cut to "
+                      f"{cfg.vocab_size}, B=1 x S=256, cuda ({kernels}, remat full) vs cpu "
+                      f"(plain)")
 
 
 def phase_ce_grad_rounding() -> None:
@@ -1226,41 +1305,46 @@ def phase_ce_grad_rounding() -> None:
         f"{len(names) - 1} leaves, loss {float(loss.detach()):.4f}")
 
 
-def phase_llm_training(counters: dict, profile: bool) -> dict:
-    """This slice's path: Llama-3.2-1B train steps at B=8 x S=2048; returns
-    the launch counts of the 20 timed steps and the ms a step."""
+def phase_llm_training(counters: dict, profile: bool, cfg=None, B_: int = LLM_B,
+                       S: int = LLM_S, warmup: int = LLM_WARMUP, steps: int = LLM_STEPS,
+                       label: str = "Llama-3.2-1B") -> tuple:
+    """This slice's path: Llama-3.2-1B (or `cfg`'s model, named `label`)
+    train steps at B=8 x S=2048 (B_ x S) from seed 0, `warmup` steps then
+    `steps` timed ones over distinct random batches; K5 twice a layer a step,
+    K6 and K7 once, none of the other kernels. Returns the launch counts of
+    the timed steps and the ms a step."""
     from nemo_tpu_torch.llm.auto_configurator import model_flops_per_token
     from nemo_tpu_torch.models.llm.train import GPTTrainModule
 
-    cfg = _llm_cfg()
+    cfg = cfg or _llm_cfg()
     t0 = time.perf_counter()
     mod = GPTTrainModule(cfg, device="cuda", seed=0)
     n_params = sum(p.numel() for p in mod.params)
     # distinct random batches, made from the seed and staged on the card (scripts/train_mfu.py:76-85)
     rng = np.random.RandomState(0)
-    batches = [{key: torch.from_numpy(rng.randint(0, cfg.vocab_size, (LLM_B, LLM_S))).cuda()
-                for key in ("tokens", "labels")} for _ in range(LLM_WARMUP + LLM_STEPS)]
+    batches = [{key: torch.from_numpy(rng.randint(0, cfg.vocab_size, (B_, S))).cuda()
+                for key in ("tokens", "labels")} for _ in range(warmup + steps)]
     torch.cuda.synchronize()
-    log(f"LLM: Llama-3.2-1B built on the card from seed 0 ({n_params:,} parameters, fp32) with "
-        f"{len(batches)} batches in {time.perf_counter() - t0:.1f} s")
-    metrics = [mod.train_step(b) for b in batches[:LLM_WARMUP]]
+    log(f"LLM: {label} ({cfg.num_layers} layers) built on the card from seed 0 ({n_params:,} "
+        f"parameters, fp32) with {len(batches)} batches in {time.perf_counter() - t0:.1f} s")
+    metrics = [mod.train_step(b) for b in batches[:warmup]]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    metrics += [mod.train_step(b) for b in batches[LLM_WARMUP:]]
+    metrics += [mod.train_step(b) for b in batches[warmup:]]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(m["loss"]) for m in metrics]
     norms = [float(m["grad_norm"]) for m in metrics]
-    tok_s = LLM_STEPS * LLM_B * LLM_S / wall
+    tok_s = steps * B_ * S / wall
     mfu = model_flops_per_token(cfg) * tok_s / PEAK_FLOPS[torch.bfloat16]
-    log(f"main path, LLM training: Llama-3.2-1B bf16, flash, remat full, AdamW, B={LLM_B} x "
-        f"S={LLM_S}, {LLM_STEPS} timed steps after {LLM_WARMUP}: {tok_s:.1f} tokens/s, "
-        f"{1e3 * wall / LLM_STEPS:.2f} ms/step, MFU {100 * mfu:.2f} % of 989 TFLOP/s "
+    log(f"main path, LLM training: {label} bf16, flash, remat full, AdamW, B={B_} x "
+        f"S={S}, {steps} timed steps after {warmup}: {tok_s:.1f} tokens/s, "
+        f"{1e3 * wall / steps:.2f} ms/step, MFU {100 * mfu:.2f} % of 989 TFLOP/s "
         f"({model_flops_per_token(cfg):.4e} FLOPs/token), peak_mem={peak:.2f} GiB, loss "
         f"{losses[0]:.4f} (step 0) → {losses[-1]:.4f} (step {len(losses) - 1}), grad_norm "
         f"{norms[0]:.4f} → {norms[-1]:.4f}, launches {launches}")
@@ -1269,13 +1353,14 @@ def phase_llm_training(counters: dict, profile: bool) -> dict:
     lo, hi = (math.log(cfg.vocab_size) + d for d in LLM_LOSS_BAND)
     if not lo <= losses[0] <= hi:
         raise AssertionError(f"step-0 loss {losses[0]:.4f} outside [{lo:.3f}, {hi:.3f}]")
-    want = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 2 * cfg.num_layers * LLM_STEPS,
-            "k6": cfg.num_layers * LLM_STEPS, "k7": cfg.num_layers * LLM_STEPS}
+    want = {key: 0 for key in counters}
+    want.update(k5=2 * cfg.num_layers * steps, k6=cfg.num_layers * steps,
+                k7=cfg.num_layers * steps)
     if launches != want:
         raise AssertionError(f"LLM launch counts {launches}, expected {want}")
     if profile:
-        profile_llm(mod, batches[:2])
-    return launches, 1e3 * wall / LLM_STEPS
+        profile_llm(mod, batches[:2], shape=f"B={B_} x S={S}", model=label)
+    return launches, 1e3 * wall / steps
 
 
 def profile_by_kind(fn, kinds, label: str, n_steps: int = 1) -> None:
@@ -1312,14 +1397,14 @@ def profile_by_kind(fn, kinds, label: str, n_steps: int = 1) -> None:
 
 
 def profile_llm(mod, batches, what: str = "LLM training",
-                shape: str = f"B={LLM_B} x S={LLM_S}") -> None:
+                shape: str = f"B={LLM_B} x S={LLM_S}", model: str = "Llama-3.2-1B") -> None:
     """Two more training steps under torch.profiler: device time a step by
     kind, the step's wall and kernel time, and the card's idle share."""
     def steps():
         for b in batches:
             mod.train_step(b)
 
-    profile_by_kind(steps, LLM_KERNEL_KINDS, f"{what} step (Llama-3.2-1B, {shape})",
+    profile_by_kind(steps, LLM_KERNEL_KINDS, f"{what} step ({model}, {shape})",
                     n_steps=len(batches))
 
 
@@ -1477,9 +1562,6 @@ def phase_k8_k10(gen: torch.Generator, layouts: dict):
                cuda_ms(lambda: flash_dq(*args5), iters=n),
                cuda_ms(lambda: flash_dkv(*args5), iters=n)]
         del o5, lse5, args5
-        elt = q.element_size()
-        bq, bk = LLM_B * LLM_S * H * dh, LLM_B * LLM_S * G * dh
-        rows_bytes, seg_bytes = 4 * LLM_B * H * LLM_S, 4 * LLM_B * LLM_S
         for lay_name, seg in layouts.items():
             what = f"{name} B={LLM_B} H={H} G={G} dh={dh} segments={lay_name}"
             o, lse, _, err = check_k8_k10(what, q, k, v, do, seg, scale, None)
@@ -1490,11 +1572,8 @@ def phase_k8_k10(gen: torch.Generator, layouts: dict):
             ms = [cuda_ms(lambda: _k8_launch(q, k, v, seg, ranges, scale, True, None), iters=n),
                   cuda_ms(lambda: flash_seg_dq(*args, ranges=ranges), iters=n),
                   cuda_ms(lambda: flash_seg_dkv(*args, ranges=ranges), iters=n)]
-            p = pairs[lay_name]
-            bounds = [
-                bound(elt * (2 * bq + 2 * bk) + rows_bytes + seg_bytes, 4 * dh * p, dtype),
-                bound(elt * (3 * bq + 2 * bk) + 2 * rows_bytes + seg_bytes, 6 * dh * p, dtype),
-                bound(elt * (2 * bq + 4 * bk) + 2 * rows_bytes + seg_bytes, 8 * dh * p, dtype)]
+            bounds = flash_bounds(LLM_B, H, G, LLM_S, dh, pairs[lay_name], dtype,
+                                  4 * LLM_B * LLM_S)  # the segment ids
             for i in range(3):
                 log(f"K{8 + i} {what}: kernel_ms={ms[i]:.4f} (K{5 + i} at the same shape "
                     f"{ms5[i]:.4f}, {ms[i] / ms5[i]:.3f} of it) bound_ms={bounds[i][0]:.4f} "
@@ -1574,14 +1653,16 @@ def sft_data(path: str):
 
 
 def phase_sft(counters: dict, dm, batches, shape: dict, mid, mid_shape: dict,
-              profile: bool) -> dict:
-    """This slice's path: packed full-parameter SFT of Llama-3.2-1B through
+              profile: bool, recipe: str = "llama32_1b", layers: Optional[int] = None,
+              warmup: int = LLM_WARMUP, timed: int = LLM_STEPS) -> dict:
+    """This slice's path: packed full-parameter SFT of Llama-3.2-1B (or of
+    `recipe`'s model, cut to `layers` layers where given) through
     finetune_recipe(...).run → llm.finetune → Trainer.fit →
-    GPTTrainModule.train_step on the data module `dm`, 2 warm-up steps then
-    20 timed ones, from seed-0 weights handed in as a JAX-layout tree of
-    tensors on the card; returns the launch counts of the whole run. Then
-    the trained module's steps on `mid`, batches from the middle of the
-    epoch, are timed too."""
+    GPTTrainModule.train_step on the data module `dm`, `warmup` steps then
+    `timed` timed ones, from seed-0 weights handed in as a JAX-layout tree of
+    tensors on the card; returns the launch counts of the whole run. Then,
+    where `mid` is given, the trained module's steps on `mid`, batches from
+    the middle of the epoch, are timed too."""
     from nemo_tpu_torch.core.callbacks import Callback, ProgressPrinter, TimingCallback
     from nemo_tpu_torch.core.trainer import Trainer
     from nemo_tpu_torch.interop.jax_params import export_jax_variables
@@ -1589,12 +1670,17 @@ def phase_sft(counters: dict, dm, batches, shape: dict, mid, mid_shape: dict,
     from nemo_tpu_torch.llm.recipes import finetune_recipe
     from nemo_tpu_torch.models.llm.gpt import build_model
 
-    fr = finetune_recipe("llama32_1b", peft_scheme="none", global_batch_size=LLM_B)
+    fr = finetune_recipe(recipe, peft_scheme="none", global_batch_size=LLM_B)
+    full = fr.model.num_layers
+    if layers is not None:
+        fr = dataclasses.replace(fr, model=dataclasses.replace(fr.model, num_layers=layers))
     cfg = fr.model
-    log(f"SFT recipe llama32_1b_finetune: seq_length {cfg.seq_length}, lr {fr.lr:g} "
+    label = MODEL_LABELS[recipe]
+    log(f"SFT recipe {fr.name}: seq_length {cfg.seq_length}, lr {fr.lr:g} "
         f"CosineAnnealing (warmup {fr.warmup_steps}, max_steps {fr.max_steps}), packed "
-        f"{fr.packed}; the one cut: global batch {LLM_B} where the recipe says "
-        f"{finetune_recipe('llama32_1b', peft_scheme='none').global_batch_size}")
+        f"{fr.packed}; the cuts: global batch {LLM_B} where the recipe says "
+        f"{finetune_recipe(recipe, peft_scheme='none').global_batch_size}, {cfg.num_layers} "
+        f"of {full} layers")
     t0 = time.perf_counter()
     params = export_jax_variables(build_model(cfg, torch.device("cuda"), seed=0),
                                   as_tensors=True)["params"]
@@ -1615,7 +1701,7 @@ def phase_sft(counters: dict, dm, batches, shape: dict, mid, mid_shape: dict,
             self.losses, self.norms, self.t0, self.wall = [], [], None, None
 
         def on_step_start(self, trainer, step):
-            if step == LLM_WARMUP:
+            if step == warmup:
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 self.t0 = time.perf_counter()
@@ -1628,7 +1714,7 @@ def phase_sft(counters: dict, dm, batches, shape: dict, mid, mid_shape: dict,
                 self.wall = time.perf_counter() - self.t0
 
     window = Window()
-    trainer = Trainer(max_steps=LLM_WARMUP + LLM_STEPS,
+    trainer = Trainer(max_steps=warmup + timed,
                       callbacks=[TimingCallback(), ProgressPrinter(), window])
     for fn in counters.values():
         fn.launches = 0
@@ -1641,15 +1727,15 @@ def phase_sft(counters: dict, dm, batches, shape: dict, mid, mid_shape: dict,
     losses = [float(x) for x in window.losses]
     norms = [float(x) for x in window.norms]
     wall = window.wall
-    tok_s = LLM_STEPS * LLM_B * LLM_S / wall
+    tok_s = timed * LLM_B * LLM_S / wall
     real_tok_s = tok_s * (1 - shape["pad_share"])
     mfu = model_flops_per_token(cfg) * tok_s / PEAK_FLOPS[torch.bfloat16]
-    steps = LLM_WARMUP + LLM_STEPS
-    log(f"main path, packed SFT: finetune_recipe('llama32_1b', peft_scheme='none', "
-        f"global_batch_size={LLM_B}).run: Llama-3.2-1B bf16, flash, remat full, AdamW, "
-        f"B={LLM_B} x S={LLM_S}, {LLM_STEPS} timed steps after {LLM_WARMUP} "
+    steps = warmup + timed
+    log(f"main path, packed SFT: finetune_recipe('{recipe}', peft_scheme='none', "
+        f"global_batch_size={LLM_B}).run: {label} ({cfg.num_layers} layers) bf16, flash, remat "
+        f"full, AdamW, B={LLM_B} x S={LLM_S}, {timed} timed steps after {warmup} "
         f"({run_s:.1f} s for the whole run, the weights' load included): "
-        f"{1e3 * wall / LLM_STEPS:.2f} ms/step, {tok_s:.1f} tokens/s over all B*S tokens, "
+        f"{1e3 * wall / timed:.2f} ms/step, {tok_s:.1f} tokens/s over all B*S tokens, "
         f"{real_tok_s:.1f} over non-padding tokens, MFU {100 * mfu:.2f} % of 989 TFLOP/s "
         f"(over B*S tokens), peak_mem={peak:.2f} GiB ({peak - tree_gib:.2f} without the "
         f"caller's parameter tree), loss {losses[0]:.4f} (step 0) → "
@@ -1665,23 +1751,24 @@ def phase_sft(counters: dict, dm, batches, shape: dict, mid, mid_shape: dict,
     want.update(k8=2 * L * steps, k9=L * steps, k10=L * steps)
     if launches != want:
         raise AssertionError(f"SFT launch counts {launches}, expected {want}")
-    module.train_step(mid[0])  # warm-up at the new layout
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    mid_losses = [module.train_step(b)["loss"] for b in mid[1:]]
-    torch.cuda.synchronize()
-    mid_ms = 1e3 * (time.perf_counter() - t0) / len(mid_losses)
-    mid_tok_s = LLM_B * LLM_S / mid_ms * 1e3
-    log(f"packed SFT at the middle of the epoch ({mid_shape['segments_per_row']:.2f} segments a "
-        f"row, {100 * mid_shape['pad_share']:.2f} % padding, "
-        f"{100 * mid_shape['pair_share']:.2f} % of the causal pairs of one segment): "
-        f"{mid_ms:.2f} ms/step over {len(mid_losses)} steps after 1, {mid_tok_s:.1f} tokens/s "
-        f"over all B*S tokens, {mid_tok_s * (1 - mid_shape['pad_share']):.1f} over non-padding "
-        f"tokens, losses {[round(float(x), 4) for x in mid_losses]}")
-    if not all(math.isfinite(float(x)) for x in mid_losses):
-        raise AssertionError(f"SFT at the middle of the epoch: losses {mid_losses}")
+    if mid is not None:
+        module.train_step(mid[0])  # warm-up at the new layout
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mid_losses = [module.train_step(b)["loss"] for b in mid[1:]]
+        torch.cuda.synchronize()
+        mid_ms = 1e3 * (time.perf_counter() - t0) / len(mid_losses)
+        mid_tok_s = LLM_B * LLM_S / mid_ms * 1e3
+        log(f"packed SFT at the middle of the epoch ({mid_shape['segments_per_row']:.2f} "
+            f"segments a row, {100 * mid_shape['pad_share']:.2f} % padding, "
+            f"{100 * mid_shape['pair_share']:.2f} % of the causal pairs of one segment): "
+            f"{mid_ms:.2f} ms/step over {len(mid_losses)} steps after 1, {mid_tok_s:.1f} "
+            f"tokens/s over all B*S tokens, {mid_tok_s * (1 - mid_shape['pad_share']):.1f} over "
+            f"non-padding tokens, losses {[round(float(x), 4) for x in mid_losses]}")
+        if not all(math.isfinite(float(x)) for x in mid_losses):
+            raise AssertionError(f"SFT at the middle of the epoch: losses {mid_losses}")
     if profile:
-        profile_llm(module, batches[:2], "packed SFT")
+        profile_llm(module, batches[:2], "packed SFT", model=label)
     return launches
 
 
@@ -1839,9 +1926,6 @@ def phase_k11_k13(gen: torch.Generator):
                cuda_ms(lambda: flash_dq(*args5), iters=n_it),
                cuda_ms(lambda: flash_dkv(*args5), iters=n_it)]
         del o5, lse5, args5
-        elt = q.element_size()
-        bq, bk = CP_B * Tl * H * dh, CP_B * Tl * G * dh
-        rows_bytes, pos_bytes = 4 * CP_B * H * Tl, 8 * Tl
         for step, (qpos, kpos) in steps.items():
             ranges = (pos_tile_ranges(qpos), pos_tile_ranges(kpos))
             o, lse = _k11_launch(q, k, v, qpos, kpos, scale, True, None, ranges)
@@ -1871,11 +1955,8 @@ def phase_k11_k13(gen: torch.Generator):
                                                           retain_graph=True),
                               iters=10 if fast else 3)
             del o_lib, ql, kl, vl, mask
-            p = H * CP_B * kept_pairs(qpos, kpos, None)
-            bounds = [
-                bound(elt * (2 * bq + 2 * bk) + rows_bytes + pos_bytes, 4 * dh * p, dtype),
-                bound(elt * (3 * bq + 2 * bk) + 2 * rows_bytes + pos_bytes, 6 * dh * p, dtype),
-                bound(elt * (2 * bq + 4 * bk) + 2 * rows_bytes + pos_bytes, 8 * dh * p, dtype)]
+            bounds = flash_bounds(CP_B, H, G, Tl, dh, H * CP_B * kept_pairs(qpos, kpos, None),
+                                  dtype, 8 * Tl)  # the positions
             what = f"{dname} B={CP_B} H={H} G={G} dh={dh} Tl={Tl} ring step {step}"
             log(f"SDPA {what}, [Tl, Tl] boolean mask: forward {lib_fwd:.4f} ms, backward "
                 f"{lib_bwd:.4f} ms; plain (group by group) forward {plain_fwd:.4f} ms, "
@@ -4159,6 +4240,205 @@ def phase_bench_llm_1b(counters: dict, adamw_ms: float, profile: bool) -> dict:
     return launches["bf16"]
 
 
+# ------------------------------------------------------------ Phi-3-mini-4k (dh 96)
+def _phi3_cfg(**kw):
+    from nemo_tpu_torch.models.llm.config import phi3_mini_4k
+
+    return phi3_mini_4k(**{"num_layers": PHI3_LAYERS, "compute_dtype": "bfloat16",
+                           "attention_backend": "flash", "remat": "full", **kw})
+
+
+def _repeatable(what: str, fn, first) -> None:
+    """fn() launched again gives `first` bit for bit (the backward kernels
+    sum in a fixed order and take no atomics)."""
+    again = fn()
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(first, again)]
+    log(f"{what}: a second launch gives the same bits: {same}")
+    if not all(same):
+        raise AssertionError(f"{what}: a second launch differs ({same})")
+
+
+def _time_dh96(what: str, fns: dict, plain: dict, library: dict) -> dict:
+    """Each of `fns` (kernel → its launch) and `library` (name → one PyTorch
+    call) by CUDA events and by torch.profiler (`<name>_device`), `plain`
+    (name → call) by CUDA events; printed, and returned by name."""
+    out = {}
+    for name, fn in fns.items():
+        out[name], out[f"{name}_device"] = cuda_ms(fn, iters=20), device_ms(fn, iters=20)
+    for name, fn in plain.items():
+        out[name] = cuda_ms(fn, iters=2)
+    for name, fn in library.items():
+        out[name], out[f"{name}_device"] = cuda_ms(fn, iters=10), device_ms(fn, iters=10)
+    log(f"times dh 96, {what}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()))
+    return out
+
+
+def phase_dh96(gen: torch.Generator, sft_seg: torch.Tensor) -> list:
+    """K5-K13 at head dim 96 (Phi-3-mini: dh 128's tiles with a zero tail)
+    against their plain versions, fp32 and bf16, each held row by row:
+    K5-K7 at Phi-3's training shape (B=2, 32 heads over 32, S=4096) and at
+    B=2, 32 heads over 8, S=2048 with a window of 512; K8-K10 at B=2, S=2048,
+    32 over 32 on three segment layouts (two rows of the SFT batch
+    `sft_seg`; ids with padding inside and a row of padding; one segment a
+    row, which must give K5-K7's bits); K11-K13 at one CP rank's diagonal
+    ring step (Tl=2048, 32 over 8). Every dq, dk and dv is launched twice
+    and must repeat bit for bit, and a head dim of 80 must raise ValueError.
+    Then the bf16 times of K5-K7 at Phi-3's training shape and of K8-K10 on
+    the whole SFT batch (B=8 x 2048, 32 over 32, phase 40's shape), each
+    beside its bound, its plain version and SDPA. Returns the six kernel
+    rows (launches filled by phases 39 and 40)."""
+    from nemo_tpu_torch.ops.flash_attention import (
+        _k5_launch, _k8_launch, flash_attention, flash_attention_backward_plain,
+        flash_attention_packed, flash_attention_packed_backward_plain,
+        flash_attention_packed_plain, flash_attention_plain, flash_dkv, flash_dq, flash_pos_dkv,
+        flash_pos_dq, flash_seg_dkv, flash_seg_dq, pos_delta, row_delta, seg_tile_ranges)
+
+    rows = [{"name": f"{name} (Phi-3-mini, dh 96)", "route": "cuda",
+             "source": f"nemo_tpu_torch/csrc/{src}.cu",
+             "replaces": f"nemo_tpu/ops/flash_attention.py:{line}"}
+            for name, src, line in (("flash_attention", "flash_fwd", "77 (causal GQA)"),
+                                    ("flash_dq", "flash_bwd", "213 (causal GQA)"),
+                                    ("flash_dkv", "flash_bwd", "257 (causal GQA)"),
+                                    ("flash_attention_packed", "flash_fwd", 817),
+                                    ("flash_seg_dq", "flash_bwd", 871),
+                                    ("flash_seg_dkv", "flash_bwd", 914))]
+    H, dh, bf16 = 32, 96, torch.bfloat16
+    scale = 1.0 / math.sqrt(dh)
+    errs = [0.0] * 6  # K5-K10: worst bf16 max abs error
+    for (B_, G, T, window), dtype in ((c, d) for c in ((PHI3_B, H, PHI3_S, None),
+                                                       (2, 8, LLM_S, 512))
+                                      for d in (torch.float32, bf16)):
+        q, k, v, do = _gqa_inputs(gen, B_, H, G, T, dh, dtype)
+        what = f"dh 96 {str(dtype)[6:]} B={B_} H={H} G={G} S={T} window={window}"
+        o, lse, out, err = check_k5_k7(what, q, k, v, do, scale, window)
+        args = (q, k, v, scale, True, window, lse, row_delta(o, do), do)
+        _repeatable(f"K6, K7 {what}", lambda: (flash_dq(*args), *flash_dkv(*args)), out)
+        if dtype == bf16:
+            errs[:3] = [max(a, b) for a, b in zip(errs[:3], err)]
+        del q, k, v, do, o, lse, out, args
+    for dtype, layout in ((d, lay) for d in (torch.float32, bf16)
+                          for lay in ("sft", "mixed", "one")):
+        q, k, v, do = _gqa_inputs(gen, 2, H, H, LLM_S, dh, dtype)
+        seg = packed_layout(layout, LLM_S, sft_seg).cuda()
+        what = f"dh 96 {str(dtype)[6:]} B=2 H={H} G={H} S={LLM_S} segments={layout}"
+        o, lse, out, err = check_k8_k10(what, q, k, v, do, seg, scale, None)
+        args = (q, k, v, seg, scale, True, None, lse, row_delta(o, do), do)
+        _repeatable(f"K9, K10 {what}", lambda: (flash_seg_dq(*args), *flash_seg_dkv(*args)), out)
+        if layout == "one":  # one segment a row: K5-K7's kernels step for step
+            o5, lse5 = _k5_launch(q, k, v, scale, True, None)
+            args5 = (q, k, v, scale, True, None, lse5, row_delta(o, do), do)
+            same = [torch.equal(o.transpose(1, 2), o5), torch.equal(lse, lse5)] + [
+                torch.equal(x, y) for x, y in zip(out, (flash_dq(*args5), *flash_dkv(*args5)))]
+            log(f"K8-K10 {what}: equal to K5-K7 bit for bit: {all(same)}")
+            if not all(same):
+                raise AssertionError(f"K8-K10 {what}: not K5-K7's bits ({same})")
+        if dtype == bf16:
+            errs[3:] = [max(a, b) for a, b in zip(errs[3:], err)]
+        del q, k, v, do, o, lse, out, args
+    Tl = LLM_S
+    qpos, kpos, window, _ = position_layouts(Tl)["diagonal"]
+    for dtype in (torch.float32, bf16):
+        q, k, v, do = _gqa_inputs(gen, 1, H, 8, Tl, dh, dtype)
+        dlse = torch.randn(1, H, Tl, generator=gen).cuda()
+        what = f"dh 96 {str(dtype)[6:]} B=1 H={H} G=8 Tl={Tl} positions=diagonal"
+        o, lse, out, _, _ = check_k11_k13(what, q, k, v, do, dlse, qpos, kpos, window, 0)
+        args = (q, k, v, qpos, kpos, scale, True, window, lse, pos_delta(o, do, dlse), do)
+        _repeatable(f"K12, K13 {what}", lambda: (flash_pos_dq(*args), *flash_pos_dkv(*args)),
+                    out)
+        del q, k, v, do, o, lse, out, args
+    q, k, v = (torch.zeros(1, 4, 128, 80, device="cuda", dtype=bf16) for _ in range(3))
+    seg = torch.ones(1, 128, dtype=torch.int32, device="cuda")
+    for name, call in (("flash_attention", lambda: flash_attention(q, k, v, 0.1)),
+                       ("flash_attention_packed",
+                        lambda: flash_attention_packed(q, k, v, seg, 0.1))):
+        try:
+            call()
+        except ValueError as e:
+            log(f"{name} at head dim 80 raises ValueError: {e}")
+        else:
+            raise AssertionError(f"{name} launched at head dim 80")
+
+    # the bf16 times: K5-K7 at phase 39's shape, beside SDPA (causal)
+    B_, S = PHI3_B, PHI3_S
+    q, k, v, do = _gqa_inputs(gen, B_, H, H, S, dh, bf16)
+    o, lse = _k5_launch(q, k, v, scale, True, None)
+    o = o.transpose(1, 2)
+    args = (q, k, v, scale, True, None, lse, row_delta(o, do), do)
+    ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        ql, kl, vl, is_causal=True, scale=scale)
+    o_lib = sdpa()
+    t = _time_dh96(
+        f"B={B_} H={H} G={H} S={S} causal",
+        {"k5": lambda: flash_attention(q, k, v, scale), "k6": lambda: flash_dq(*args),
+         "k7": lambda: flash_dkv(*args)},
+        {"plain_forward": lambda: flash_attention_plain(q, k, v, scale, True, None),
+         "plain_backward": lambda: flash_attention_backward_plain(q, k, v, scale, True, None, o,
+                                                                  lse, do)},
+        {"sdpa": sdpa, "sdpa_backward": lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do,
+                                                                    retain_graph=True)})
+    del o_lib, ql, kl, vl
+    bounds = flash_bounds(B_, H, H, S, dh, B_ * H * S * (S + 1) / 2, bf16)
+    for i, key in enumerate(("k5", "k6", "k7")):
+        plain_ms, lib_ms = ((t["plain_forward"], t["sdpa"]) if i == 0
+                            else (t["plain_backward"], t["sdpa_backward"]))
+        rows[i].update(max_abs_err=errs[i], ms=t[key], plain_ms=plain_ms, bound_ms=bounds[i][0],
+                       bound_by=bounds[i][1], library_ms=lib_ms)
+    del q, k, v, do, o, lse, args
+    # K8-K10 on the SFT run's first batch (B=8 x 2048), beside SDPA given the dense mask
+    B_, S = LLM_B, LLM_S
+    q, k, v, do = _gqa_inputs(gen, B_, H, H, S, dh, bf16)
+    seg, ranges = sft_seg, seg_tile_ranges(sft_seg)
+    o, lse = _k8_launch(q, k, v, seg, ranges, scale, True, None)
+    o = o.transpose(1, 2)
+    args = (q, k, v, seg, scale, True, None, lse, row_delta(o, do), do)
+    pos = torch.arange(S, device="cuda")
+    dense = (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0) & (
+        pos[None, None, :] <= pos[None, :, None])
+    # a padding row sees its own key only, since SDPA gives NaN on a row that sees none
+    dense |= torch.eye(S, dtype=torch.bool, device="cuda")[None] & (seg == 0)[:, :, None]
+    dense = dense[:, None]
+    ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        ql, kl, vl, attn_mask=dense, scale=scale)
+    o_lib = sdpa()
+    t = _time_dh96(
+        f"B={B_} H={H} G={H} S={S} on the SFT batch",
+        {"k8": lambda: _k8_launch(q, k, v, seg, ranges, scale, True, None),
+         "k9": lambda: flash_seg_dq(*args, ranges=ranges),
+         "k10": lambda: flash_seg_dkv(*args, ranges=ranges)},
+        {"plain_forward": lambda: flash_attention_packed_plain(q, k, v, seg, scale),
+         "plain_backward": lambda: flash_attention_packed_backward_plain(
+             q, k, v, seg, scale, True, None, o, lse, do)},
+        {"sdpa_mask": sdpa, "sdpa_mask_backward": lambda: torch.autograd.grad(
+            o_lib, (ql, kl, vl), do, retain_graph=True)})
+    del o_lib, ql, kl, vl, dense
+    bounds = flash_bounds(B_, H, H, S, dh, H * segment_pairs(seg), bf16, 4 * B_ * S)
+    for i, key in enumerate(("k8", "k9", "k10")):
+        plain_ms, lib_ms = ((t["plain_forward"], t["sdpa_mask"]) if i == 0
+                            else (t["plain_backward"], t["sdpa_mask_backward"]))
+        rows[3 + i].update(max_abs_err=errs[3 + i], ms=t[key], plain_ms=plain_ms,
+                           bound_ms=bounds[i][0], bound_by=bounds[i][1], library_ms=lib_ms)
+    for row in rows:
+        log(f"{row['name']}: kernel_ms={row['ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+            f"({row['bound_by']}) plain_ms={row['plain_ms']:.4f} "
+            f"library_ms={row['library_ms']:.4f} max_abs_err={row['max_abs_err']:.3e}")
+    del q, k, v, do, o, lse, args
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_phi3_exactness() -> None:
+    """Phi-3-mini in fp32 at full width (hidden 3072, 32 heads of dh 96, FFN
+    8192, vocab 32,064, untied head) cut to 2 layers, B=1 x S=256: the card
+    (K5-K7 at dh 96, fp32 kernels, under full remat) against the CPU (plain
+    versions) from the same seed-0 weights."""
+    cfg = _phi3_cfg(num_layers=2, seq_length=256, compute_dtype="float32")
+    _card_vs_cpu(cfg, "Phi-3-mini fp32, 2 layers at full width, B=1 x S=256, cuda (K5-K7 at "
+                      "dh 96, remat full) vs cpu (plain)", logits=True)
+
+
 def cp_processes() -> int:
     """The process-group form under torchrun (one process a card, NCCL):
     Llama-3.2-1B at S = 16,384, cp = the number of processes, B=1, every rank
@@ -4255,8 +4535,11 @@ def time_forward() -> int:
     (and at dh 128, 12 heads over 12, GPT-551M's head), beside SDPA's
     forward; K8 on the SFT run's first batch; K11 at one rank's CP shape
     (B=1, Tl=8,192), rank 0's diagonal and off-diagonal ring steps. Prints
-    one JSON line. Run it for two trees in turns (parent, change, change,
-    parent) to compare them on one card."""
+    one JSON line. K5 and K8 at dh 96 come last (`k5_dh96` at Phi-3-mini's
+    B=2, 32 heads over 32, S=4096, beside `sdpa_dh96`; `k8_dh96` on the SFT
+    batch), so that the earlier keys' inputs are drawn as before. Run it for
+    two trees in turns (parent, change, change, parent) to compare them on
+    one card."""
     from nemo_tpu_torch.ops.flash_attention import (_k5_launch, _k8_launch, _k11_launch,
                                                     pos_tile_ranges, relpos_flash_attention,
                                                     seg_tile_ranges)
@@ -4307,6 +4590,16 @@ def time_forward() -> int:
     bias = relpos_bias(qv, p, lens, scale, torch.bfloat16)
     timed("sdpa_relpos_dh128", lambda: F.scaled_dot_product_attention(qu, k, v, attn_mask=bias,
                                                                       scale=scale))
+    del qu, qv, k, v, p, base, bias
+    # K5 and K8 at dh 96: Phi-3-mini's training shape (B=2, 32 heads over 32, S=4096) and
+    # the SFT batch (B=8 x 2048)
+    scale = 1.0 / math.sqrt(96)
+    q, k, v, _ = _gqa_inputs(gen, PHI3_B, 32, 32, PHI3_S, 96, torch.bfloat16)
+    timed("k5_dh96", lambda: _k5_launch(q, k, v, scale, True, None))
+    timed("sdpa_dh96", lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                              scale=scale))
+    q, k, v, _ = _gqa_inputs(gen, LLM_B, 32, 32, LLM_S, 96, torch.bfloat16)
+    timed("k8_dh96", lambda: _k8_launch(q, k, v, seg, ranges, scale, True, None))
     print(json.dumps(out), flush=True)
     return 0
 
@@ -4322,8 +4615,10 @@ def time_backward() -> int:
     ring steps; K3, K4 and row_delta at the calibration shape (B=4, H=8,
     T=751, dh 64, full lengths), beside SDPA's backward given the rel-pos
     bias; and the same at dh 128 (T'=376), with K4 also on 2 rows
-    (`k4_dh128_b2`, one round of the persistent grid). Each given the lse of
-    its forward. Prints one JSON line."""
+    (`k4_dh128_b2`, one round of the persistent grid); last, K6, K7 and
+    row_delta at dh 96 at Phi-3-mini's B=2, 32 heads over 32, S=4096, beside
+    SDPA's backward, and K9, K10 at dh 96 on the SFT batch. Each given the
+    lse of its forward. Prints one JSON line."""
     from nemo_tpu_torch.ops.flash_attention import (
         _k5_launch, _k8_launch, _k11_launch, flash_dkv, flash_dq, flash_pos_dkv, flash_pos_dq,
         flash_seg_dkv, flash_seg_dq, pos_delta, pos_tile_ranges, relpos_flash_attention,
@@ -4401,6 +4696,27 @@ def time_backward() -> int:
     o_lib = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=bias, scale=scale)
     timed("sdpa_backward_relpos_dh128",
           lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do, retain_graph=True))
+    del o_lib, ql, kl, vl, bias, qu, qv, k, v, do, p, base, half, args
+    # K6, K7, K9 and K10 at dh 96: Phi-3-mini's training shape and the SFT batch
+    scale = 1.0 / math.sqrt(96)
+    q, k, v, do = _gqa_inputs(gen, PHI3_B, 32, 32, PHI3_S, 96, torch.bfloat16)
+    o, lse = _k5_launch(q, k, v, scale, True, None)
+    o = o.transpose(1, 2)
+    args = (q, k, v, scale, True, None, lse, row_delta(o, do), do)
+    timed("k6_dh96", lambda: flash_dq(*args))
+    timed("k7_dh96", lambda: flash_dkv(*args))
+    timed("row_delta_dh96", lambda: row_delta(o, do))
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    o_lib = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, scale=scale)
+    timed("sdpa_backward_dh96",
+          lambda: torch.autograd.grad(o_lib, (ql, kl, vl), do, retain_graph=True))
+    del o_lib, ql, kl, vl, args
+    q, k, v, do = _gqa_inputs(gen, LLM_B, 32, 32, LLM_S, 96, torch.bfloat16)
+    o, lse = _k8_launch(q, k, v, seg, ranges, scale, True, None)
+    o = o.transpose(1, 2)
+    args = (q, k, v, seg, scale, True, None, lse, row_delta(o, do), do, ranges)
+    timed("k9_dh96", lambda: flash_seg_dq(*args))
+    timed("k10_dh96", lambda: flash_seg_dkv(*args))
     print(json.dumps(out), flush=True)
     return 0
 
@@ -4561,6 +4877,31 @@ def main() -> int:
     dh128_rows[1]["launches"], dh128_rows[2]["launches"] = tdt_fit["k3"], tdt_fit["k4"]
     rows += dh128_rows
     log(f"time: phases 33-36 {time.perf_counter() - t33:.1f} s")
+    t37 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sft.jsonl")
+        write_sft_jsonl(path)
+        dm, batches, shape, _, _ = sft_data(path)
+        gen96 = torch.Generator().manual_seed(17)  # the earlier phases' inputs stay as they were
+        dh96_rows = phase_dh96(gen96, batches[0]["segment_ids"].to("cuda", torch.int32))
+        lap("phase 37 (K5-K13 at dh 96)")
+        phase_phi3_exactness()
+        lap("phase 38 (Phi-3-mini exactness)")
+        # Phi-3-mini pretraining's model, cut to PHI3_LAYERS layers
+        phi3_launches, _ = phase_llm_training(counters, args.profile, _phi3_cfg(seq_length=PHI3_S),
+                                              PHI3_B, PHI3_S, 1, PHI3_STEPS,
+                                              f"Phi-3-mini-4k, {PHI3_LAYERS} of 32 layers")
+        lap("phase 39 (Phi-3-mini training)")
+        # packed SFT of Phi-3-mini: its recipe, the model cut to PHI3_LAYERS layers
+        phi3_launches.update((key, n) for key, n in phase_sft(
+            counters, dm, batches, shape, None, None, args.profile, "phi3_mini_4k", PHI3_LAYERS,
+            1, PHI3_SFT_STEPS).items() if key in ("k8", "k9", "k10"))
+        lap("phase 40 (Phi-3-mini packed SFT)")
+    for row, key in zip(dh96_rows, ("k5", "k6", "k7", "k8", "k9", "k10")):
+        row["launches"] = phi3_launches[key]
+    rows += dh96_rows
+    torch.cuda.empty_cache()
+    log(f"time: phases 37-40 {time.perf_counter() - t37:.1f} s")
     # `launches` in the kernels line is each kernel's main path's; the serving paths'
     # own counts, each read just after its run, go on a line of their own
     log("launches on the serving paths: " + "; ".join(

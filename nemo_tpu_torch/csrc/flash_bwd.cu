@@ -1,5 +1,5 @@
 // Causal / sliding-window GQA flash attention backward for Hopper (sm_90a),
-// fp32 or bf16 inputs, head width D in {64, 128}: K6 (dq) and K7 (dk, dv
+// fp32 or bf16 inputs, head width D in {64, 96, 128}: K6 (dq) and K7 (dk, dv
 // summed over the query heads of each kv group), K9 and K10, their forms
 // over packed rows with segment ids, and K12 and K13, their forms with
 // explicit positions.
@@ -30,7 +30,7 @@
 // mbarrier, with the tile's index and per-warpgroup mask flags beside it.
 // - K6: a block owns 128 query rows of one (b, h), a consumer 64 of them; q
 //   and dO are loaded once an item (double-buffered), k and v of each key
-//   tile (128 keys at D = 64, 64 at D = 128) into 3 stages. Products: s = q
+//   tile (128 keys at D = 64, 64 at D = 96 and 128) into 3 stages. Products: s = q
 //   k^T and dP = dO v^T from shared memory (K-major), dq += dS k with dS as
 //   register A fragments and k MN-major (the transposed-B bit).
 // - K7: a block owns 128 keys of one (b, kv head g), a consumer 64 of them;
@@ -54,6 +54,12 @@
 // (Mask::key_rows, Pairs::kept_by) in K7, in a branch of their own. P and dS
 // are rounded to bf16 before their products, as the JAX kernels round them
 // to the input dtype (flash_attention.py:248,291,299); dS takes P in fp32.
+// D = 96 (Phi-3-mini) takes D = 128's tiles and layouts
+// (flash_tiles.cuh:padded): every tile comes as two boxes of 64 columns, the
+// second zero past column 96; the products over D (s, dP; s^T, dP^T) take
+// their 6 nonzero steps of 16 columns, and those into D (dq, dk, dv) are
+// m64n96k16 products (hopper.cuh:wgmma_rs_n96) into 96 columns of
+// accumulators.
 // fp32 (the exactness check): scalar FMAs from shared-memory tiles, 64 x 64.
 //
 // K9 and K10 replace nemo_tpu/ops/flash_attention.py:_dq_seg_kernel
@@ -395,15 +401,16 @@ constexpr int TQ = 64 * WGS;  // query rows a block
 // Shared memory, in bytes from a 1024-aligned base: two buffers of q and dO
 // (a box of 64 rows x 64 columns per warpgroup and 64 columns of D: q's
 // boxes, then dO's), so that the next work item's rows load while this
-// one's are read; STAGES stages of k and v (D / 64 boxes of TK keys each);
+// one's are read; STAGES stages of k and v (DP / 64 boxes of TK keys each);
 // the mbarriers (q loaded[2], q free[2], full[STAGES], empty[STAGES]); the
 // keys' ids or positions of each stage; and each stage's tile: its index
 // (-1: the item has no more tiles) and which warpgroups need the element
 // mask there (bit w).
 template <int D>
 struct DqLayout {
-  static constexpr int TK = D == 64 ? 128 : 64;  // keys a tile, as the registers allow
-  static constexpr int NB = D / 64;              // boxes a row
+  static constexpr int DP = flash::padded(D);     // columns of a row in shared memory
+  static constexpr int TK = DP == 64 ? 128 : 64;  // keys a tile, as the registers allow
+  static constexpr int NB = DP / 64;              // boxes a row
   static constexpr int STAGES = 3;
   static constexpr uint32_t KBOX = TK * hopper::BOX_ROW_BYTES;
   static constexpr uint32_t QBUF = 2 * WGS * NB * BOX64;
@@ -637,16 +644,17 @@ constexpr int TKB = 64 * WGS;  // keys a block
 constexpr int TQT = 64;        // query rows a tile (128 would spill dk and dv at D = 128)
 
 // Shared memory, in bytes from a 1024-aligned base: KVB buffers of k and v
-// (a box of 64 keys x 64 columns per warpgroup and 64 columns of D: k's
-// boxes, then v's); STAGES stages of q and dO (D / 64 boxes of 64 rows
+// (a box of 64 keys x 64 columns per warpgroup and 64 columns of DP: k's
+// boxes, then v's); STAGES stages of q and dO (DP / 64 boxes of 64 rows
 // each); the mbarriers (kv loaded[KVB], kv free[KVB], full[STAGES],
 // empty[STAGES]); each stage's rows' lse log2(e) and delta [2][64] and ids
 // or positions [64]; and its tile: query tile index (-1: no more) and mask
 // flags (bit w).
 template <int D>
 struct DkvLayout {
-  static constexpr int NB = D / 64;
-  static constexpr int KVB = D == 64 ? 2 : 1;
+  static constexpr int DP = flash::padded(D);  // columns of a row in shared memory
+  static constexpr int NB = DP / 64;
+  static constexpr int KVB = DP == 64 ? 2 : 1;
   static constexpr int STAGES = 4;
   static constexpr uint32_t KVBUF = 2 * WGS * NB * BOX64;
   static constexpr uint32_t ST = KVB * KVBUF;
@@ -969,21 +977,18 @@ int dq_entry(int dtype, void* q, void* k, void* v, void* dout, void* lse, void* 
   if (!flash::valid_shape(B, H, G, Tq, Tkv, head_dim, window) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    const void* bf[] = {q, k, v, dout, dq_out};
-    if (!flash::aligned16(bf, 5)) return (int)cudaErrorMisalignedAddress;
-    auto run = &wg::launch<128, M>;
-    if (head_dim == 64) run = &wg::launch<64, M>;
-    return run(q, k, v, dout, lse, delta, qv, kv, qr, kr, dq_out, nullptr, nullptr, B, H, G, Tq,
-               Tkv, scale, causal, window, s);
-  }
+  const void* bf[] = {q, k, v, dout, dq_out};
+  if (dtype == 1 && !flash::aligned16(bf, 5)) return (int)cudaErrorMisalignedAddress;
   void* args[] = {&q,      &k, &v, &dout, &lse, &delta, &qv,     &kv,    &qr, &kr,
                   &dq_out, &H, &G, &Tq,   &Tkv, &scale, &causal, &window};
   const int n_q = (Tq + BQ - 1) / BQ;
-  return head_dim == 64
-             ? flash::launch(f32::dq_kernel<64, M>, f32::smem_dq<64>(), f32::NT, n_q, H, B, s, args)
-             : flash::launch(f32::dq_kernel<128, M>, f32::smem_dq<128>(), f32::NT, n_q, H, B, s,
-                             args);
+  return flash::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (dtype == 1)
+      return wg::launch<D, M>(q, k, v, dout, lse, delta, qv, kv, qr, kr, dq_out, nullptr, nullptr,
+                              B, H, G, Tq, Tkv, scale, causal, window, s);
+    return flash::launch(f32::dq_kernel<D, M>, f32::smem_dq<D>(), f32::NT, n_q, H, B, s, args);
+  });
 }
 
 template <int M>
@@ -993,27 +998,25 @@ int dkv_entry(int dtype, void* q, void* k, void* v, void* dout, void* lse, void*
   if (!flash::valid_shape(B, H, G, Tq, Tkv, head_dim, window) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    const void* bf[] = {q, k, v, dout, dk, dv};
-    if (!flash::aligned16(bf, 6)) return (int)cudaErrorMisalignedAddress;
-    auto run = &wg::launch<128, M>;
-    if (head_dim == 64) run = &wg::launch<64, M>;
-    return run(q, k, v, dout, lse, delta, qv, kv, qr, kr, nullptr, dk, dv, B, H, G, Tq, Tkv,
-               scale, causal, window, s);
-  }
+  const void* bf[] = {q, k, v, dout, dk, dv};
+  if (dtype == 1 && !flash::aligned16(bf, 6)) return (int)cudaErrorMisalignedAddress;
   void* args[] = {&q,  &k,  &v, &dout, &lse, &delta, &qv,    &kv,     &qr,    &kr,
                   &dk, &dv, &H, &G,    &Tq,  &Tkv,   &scale, &causal, &window};
   const int n_kv = (Tkv + BKV - 1) / BKV;
-  return head_dim == 64 ? flash::launch(f32::dkv_kernel<64, M>, f32::smem_dkv<64>(), f32::NT,
-                                        n_kv, G, B, s, args)
-                        : flash::launch(f32::dkv_kernel<128, M>, f32::smem_dkv<128>(), f32::NT,
-                                        n_kv, G, B, s, args);
+  return flash::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (dtype == 1)
+      return wg::launch<D, M>(q, k, v, dout, lse, delta, qv, kv, qr, kr, nullptr, dk, dv, B, H,
+                              G, Tq, Tkv, scale, causal, window, s);
+    return flash::launch(f32::dkv_kernel<D, M>, f32::smem_dkv<D>(), f32::NT, n_kv, G, B, s,
+                         args);
+  });
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (every tensor 16-byte aligned). head_dim
-// 64 or 128; causal 0/1; window 0 = none. Each returns a cudaError_t.
+// 64, 96 or 128; causal 0/1; window 0 = none. Each returns a cudaError_t.
 
 // K6: dq [B, T, H, D] in the input dtype.
 extern "C" int flash_bwd_dq(int dtype, void* q, void* k, void* v, void* dout, void* lse,

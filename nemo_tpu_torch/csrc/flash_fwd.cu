@@ -1,5 +1,5 @@
 // Causal / sliding-window GQA flash attention forward for Hopper (sm_90a),
-// fp32 or bf16 inputs, head width D in {64, 128}: K5, K8, its form over
+// fp32 or bf16 inputs, head width D in {64, 96, 128}: K5, K8, its form over
 // packed rows with segment ids, and K11, its form with explicit positions.
 //
 // Replaces the TPU kernel nemo_tpu/ops/flash_attention.py:_fwd_kernel
@@ -52,7 +52,7 @@
 //   query rows of one (b, h): two consumer warpgroups of 64 rows and a
 //   producer warpgroup, which hands its registers to them (setmaxnreg: 224
 //   a consumer thread, no spills) and works in one warp. The producer walks
-//   the key tiles (128 keys at D = 64, 64 at D = 128), 32 at a time,
+//   the key tiles (128 keys at D = 64, 64 at D = 96 and 128), 32 at a time,
 //   decides which to visit and which need the element mask (the tile tests
 //   of Mask and Pairs at each warpgroup's 64 rows; the policies' 64-key
 //   [min, max] entries merged two at a time where a tile holds 128), and
@@ -72,7 +72,11 @@
 //   (K5, K8; K11 takes a block an item), each taking one work item (b, h,
 //   128 rows) a round, the later query tiles over every (b, h) first, in a
 //   snake order; q is double-buffered, so the next item's q and first tiles
-//   load while this item ends.
+//   load while this item ends. D = 96 (Phi-3-mini) takes D = 128's tiles
+//   (flash_tiles.cuh:padded): q, k and v come as two boxes of 64 columns, the
+//   second zero past column 96; q k^T takes only the 6 nonzero steps of 16
+//   columns, and P v is an m64n96k16 product (hopper.cuh:wgmma_rs_n96)
+//   into 96 columns of accumulators.
 // - fp32 (the exactness check): scalar FMAs from shared-memory tiles, 16 x 16
 //   threads with 4 x 4 scores each, 64-row blocks.
 //
@@ -103,9 +107,10 @@ namespace f32 {
 constexpr int NT = 256;      // 16 x 16 threads, 4 x 4 scores each
 constexpr int LDT = BQ + 4;  // stride of the transposed [D][rows] tiles
 
-// shared memory, floats: Q^T, K^T (reused for the probabilities), V
+// shared memory, floats: Q^T, K^T (reused for the probabilities), V at the
+// padded width DP (whole groups of 64 columns, zeros past D)
 template <int D>
-constexpr size_t smem() { return (2 * D * LDT + BKV * D) * sizeof(float); }
+constexpr size_t smem() { return (2 * D * LDT + BKV * flash::padded(D)) * sizeof(float); }
 
 template <int D, int M>
 __global__ void __launch_bounds__(NT) fwd_kernel(
@@ -113,11 +118,11 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
     const int* __restrict__ qv, const int* __restrict__ kv, const int* __restrict__ qr,
     const int* __restrict__ kr, float* __restrict__ o, float* __restrict__ lse, int H, int G,
     int Tq, int Tkv, float scale, int causal, int window) {
-  constexpr int NC = D / 64;  // column groups of 64 per thread
+  constexpr int DP = flash::padded(D), NC = DP / 64;  // column groups of 64 per thread
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);  // [D][LDT]
   float* sK = sQ + D * LDT;                      // [D][LDT]; then probabilities [BKV][LDT]
-  float* sV = sK + D * LDT;                      // [BKV][D]
+  float* sV = sK + D * LDT;                      // [BKV][DP], zeros past column D
   __shared__ int sKs[M != PLAIN ? BKV : 1];      // the key tile's ids or positions
 
   const Mask mask = flash::mask_of<M>(Tq, Tkv, causal, window);
@@ -151,15 +156,15 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
     const int j0 = kt * BKV;
     if (!pr.active(i0, j0)) continue;  // the same for the whole block
     __syncthreads();  // the previous tile is no longer read
-    for (int idx = tid; idx < BKV * D; idx += NT) {
-      const int r = idx / D, d = idx % D, j = j0 + r;
+    for (int idx = tid; idx < BKV * DP; idx += NT) {
+      const int r = idx / DP, d = idx % DP, j = j0 + r;
       float a = 0.f, c = 0.f;
-      if (j < Tkv) {
+      if (j < Tkv && d < D) {
         a = k[koff + j * rk + d];
         c = v[koff + j * rk + d];
       }
-      sK[d * LDT + r] = a;
-      sV[r * D + d] = c;
+      if (d < D) sK[d * LDT + r] = a;
+      sV[r * DP + d] = c;
     }
     flash::stage_kids<M>(sKs, pr, j0);
     __syncthreads();
@@ -228,7 +233,7 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
       const float pa[4] = {pp.x, pp.y, pp.z, pp.w};
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        const float4 vv = *reinterpret_cast<const float4*>(&sV[j * D + 64 * c + 4 * tx]);
+        const float4 vv = *reinterpret_cast<const float4*>(&sV[j * DP + 64 * c + 4 * tx]);
         const float va[4] = {vv.x, vv.y, vv.z, vv.w};
 #pragma unroll
         for (int ii = 0; ii < 4; ++ii)
@@ -249,9 +254,11 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
     const float inv = dead ? 0.f : 1.f / lv;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
+      if (64 * c + 4 * tx < D) {  // the padded columns are not written
 #pragma unroll
-      for (int dd = 0; dd < 4; ++dd)
-        o[qoff + i * rq + 64 * c + 4 * tx + dd] = acc[ii][4 * c + dd] * inv;
+        for (int dd = 0; dd < 4; ++dd)
+          o[qoff + i * rq + 64 * c + 4 * tx + dd] = acc[ii][4 * c + dd] * inv;
+      }
     if (tx == 0) lse[((long long)b * H + h) * Tq + i] = dead ? NEG : m[ii] + logf(lv);
   }
 }
@@ -276,16 +283,17 @@ constexpr int CONSUMER_REGS = 224;    // 128 x 56 + 256 x 224 <= 384 x 168 at la
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared memory, in bytes from a 1024-aligned base: two q buffers (one
-// box of 64 rows x 64 columns per warpgroup and 64 columns of D), so that
+// box of 64 rows x 64 columns per warpgroup and 64 columns of DP), so that
 // the next work item's q loads while this one's is read; STAGES stages of k
-// and v (D / 64 boxes of TK keys each); the mbarriers (q loaded[2], q
+// and v (DP / 64 boxes of TK keys each); the mbarriers (q loaded[2], q
 // free[2], full[STAGES], empty[STAGES]); the keys' ids or positions of each
 // stage; and each stage's tile: its index (-1: the item has no more tiles)
 // and which warpgroups need the element mask there (bit w).
 template <int D>
 struct Layout {
-  static constexpr int TK = D == 64 ? 128 : 64;  // keys a tile, as the registers allow
-  static constexpr int NB = D / 64;              // boxes a row
+  static constexpr int DP = flash::padded(D);     // columns of a row in shared memory
+  static constexpr int TK = DP == 64 ? 128 : 64;  // keys a tile, as the registers allow
+  static constexpr int NB = DP / 64;              // boxes a row
   static constexpr uint32_t QBOX = 64 * hopper::BOX_ROW_BYTES;
   static constexpr uint32_t KBOX = TK * hopper::BOX_ROW_BYTES;
   static constexpr uint32_t QBUF = WGS * NB * QBOX;
@@ -650,27 +658,24 @@ int fwd_entry(int dtype, void* q, void* k, void* v, void* qv, void* kv, void* qr
   if (!flash::valid_shape(B, H, G, Tq, Tkv, head_dim, window) || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    const void* bf[] = {q, k, v, o};
-    if (!flash::aligned16(bf, 4)) return (int)cudaErrorMisalignedAddress;
-    return head_dim == 64 ? wg::launch<64, M>(q, k, v, qv, kv, qr, kr, o, lse, B, H, G, Tq, Tkv,
-                                              scale, causal, window, s)
-                          : wg::launch<128, M>(q, k, v, qv, kv, qr, kr, o, lse, B, H, G, Tq,
-                                               Tkv, scale, causal, window, s);
-  }
+  const void* bf[] = {q, k, v, o};
+  if (dtype == 1 && !flash::aligned16(bf, 4)) return (int)cudaErrorMisalignedAddress;
   void* args[] = {&q,  &k, &v,  &qv,  &kv,    &qr,     &kr,    &o,
                   &lse, &H, &G, &Tq, &Tkv, &scale, &causal, &window};
   const int n_q = (Tq + BQ - 1) / BQ;
-  return head_dim == 64
-             ? flash::launch(f32::fwd_kernel<64, M>, f32::smem<64>(), f32::NT, n_q, H, B, s, args)
-             : flash::launch(f32::fwd_kernel<128, M>, f32::smem<128>(), f32::NT, n_q, H, B, s,
-                             args);
+  return flash::with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (dtype == 1)
+      return wg::launch<D, M>(q, k, v, qv, kv, qr, kr, o, lse, B, H, G, Tq, Tkv, scale, causal,
+                              window, s);
+    return flash::launch(f32::fwd_kernel<D, M>, f32::smem<D>(), f32::NT, n_q, H, B, s, args);
+  });
 }
 
 }  // namespace
 
 // K5. dtype: 0 = float32, 1 = bfloat16 (every tensor 16-byte aligned).
-// head_dim 64 or 128; causal 0/1; window 0 = none. o [B, T, H, D] in the
+// head_dim 64, 96 or 128; causal 0/1; window 0 = none. o [B, T, H, D] in the
 // input dtype, lse [B, H, T] fp32. Returns a cudaError_t.
 extern "C" int flash_fwd(int dtype, void* q, void* k, void* v, void* o, void* lse, int B, int H,
                          int G, int Tn, int head_dim, float scale, int causal, int window,

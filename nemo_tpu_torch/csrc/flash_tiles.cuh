@@ -17,6 +17,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mma_bf16.cuh"
 
 namespace flash {
@@ -24,6 +26,14 @@ namespace flash {
 constexpr int BQ = 64;
 constexpr int BKV = 64;
 constexpr float NEG = -1e30f;
+
+// The width of a head of D columns in the bf16 kernels' shared memory: whole
+// TMA boxes of 64 columns. At D = 96 (Phi-3) a row is two boxes, the second
+// box's last 32 columns zeros (TMA fills what lies past the row with zeros,
+// hopper.cuh:encode_bthd), so those kernels take D = 128's tiles; they skip
+// the zero columns of each reduction over D, and their products into D are
+// 96 columns wide.
+__host__ __device__ constexpr int padded(int D) { return (D + 63) / 64 * 64; }
 
 // The causal / sliding-window mask (window 0 = none) over Tq rows and Tkv
 // keys, row i against key i: nemo_tpu/ops/flash_attention.py:_mask_block,
@@ -313,11 +323,24 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float acc[][4], int 
 
 }  // namespace tc
 
-// head_dim in {64, 128}, B, H, G, Tq, Tkv positive, H a multiple of G,
+// head_dim in {64, 96, 128}, B, H, G, Tq, Tkv positive, H a multiple of G,
 // window >= 0
 inline bool valid_shape(int B, int H, int G, int Tq, int Tkv, int head_dim, int window) {
-  return (head_dim == 64 || head_dim == 128) && B > 0 && H > 0 && G > 0 && Tq > 0 &&
-         Tkv > 0 && H % G == 0 && window >= 0;
+  return (head_dim == 64 || head_dim == 96 || head_dim == 128) && B > 0 && H > 0 && G > 0 &&
+         Tq > 0 && Tkv > 0 && H % G == 0 && window >= 0;
+}
+
+// f(std::integral_constant<int, D>{}) for head_dim D in {64, 96, 128}: each
+// head dim goes to its own instance of a kernel, and any other is refused
+// (cudaErrorInvalidValue)
+template <typename F>
+int with_head_dim(int head_dim, F&& f) {
+  switch (head_dim) {
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 96: return f(std::integral_constant<int, 96>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 inline bool aligned16(const void* const* ptrs, int n) {

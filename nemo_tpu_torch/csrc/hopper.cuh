@@ -10,7 +10,9 @@
 // the swizzle span) by R rows to R x 128 bytes at a 1024-byte-aligned
 // address; the 16-byte chunk c of row r lands at chunk c ^ (r % 8), so 8 rows
 // make one 1024-byte swizzle atom. A tile 128 columns wide (head dim 128) is
-// two such boxes, one after the other.
+// two such boxes, one after the other; a head of 96 columns too, the second
+// box zero past column 96 (flash_tiles.cuh:padded), whose products into the
+// head take m64n96k16 (wgmma_rs_n96).
 //
 // wgmma reads a tile through a 64-bit descriptor: the start address >> 4
 // (bits 0-13), the leading byte offset >> 4 (16-29), the stride byte offset
@@ -69,9 +71,12 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor [B, T, heads, D] (contiguous, 16-byte aligned) as a rank-4
-// map whose box is 64 columns of one head by `rows` rows of one batch row, in
-// the 128-byte swizzle; rows past T read as zeros. Returns a cudaError_t.
+// A bf16 tensor [B, T, heads, D] (contiguous, 16-byte aligned, D a multiple
+// of 8) as a rank-4 map whose box is 64 columns of one head by `rows` rows of
+// one batch row, in the 128-byte swizzle; rows past T, and columns past D
+// (the second box of a 96-column head), read as zeros, and a box's bytes on
+// its mbarrier are the whole box's, those zeros included. Returns a
+// cudaError_t.
 inline int encode_bthd(CUtensorMap* map, const void* ptr, int B, int T, int heads, int D,
                        int rows) {
   const EncodeTiled fn = encode_tiled();
@@ -440,6 +445,34 @@ __device__ __forceinline__ void wgmma_rs_n64(
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
 }
 
+// N = 96 (the dh-96 flash kernels' products into dh): with B MN-major in
+// the 128-byte swizzle, the first box's 64 columns and the second's first 32
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n96(
+    float (&d)[12][4], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, %54;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
+}
+
 template <int TB>
 __device__ __forceinline__ void wgmma_rs_n128(
     float (&d)[16][4], const uint32_t (&a)[4], uint64_t b, int scale_d) {
@@ -483,8 +516,9 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 8][4], uint64_t a, uint6
 template <int N, int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&a)[4], uint64_t b,
                                          int scale_d) {
-  static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
+  static_assert(N == 64 || N == 96 || N == 128, "wgmma_rs: N is 64, 96 or 128");
   if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, b, scale_d);
+  else if constexpr (N == 96) wgmma_rs_n96<TB>(d, a, b, scale_d);
   else wgmma_rs_n128<TB>(d, a, b, scale_d);
 }
 
@@ -519,7 +553,8 @@ __device__ __forceinline__ void product_rs_k(float (&d)[N / 8][4], const uint32_
 
 // d[64 x N] += A B: A [64][K] as register A fragments (K / 16 steps of 16
 // columns) and B [K][N] at b_at, MN-major (the transposed-B bit): N / 64
-// boxes of K rows, step kk of 16 rows 2048 bytes further (o += p v).
+// boxes of K rows (N = 96: the second box's first 32 columns), step kk of
+// 16 rows 2048 bytes further (o += p v).
 template <int N, int K>
 __device__ __forceinline__ void product_rs(float (&d)[N / 8][4], const uint32_t (&a)[K / 16][4],
                                            uint32_t b_at) {

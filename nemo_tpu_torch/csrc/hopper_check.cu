@@ -1,11 +1,12 @@
 // Unit check of csrc/hopper.cuh on the card, before any attention code: one
 // warpgroup loads a bf16 tile a [64][64] and a tile b by TMA (rank-4 maps,
 // 128-byte swizzle, one mbarrier) and computes c [64][N] = a b' in fp32 with
-// four wgmma m64nNk16 steps, N = 32, 64, 128 or 256:
+// four wgmma m64nNk16 steps, N = 32, 64, 96, 128 or 256:
 //
 //   tb = 0: b [N][64], K-major (as k for s = q k^T): c = a b^T
 //   tb = 1: b [64][N], MN-major (as v for o += p v, w2 in fused_subsampling.cu):
-//           c = a b, N / 64 boxes
+//           c = a b, ceil(N / 64) boxes (N = 96: the second box zero past
+//           column 96, as v of a dh-96 head in flash_fwd.cu)
 //   tb = 2: b [N][64], K-major, written by the threads with no swizzle
 //           (hopper.cuh:desc_plain, as w1 in fused_subsampling.cu): c = a b^T
 //
@@ -30,6 +31,12 @@ using hopper::desc_sw128;
 
 constexpr uint32_t ABYTES = 64 * hopper::BOX_ROW_BYTES;  // one box of 64 rows
 
+// b's bytes in shared memory: N rows of a box, or (MN-major) whole boxes of 64 rows
+template <int N, int TB>
+__host__ __device__ constexpr uint32_t b_bytes() {
+  return TB == 1 ? (N + 63) / 64 * ABYTES : N * hopper::BOX_ROW_BYTES;
+}
+
 template <int N, int TB, int AREG>
 __global__ void __launch_bounds__(128) check_kernel(const __grid_constant__ CUtensorMap ta,
                                                     const __grid_constant__ CUtensorMap tb,
@@ -39,7 +46,7 @@ __global__ void __launch_bounds__(128) check_kernel(const __grid_constant__ CUte
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
   const uint32_t sa = (raw + ATOM - 1) & ~(ATOM - 1), sb = sa + ABYTES;
-  const uint32_t bar = sb + N * hopper::BOX_ROW_BYTES;
+  const uint32_t bar = sb + b_bytes<N, TB>();
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   if (tid == 0) {
     hopper::mbar_init(bar, 1);
@@ -48,12 +55,12 @@ __global__ void __launch_bounds__(128) check_kernel(const __grid_constant__ CUte
   __syncthreads();
   constexpr bool A_TMA = AREG < 2, B_TMA = TB < 2;
   if (tid == 0) {
-    hopper::mbar_arrive_tx(bar, (A_TMA ? ABYTES : 0) + (B_TMA ? N * hopper::BOX_ROW_BYTES : 0));
+    hopper::mbar_arrive_tx(bar, (A_TMA ? ABYTES : 0) + (B_TMA ? b_bytes<N, TB>() : 0));
     if (A_TMA) hopper::tma_load_4d(sa, &ta, bar, 0, 0, 0, 0);
     if (TB == 0) {
       hopper::tma_load_4d(sb, &tb, bar, 0, 0, 0, 0);  // N rows of 64
     } else if (TB == 1) {
-      for (int j = 0; j < N / 64; ++j)  // 64 rows of N: N / 64 boxes
+      for (int j = 0; j < (N + 63) / 64; ++j)  // 64 rows of N: ceil(N / 64) boxes
         hopper::tma_load_4d(sb + j * ABYTES, &tb, bar, 64 * j, 0, 0, 0);
     }
   }
@@ -119,7 +126,7 @@ int run(const void* a, const void* b, void* c, cudaStream_t s) {
     err = TB != 1 ? hopper::encode_bthd(&mb, b, 1, N, 1, 64, N < 256 ? N : 256)
                   : hopper::encode_bthd(&mb, b, 1, 64, 1, N, 64);
   if (err != 0) return err;
-  const size_t smem = ABYTES + N * hopper::BOX_ROW_BYTES + 8 + ATOM;
+  const size_t smem = ABYTES + b_bytes<N, TB>() + 8 + ATOM;
   auto kernel = check_kernel<N, TB, AREG>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -135,8 +142,9 @@ int run(const void* a, const void* b, void* c, cudaStream_t s) {
 // fp32; every pointer 16-byte aligned. n 64 or 128 with tb 0 or 1 and areg 0
 // (a by TMA), 1 (a in registers) or 2 (a written by the threads, swizzled);
 // and the forms of fused_subsampling.cu, a written by the threads with no
-// swizzle (areg 3): n 128 or 256 with tb 1, n 32 with tb 2; and n 256, tb 1,
-// areg 0. Returns a cudaError_t.
+// swizzle (areg 3): n 128 or 256 with tb 1, n 32 with tb 2; n 256, tb 1,
+// areg 0; and the dh-96 flash kernels' products into dh, n 96, tb 1, areg 1.
+// Returns a cudaError_t.
 extern "C" int hopper_check(int n, int tb, int areg, const void* a, const void* b, void* c,
                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -160,5 +168,6 @@ extern "C" int hopper_check(int n, int tb, int areg, const void* a, const void* 
   if (n == 256 && tb == 1 && areg == 3) return run<256, 1, 3>(a, b, c, s);
   if (n == 128 && tb == 1 && areg == 3) return run<128, 1, 3>(a, b, c, s);
   if (n == 32 && tb == 2 && areg == 3) return run<32, 2, 3>(a, b, c, s);
+  if (n == 96 && tb == 1 && areg == 1) return run<96, 1, 1>(a, b, c, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -110,9 +110,10 @@ def check(err: int, what: str) -> None:
 
 A_SOURCES = ("tma", "registers", "threads", "plain")  # hopper_check's areg 0, 1, 2, 3
 # the (N, b layout, a source) forms hopper_check takes besides N 64 and 128 with a
-# by TMA, registers or threads and b K- or MN-major by TMA: fused_subsampling.cu's
+# by TMA, registers or threads and b K- or MN-major by TMA: fused_subsampling.cu's,
+# and the dh-96 flash kernels' products into dh (N 96, b MN-major, a in registers)
 PLAIN_FORMS = ((256, "mn", "tma"), (256, "mn", "plain"), (128, "mn", "plain"),
-               (32, "k_plain", "plain"))
+               (32, "k_plain", "plain"), (96, "mn", "registers"))
 
 
 def wgmma_tile_product(a, b, b_mn_major: bool, a_source: str, b_plain: bool = False):

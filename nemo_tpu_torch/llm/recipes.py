@@ -5,8 +5,9 @@ nemo_tpu/llm/recipes.py), for one card.
     module, metrics = fr.run(params, data, max_steps=20)
 
 `Recipe` holds a pretraining recipe's fields without the JAX one's mesh;
-only `tiny_test` and `llama32_1b` are registered, with the JAX package's
-values (recipes.py:269-272, 311-312). `finetune_recipe` derives the SFT
+only `tiny_test`, `llama32_1b`, `phi3_mini_4k` and `phi3_mini_4k_instruct`
+are registered, with the JAX package's values (recipes.py:269-272, 311-312,
+283-285 and 438-439, 685-687). `finetune_recipe` derives the SFT
 recipe from one: sequence length at most 2048, a global batch of at most
 128, lr 5e-6 (full-parameter SFT) on CosineAnnealing with 50 warmup steps,
 packed data. Its LoRA, DoRA and canonical-LoRA schemes (the JAX default is
@@ -58,6 +59,17 @@ def tiny_test(**kw) -> Recipe:
 def llama32_1b(**kw) -> Recipe:
     return Recipe("llama32_1b", C.llama32_1b(seq_length=8192, attention_backend="flash"), 512, 1,
                   lr=4e-4, **kw)
+
+
+@register
+def phi3_mini_4k(**kw) -> Recipe:
+    """JAX's `_small` recipe: micro batch 1, the default lr and schedule."""
+    return Recipe("phi3_mini_4k", C.phi3_mini_4k(attention_backend="flash"), 256, 1, **kw)
+
+
+@register
+def phi3_mini_4k_instruct(**kw) -> Recipe:
+    return dataclasses.replace(RECIPES["phi3_mini_4k"](**kw), name="phi3_mini_4k_instruct")
 
 
 @dataclasses.dataclass

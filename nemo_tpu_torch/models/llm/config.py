@@ -1,6 +1,6 @@
-"""GPT model config and the presets this slice runs (a copy of
-nemo_tpu/models/llm/config.py:16-190 with `tiny_test` and `llama32_1b`,
-without JAX).
+"""GPT model config and the presets the port runs (a copy of
+nemo_tpu/models/llm/config.py:16-190 with `tiny_test`, `llama32_1b` and
+`phi3_mini_4k` (config.py:227), without JAX).
 
 The fields and their defaults are the JAX package's, so that a config means
 the same model in both packages (tests/test_torch_gpt.py holds them equal).
@@ -200,3 +200,9 @@ def tiny_test(**kw) -> GPTConfig:
 
 def llama32_1b(**kw) -> GPTConfig:
     return _preset(dict(num_layers=16, hidden_size=2048, ffn_hidden_size=8192, num_attention_heads=32, num_query_groups=8, vocab_size=128256, seq_length=131072, rotary_base=500000.0, rope_scaling='llama3', rope_scaling_factor=32.0, share_embeddings_and_output_weights=True), kw)
+
+
+def phi3_mini_4k(**kw) -> GPTConfig:
+    """reference: gpt/model/phi3.py Phi3ConfigMini (microsoft/Phi-3-mini-4k):
+    32 heads of dh 96, no query groups, an untied head."""
+    return _preset(dict(num_layers=32, hidden_size=3072, ffn_hidden_size=8192, num_attention_heads=32, vocab_size=32064, seq_length=4096, rotary_base=10000.0), kw)

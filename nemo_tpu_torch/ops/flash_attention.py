@@ -23,7 +23,7 @@ results.
 **Causal GQA form.** `flash_attention(q, k, v, scale, causal, window)` is the
 counterpart of the same JAX function as nemo_tpu/models/llm/gpt.py:642 calls
 it: q [B, H, T, dh], k and v [B, G, T, dh] (head h reads kv head h*G/H), a
-causal and an optional sliding-window mask, dh 64 or 128. It is
+causal and an optional sliding-window mask, dh 64, 96 (Phi-3-mini) or 128. It is
 differentiable (`FlashAttention`): the forward is K5 (`csrc/flash_fwd.cu`),
 the backward K6 (dq) and K7 (dk, dv summed over each group's heads;
 `csrc/flash_bwd.cu`); CPU tensors take `flash_attention_plain` and
@@ -452,14 +452,14 @@ def flash_attention_backward_plain(
 def _flash_check(what: str, q, k, v, window, same_length: bool = True) -> None:
     """What the kernels take: fp32 or bf16; q [B, H, T, dh] and k, v
     [B, G, T, dh] (any Tkv with `same_length` False) on one device, G
-    dividing H, dh 64 or 128, window >= 1."""
+    dividing H, dh 64, 96 or 128, window >= 1."""
     if q.dtype not in _DTYPES:
         raise ValueError(f"{what}: dtype {q.dtype} not supported")
     if q.dim() != 4:
         raise ValueError(f"{what}: q must be [B, H, T, dh]")
     B, H, T, dh = q.shape
-    if dh not in (64, 128):
-        raise ValueError(f"{what}: head dim {dh} not in (64, 128)")
+    if dh not in (64, 96, 128):
+        raise ValueError(f"{what}: head dim {dh} not in (64, 96, 128)")
     Tk = T if same_length else "Tkv"
     if (k.dim() != 4 or (k.shape[0], k.shape[3]) != (B, dh) or H % k.shape[1]
             or (same_length and k.shape[2] != T)):
@@ -527,7 +527,7 @@ def flash_attention(
     counterpart of nemo_tpu/ops/flash_attention.py:flash_attention (430).
 
     CPU tensors take the plain version; CUDA tensors launch K5 (fp32, or bf16
-    at 16-byte aligned addresses; dh 64 or 128) or raise. The kernel reads
+    at 16-byte aligned addresses; dh 64, 96 or 128) or raise. The kernel reads
     q/k/v in the [B, T, heads, dh] layout (a view of the Linear outputs needs
     no copy) and writes o in that layout too. With `q_offset` != 0 (the
     queries placed after a prefix of keys: q [B, H, Tq, dh] against k, v
@@ -777,7 +777,7 @@ def flash_attention_packed(
     (and the causal and window masks allow it); a padding row gives 0.
 
     CPU tensors take the plain version; CUDA tensors launch K8 (fp32, or bf16
-    at 16-byte aligned addresses; dh 64 or 128) or raise. Layouts as
+    at 16-byte aligned addresses; dh 64, 96 or 128) or raise. Layouts as
     `flash_attention`."""
     o, _ = FlashAttentionPacked.apply(q, k, v, segments, float(scale), bool(causal), window,
                                       ranges)
@@ -987,7 +987,7 @@ def flash_attention_positions(
     lse is [B, H, Tq, 1]. A row that keeps no key gets o = 0 and lse = -1e30.
 
     CPU tensors take the plain version; CUDA tensors launch K11 (fp32, or
-    bf16 at 16-byte aligned addresses; dh 64 or 128; Tq and Tkv multiples of
+    bf16 at 16-byte aligned addresses; dh 64, 96 or 128; Tq and Tkv multiples of
     64) or raise. Layouts as `flash_attention`."""
     o, lse = FlashAttentionPositions.apply(q, k, v, qpos, kpos, float(scale), bool(causal),
                                            window)

@@ -63,12 +63,15 @@ def test_wgmma_tile_product_matches_matmul(cuda, n, b_mn_major, a_source):
 
 
 @pytest.mark.parametrize("n,b_layout,a_source", [(256, "mn", "tma"), (256, "mn", "plain"),
-                                                  (128, "mn", "plain"), (32, "k_plain", "plain")])
+                                                  (128, "mn", "plain"), (32, "k_plain", "plain"),
+                                                  (96, "mn", "registers")])
 def test_wgmma_plain_tile_forms_match_matmul(cuda, n, b_layout, a_source):
     """The wgmma forms of the bf16 fused subsampling (K2): m64n256k16 and
     m64n128k16 with b MN-major by TMA (w2) and a written by the threads with
     no swizzle (the h1 patch, hopper.cuh:desc_plain), and m64n32k16 with
-    both operands so (conv1's x patches and w1)."""
+    both operands so (conv1's x patches and w1); and the dh-96 flash
+    kernels' m64n96k16, b MN-major over two boxes (the second zero past
+    column 96) and a in registers."""
     from nemo_tpu_torch.csrc.loader import wgmma_tile_product
 
     g = torch.Generator().manual_seed(n + len(b_layout) + len(a_source))
@@ -418,7 +421,11 @@ GQA_CASES = [  # H, G, T, dh, causal, window
     (4, 1, 2047, 64, True, None), (4, 2, 2049, 128, False, None),
     # a multiple of 64 that is not one of 128: the bf16 dk/dv's last 128-key block
     # ends 64 keys past T
-    (4, 2, 1984, 64, True, None)]
+    (4, 2, 1984, 64, True, None),
+    # dh 96 (Phi-3-mini), in dh 128's tiles with a zero tail: G = H, G < H with a
+    # window, less than a tile, one row past a multiple of 128 and not causal
+    (4, 4, 256, 96, True, None), (4, 2, 200, 96, True, 48), (8, 2, 17, 96, True, None),
+    (4, 1, 2049, 96, False, None)]
 
 
 @pytest.mark.parametrize("dtype,tol,gtol,ntol", [(torch.float32, 2e-5, 1e-4, 1e-5),
@@ -428,7 +435,7 @@ def test_flash_kernels_match_plain(cuda, dtype, tol, gtol, H, G, T, dh, causal, 
     """K5 against the plain forward (o within tol, and row by row; lse
     within 1e-4), and K6, K7 against the plain backward, each gradient within
     gtol of each row's max-abs value and within ntol in relative norm: at
-    G < H and G = H, dh 64 and 128, with and without a window, causal or
+    G < H and G = H, dh 64, 96 and 128, with and without a window, causal or
     not, and T not a multiple of the 64-row tile."""
     B, scale = 2, 1.0 / math.sqrt(dh)
     g = torch.Generator().manual_seed(T + dh)
@@ -458,7 +465,7 @@ def test_flash_kernels_match_plain(cuda, dtype, tol, gtol, H, G, T, dh, causal, 
 
 @pytest.mark.parametrize("dtype,tol,ntol", [(torch.float32, 2e-5, 1e-5),
                                           (torch.bfloat16, 2e-2, 1e-2)])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 96, 128])
 def test_flash_forward_of_one_row_matches_plain(cuda, dtype, tol, ntol, dh):
     """K5 at T = 1 (one row in a block of 128, one key in a tile), 8 query
     heads a kv head: o and lse against the plain forward. The gradients are
@@ -545,7 +552,8 @@ def packed_segments(layout: str, T: int) -> torch.Tensor:
     return seg
 
 
-PACKED_CASES = [(32, 8, 64, None), (32, 8, 64, 512), (12, 12, 128, None)]  # H, G, dh, window
+PACKED_CASES = [(32, 8, 64, None), (32, 8, 64, 512), (12, 12, 128, None),  # H, G, dh, window
+                (32, 32, 96, None)]
 
 
 @pytest.mark.parametrize("dtype,tol,gtol,ntol", [(torch.float32, 2e-5, 1e-4, 1e-5),
@@ -708,7 +716,7 @@ def position_layout(layout: str, Tl: int):
 
 @pytest.mark.parametrize("dtype,tol,gtol,ntol", [(torch.float32, 2e-5, 1e-4, 1e-5),
                                                  (torch.bfloat16, 2e-2, 3e-2, 1e-2)])
-@pytest.mark.parametrize("H,G,dh", [(32, 8, 64), (12, 12, 128)])
+@pytest.mark.parametrize("H,G,dh", [(32, 8, 64), (12, 12, 128), (32, 32, 96)])
 @pytest.mark.parametrize("layout", ["arange", "diagonal", "off_diagonal", "window", "offset",
                                     "arange_192", "off_diagonal_192"])
 def test_positions_flash_kernels_match_plain(cuda, layout, H, G, dh, dtype, tol, gtol, ntol):

@@ -2,9 +2,9 @@
 nemo_tpu_torch/ops/flash_attention.py) against the JAX package's Pallas
 kernels, run in interpret mode as tests/test_flash_attention.py runs them.
 
-B=1, H=4, T=256, dh=64, blocks of 128, fp32: the forward (o and lse) within
-2e-5 and the backward (dq, dk, dv by `jax.vjp`) within 2e-4, for a causal
-GQA case, a windowed one and a non-causal one. The CUDA kernels are held
+B=1, H=4, T=256, dh 64 and 96 (Phi-3-mini's), blocks of 128, fp32: the
+forward (o and lse) within 2e-5 and the backward (dq, dk, dv by `jax.vjp`)
+within 2e-4, for a causal GQA case, a windowed one and a non-causal one. The CUDA kernels are held
 against the plain versions on the card by tests/test_torch_cuda_kernels.py.
 """
 
@@ -20,7 +20,11 @@ from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 from nemo_tpu.ops import flash_attention as jax_flash  # noqa: E402
 from nemo_tpu_torch.ops import flash_attention as port  # noqa: E402
 
-CASES = [(True, None, 1), (True, 64, 2), (False, None, 2)]  # causal, window, G (H = 4)
+# causal, window, G (H = 4), head dim; the dh-64 cases keep their ids
+CASES = [pytest.param(causal, window, G, dh, id=f"{causal}-{window}-{G}" + ("-dh96" if dh == 96
+                                                                          else ""))
+         for dh in (64, 96) for causal, window, G in ((True, None, 1), (True, 64, 2),
+                                                      (False, None, 2))]
 
 
 def _inputs(G, seed, B=1, H=4, T=256, dh=64):
@@ -32,10 +36,10 @@ def _inputs(G, seed, B=1, H=4, T=256, dh=64):
     return q, k, v, do
 
 
-@pytest.mark.parametrize("causal,window,G", CASES)
-def test_plain_forward_matches_pallas_interpret(causal, window, G):
-    q, k, v, _ = _inputs(G, seed=G)
-    scale = 1.0 / np.sqrt(64)
+@pytest.mark.parametrize("causal,window,G,dh", CASES)
+def test_plain_forward_matches_pallas_interpret(causal, window, G, dh):
+    q, k, v, _ = _inputs(G, seed=G, dh=dh)
+    scale = 1.0 / np.sqrt(dh)
     with pltpu.force_tpu_interpret_mode():
         o_ref, lse_ref = jax_flash._flash_forward(*(jnp.asarray(x) for x in (q, k, v)), scale,
                                                   causal, window, 128, 128, 0)
@@ -48,10 +52,10 @@ def test_plain_forward_matches_pallas_interpret(causal, window, G):
     torch.testing.assert_close(o_fn, o, atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("causal,window,G", CASES)
-def test_plain_backward_matches_pallas_interpret(causal, window, G):
-    q, k, v, do = _inputs(G, seed=10 + G)
-    scale = 1.0 / np.sqrt(64)
+@pytest.mark.parametrize("causal,window,G,dh", CASES)
+def test_plain_backward_matches_pallas_interpret(causal, window, G, dh):
+    q, k, v, do = _inputs(G, seed=10 + G, dh=dh)
+    scale = 1.0 / np.sqrt(dh)
 
     def f(q, k, v):
         return jax_flash.flash_attention(q, k, v, scale, causal, window, 128, 128, 0)
@@ -90,14 +94,19 @@ def test_backward_wrappers_take_plain_version_on_cpu():
 
 def test_cuda_wrapper_refuses_what_the_kernels_do_not_take(monkeypatch):
     """On CUDA tensors the wrapper raises where the kernels do not go (a head
-    dim of 16, a kv head count that does not divide H; with `q_offset`, a
-    query length that is not a multiple of 64). Simulated on CPU tensors by
-    taking the launch branch: the checks run before anything touches a
-    card."""
+    dim of 16 or 80, a kv head count that does not divide H; with
+    `q_offset`, a query length that is not a multiple of 64), and the checks
+    pass the head dims the kernels take (64, 96, 128). Simulated on CPU
+    tensors by taking the launch branch: the checks run before anything
+    touches a card."""
     monkeypatch.setattr(port, "_device", lambda what, t: "cuda")
-    q, k, v = (torch.zeros(1, h, 128, 16) for h in (4, 2, 2))
-    with pytest.raises(ValueError, match="head dim 16"):
-        port.flash_attention(q, k, v, 0.25)
+    for dh in (16, 80):
+        q, k, v = (torch.zeros(1, h, 128, dh) for h in (4, 2, 2))
+        with pytest.raises(ValueError, match=f"head dim {dh}"):
+            port.flash_attention(q, k, v, 0.25)
+    for dh in (64, 96, 128):
+        q, k, v = (torch.zeros(1, h, 128, dh) for h in (4, 2, 2))
+        port._flash_check("flash_attention", q, k, v, None)
     q, k, v = (torch.zeros(1, h, 128, 64) for h in (4, 3, 3))
     with pytest.raises(ValueError, match="G dividing"):
         port.flash_attention(q, k, v, 0.125)

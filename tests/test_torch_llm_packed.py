@@ -5,8 +5,9 @@ against the JAX package.
 - The plain versions of K8 (forward) and K9/K10 (backward) against the JAX
   package's Pallas kernels (`flash_attention_packed`, its `jax.vjp`) in
   interpret mode, as tests/test_flash_packed.py runs them: B=2, H=4 over
-  G=2, T=256, dh 64, blocks 128, segment layouts made as that file's
-  `_segments` makes them (2-4 documents, then a padding tail), causal with
+  G=2, T=256, dh 64 and 96 (Phi-3-mini's), blocks 128, segment layouts made
+  as that file's `_segments` makes them (2-4 documents, then a padding
+  tail), causal with
   and without a window, fp32. o (padding rows included, which must be 0),
   lse, dq, dk and dv within 1e-5.
 - A tiny Llama-style model (tied embeddings, llama3 RoPE), fp32, B=2,
@@ -71,10 +72,12 @@ def _inputs(seed, B=2, H=4, G=2, T=256, dh=64):
     return q, k, v, do, _segments(B, T, seed + 1)
 
 
-@pytest.mark.parametrize("window", [None, 64])
-def test_plain_packed_attention_matches_pallas_interpret(window):
-    q, k, v, do, seg = _inputs(seed=3 if window else 1)
-    scale = 0.125
+@pytest.mark.parametrize("window,dh", [
+    pytest.param(window, dh, id=f"{window}" + ("-dh96" if dh == 96 else ""))
+    for dh in (64, 96) for window in (None, 64)])  # the dh-64 cases keep their ids
+def test_plain_packed_attention_matches_pallas_interpret(window, dh):
+    q, k, v, do, seg = _inputs(seed=3 if window else 1, dh=dh)
+    scale = 1.0 / np.sqrt(dh)
 
     def f(q, k, v):
         return jax_flash.flash_attention_packed(q, k, v, jnp.asarray(seg), scale, True, window,
