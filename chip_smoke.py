@@ -1342,8 +1342,8 @@ def phase_llm_training(counters: dict, profile: bool, cfg=None, B_: int = LLM_B,
     norms = [float(m["grad_norm"]) for m in metrics]
     tok_s = steps * B_ * S / wall
     mfu = model_flops_per_token(cfg) * tok_s / PEAK_FLOPS[torch.bfloat16]
-    log(f"main path, LLM training: {label} bf16, flash, remat full, AdamW, B={B_} x "
-        f"S={S}, {steps} timed steps after {warmup}: {tok_s:.1f} tokens/s, "
+    log(f"main path, LLM training: {label} ({cfg.num_layers} layers) bf16, flash, remat full, "
+        f"AdamW, B={B_} x S={S}, {steps} timed steps after {warmup}: {tok_s:.1f} tokens/s, "
         f"{1e3 * wall / steps:.2f} ms/step, MFU {100 * mfu:.2f} % of 989 TFLOP/s "
         f"({model_flops_per_token(cfg):.4e} FLOPs/token), peak_mem={peak:.2f} GiB, loss "
         f"{losses[0]:.4f} (step 0) → {losses[-1]:.4f} (step {len(losses) - 1}), grad_norm "
@@ -4888,9 +4888,9 @@ def main() -> int:
         phase_phi3_exactness()
         lap("phase 38 (Phi-3-mini exactness)")
         # Phi-3-mini pretraining's model, cut to PHI3_LAYERS layers
-        phi3_launches, _ = phase_llm_training(counters, args.profile, _phi3_cfg(seq_length=PHI3_S),
-                                              PHI3_B, PHI3_S, 1, PHI3_STEPS,
-                                              f"Phi-3-mini-4k, {PHI3_LAYERS} of 32 layers")
+        phi3_launches, _ = phase_llm_training(counters, args.profile,
+                                              _phi3_cfg(seq_length=PHI3_S), PHI3_B, PHI3_S, 1,
+                                              PHI3_STEPS, MODEL_LABELS["phi3_mini_4k"])
         lap("phase 39 (Phi-3-mini training)")
         # packed SFT of Phi-3-mini: its recipe, the model cut to PHI3_LAYERS layers
         phi3_launches.update((key, n) for key, n in phase_sft(
