@@ -363,7 +363,6 @@ LLM_B, LLM_S, LLM_WARMUP, LLM_STEPS = 8, 2048, 2, 20
 # weights, gradients and AdamW moments take 32 GB where all 32 layers' take
 # 61 GB before activations), timed steps after one warm-up (training, SFT)
 PHI3_B, PHI3_S, PHI3_LAYERS, PHI3_STEPS, PHI3_SFT_STEPS = 2, 4096, 16, 10, 5
-MODEL_LABELS = {"llama32_1b": "Llama-3.2-1B", "phi3_mini_4k": "Phi-3-mini-4k"}
 # packed SFT: synthetic examples in the jsonl (the batch and steps are the LLM's)
 SFT_EXAMPLES = 2048
 SFT_MID = 6  # SFT steps timed again at the middle of the epoch, the first a warm-up
@@ -1493,6 +1492,65 @@ def check_k8_k10(what: str, q, k, v, do, seg, scale: float, window):
     return o, lse, out, [err8, grad_errs[0], max(grad_errs[1:])]
 
 
+def _repeatable(what: str, fn, first) -> None:
+    """fn() launched again gives `first` bit for bit (the backward kernels
+    sum in a fixed order and take no atomics)."""
+    again = fn()
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(first, again)]
+    log(f"{what}: a second launch gives the same bits: {same}")
+    if not all(same):
+        raise AssertionError(f"{what}: a second launch differs ({same})")
+
+
+def check_k8_k10_layouts(gen: torch.Generator, H: int, G: int, dh: int, window,
+                         sft_seg: torch.Tensor, repeat: bool = False) -> list:
+    """K8, K9 and K10 at B=2, S=2048, H heads over G at dh, fp32 then bf16,
+    on each of `packed_layout`'s three segment layouts ("sft": two rows of
+    `sft_seg`), held against their plain versions (`check_k8_k10`); with one
+    segment a row they must give K5-K7's bits and, with `repeat`, a second
+    launch of dq, dk and dv the first's. Returns the worst bf16 max abs
+    errors of K8, K9, K10."""
+    from nemo_tpu_torch.ops.flash_attention import (_k5_launch, flash_dkv, flash_dq, flash_seg_dkv,
+                                                    flash_seg_dq, row_delta)
+
+    errs, scale = [0.0, 0.0, 0.0], 1.0 / math.sqrt(dh)
+    for dtype, layout in ((d, lay) for d in (torch.float32, torch.bfloat16)
+                          for lay in ("sft", "mixed", "one")):
+        q, k, v, do = _gqa_inputs(gen, 2, H, G, LLM_S, dh, dtype)
+        seg = packed_layout(layout, LLM_S, sft_seg).cuda()
+        what = f"{str(dtype)[6:]} B=2 H={H} G={G} dh={dh} window={window} segments={layout}"
+        o, lse, out, err = check_k8_k10(what, q, k, v, do, seg, scale, window)
+        if repeat:
+            args = (q, k, v, seg, scale, True, window, lse, row_delta(o, do), do)
+            _repeatable(f"K9, K10 {what}", lambda: (flash_seg_dq(*args), *flash_seg_dkv(*args)),
+                        out)
+        if layout == "one":  # one segment a row: K5-K7's kernels step for step
+            o5, lse5 = _k5_launch(q, k, v, scale, True, window)
+            args5 = (q, k, v, scale, True, window, lse5, row_delta(o, do), do)
+            same = [torch.equal(o.transpose(1, 2), o5), torch.equal(lse, lse5)] + [
+                torch.equal(x, y) for x, y in zip(out, (flash_dq(*args5), *flash_dkv(*args5)))]
+            log(f"K8-K10 {what}: equal to K5-K7 bit for bit: {all(same)}")
+            if not all(same):
+                raise AssertionError(f"K8-K10 {what}: not K5-K7's bits ({same})")
+        if dtype == torch.bfloat16:
+            errs = [max(a, b) for a, b in zip(errs, err)]
+        del q, k, v, do, o, lse, out
+    return errs
+
+
+def dense_segment_mask(seg: torch.Tensor) -> torch.Tensor:
+    """SDPA's dense boolean mask [B, 1, S, S] for segment ids [B, S]: the
+    causal pairs of one segment; a padding row sees its own key only, since
+    SDPA gives NaN on a row that sees none."""
+    S = seg.shape[1]
+    pos = torch.arange(S, device=seg.device)
+    dense = (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0) & (
+        pos[None, None, :] <= pos[None, :, None])
+    dense |= torch.eye(S, dtype=torch.bool, device=seg.device)[None] & (seg == 0)[:, :, None]
+    return dense[:, None]
+
+
 def phase_k8_k10(gen: torch.Generator, layouts: dict):
     """K8, K9 and K10 against their plain versions at B=2, S=2048 (32 heads
     over 8 at dh 64, no window and a window of 512; 12 over 12 at dh 128) on
@@ -1514,25 +1572,9 @@ def phase_k8_k10(gen: torch.Generator, layouts: dict):
                                     ("flash_seg_dq", "flash_bwd", 871),
                                     ("flash_seg_dkv", "flash_bwd", 914))]
     errs = [0.0, 0.0, 0.0]  # K8, K9, K10: worst bf16 max abs error
-    for (H, G, dh, window), dtype, layout in (
-            (c, d, lay) for c in ((32, 8, 64, None), (32, 8, 64, 512), (12, 12, 128, None))
-            for d in (torch.float32, torch.bfloat16) for lay in ("sft", "mixed", "one")):
-        q, k, v, do = _gqa_inputs(gen, 2, H, G, LLM_S, dh, dtype)
-        seg = packed_layout(layout, LLM_S, layouts["sft"]).cuda()
-        scale = 1.0 / math.sqrt(dh)
-        what = f"{str(dtype)[6:]} B=2 H={H} G={G} dh={dh} window={window} segments={layout}"
-        o, lse, out, err = check_k8_k10(what, q, k, v, do, seg, scale, window)
-        if layout == "one":  # one segment a row: K5-K7's kernels step for step
-            o5, lse5 = _k5_launch(q, k, v, scale, True, window)
-            args5 = (q, k, v, scale, True, window, lse5, row_delta(o, do), do)
-            same = [torch.equal(o.transpose(1, 2), o5), torch.equal(lse, lse5)] + [
-                torch.equal(x, y) for x, y in zip(out, (flash_dq(*args5), *flash_dkv(*args5)))]
-            log(f"K8-K10 {what}: equal to K5-K7 bit for bit: {all(same)}")
-            if not all(same):
-                raise AssertionError(f"K8-K10 {what}: not K5-K7's bits ({same})")
-        if dtype == torch.bfloat16:
-            errs = [max(a, b) for a, b in zip(errs, err)]
-        del q, k, v, do, o, lse, out
+    for H, G, dh, window in ((32, 8, 64, None), (32, 8, 64, 512), (12, 12, 128, None)):
+        err = check_k8_k10_layouts(gen, H, G, dh, window, layouts["sft"])
+        errs = [max(a, b) for a, b in zip(errs, err)]
 
     H, G, dh, scale = 32, 8, 64, 0.125
     layouts = {name: seg.cuda() for name, seg in layouts.items()}
@@ -1543,14 +1585,7 @@ def phase_k8_k10(gen: torch.Generator, layouts: dict):
         pairs[lay_name] = H * segment_pairs(seg)
         log(f"K8-K10 batch {lay_name}: B={LLM_B} x S={LLM_S}, H={H} over G={G}, dh={dh}: "
             f"{pairs[lay_name] / causal:.4f} of the causal pairs are of one segment")
-    # SDPA's dense mask: causal pairs of one segment; a padding row sees its
-    # own key only, since SDPA gives NaN on a row that sees none
-    seg = layouts["sft"]
-    pos = torch.arange(LLM_S, device="cuda")
-    dense = (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0) & (
-        pos[None, None, :] <= pos[None, :, None])
-    dense |= torch.eye(LLM_S, dtype=torch.bool, device="cuda")[None] & (seg == 0)[:, :, None]
-    dense = dense[:, None]  # [B, 1, S, S]
+    dense = dense_segment_mask(layouts["sft"])
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, do = _gqa_inputs(gen, LLM_B, H, G, LLM_S, dh, dtype)
         fast = dtype == torch.bfloat16
@@ -1654,9 +1689,10 @@ def sft_data(path: str):
 
 def phase_sft(counters: dict, dm, batches, shape: dict, mid, mid_shape: dict,
               profile: bool, recipe: str = "llama32_1b", layers: Optional[int] = None,
-              warmup: int = LLM_WARMUP, timed: int = LLM_STEPS) -> dict:
+              warmup: int = LLM_WARMUP, timed: int = LLM_STEPS,
+              label: str = "Llama-3.2-1B") -> dict:
     """This slice's path: packed full-parameter SFT of Llama-3.2-1B (or of
-    `recipe`'s model, cut to `layers` layers where given) through
+    `recipe`'s model, named `label`, cut to `layers` layers where given) through
     finetune_recipe(...).run → llm.finetune → Trainer.fit →
     GPTTrainModule.train_step on the data module `dm`, `warmup` steps then
     `timed` timed ones, from seed-0 weights handed in as a JAX-layout tree of
@@ -1675,7 +1711,6 @@ def phase_sft(counters: dict, dm, batches, shape: dict, mid, mid_shape: dict,
     if layers is not None:
         fr = dataclasses.replace(fr, model=dataclasses.replace(fr.model, num_layers=layers))
     cfg = fr.model
-    label = MODEL_LABELS[recipe]
     log(f"SFT recipe {fr.name}: seq_length {cfg.seq_length}, lr {fr.lr:g} "
         f"CosineAnnealing (warmup {fr.warmup_steps}, max_steps {fr.max_steps}), packed "
         f"{fr.packed}; the cuts: global batch {LLM_B} where the recipe says "
@@ -4248,17 +4283,6 @@ def _phi3_cfg(**kw):
                            "attention_backend": "flash", "remat": "full", **kw})
 
 
-def _repeatable(what: str, fn, first) -> None:
-    """fn() launched again gives `first` bit for bit (the backward kernels
-    sum in a fixed order and take no atomics)."""
-    again = fn()
-    torch.cuda.synchronize()
-    same = [torch.equal(a, b) for a, b in zip(first, again)]
-    log(f"{what}: a second launch gives the same bits: {same}")
-    if not all(same):
-        raise AssertionError(f"{what}: a second launch differs ({same})")
-
-
 def _time_dh96(what: str, fns: dict, plain: dict, library: dict) -> dict:
     """Each of `fns` (kernel → its launch) and `library` (name → one PyTorch
     call) by CUDA events and by torch.profiler (`<name>_device`), `plain`
@@ -4279,15 +4303,15 @@ def phase_dh96(gen: torch.Generator, sft_seg: torch.Tensor) -> list:
     against their plain versions, fp32 and bf16, each held row by row:
     K5-K7 at Phi-3's training shape (B=2, 32 heads over 32, S=4096) and at
     B=2, 32 heads over 8, S=2048 with a window of 512; K8-K10 at B=2, S=2048,
-    32 over 32 on three segment layouts (two rows of the SFT batch
-    `sft_seg`; ids with padding inside and a row of padding; one segment a
-    row, which must give K5-K7's bits); K11-K13 at one CP rank's diagonal
-    ring step (Tl=2048, 32 over 8). Every dq, dk and dv is launched twice
-    and must repeat bit for bit, and a head dim of 80 must raise ValueError.
-    Then the bf16 times of K5-K7 at Phi-3's training shape and of K8-K10 on
-    the whole SFT batch (B=8 x 2048, 32 over 32, phase 40's shape), each
-    beside its bound, its plain version and SDPA. Returns the six kernel
-    rows (launches filled by phases 39 and 40)."""
+    32 over 32 on three segment layouts (`check_k8_k10_layouts`, "sft" from
+    the SFT batch `sft_seg`); K11-K13 at one CP rank's diagonal ring step
+    (Tl=2048, 32 over 8). Every dq, dk and dv is launched twice and must
+    repeat bit for bit, and a head dim of 80 must raise ValueError. Then the
+    bf16 times of K5-K7 at Phi-3's training shape and of K8-K10 on the whole
+    SFT batch (B=8 x 2048, 32 over 32, phase 40's shape; held against their
+    plain versions there first), each beside its bound, its plain version
+    and SDPA. Returns the six kernel rows (launches filled by phases 39 and
+    40)."""
     from nemo_tpu_torch.ops.flash_attention import (
         _k5_launch, _k8_launch, flash_attention, flash_attention_backward_plain,
         flash_attention_packed, flash_attention_packed_backward_plain,
@@ -4317,25 +4341,7 @@ def phase_dh96(gen: torch.Generator, sft_seg: torch.Tensor) -> list:
         if dtype == bf16:
             errs[:3] = [max(a, b) for a, b in zip(errs[:3], err)]
         del q, k, v, do, o, lse, out, args
-    for dtype, layout in ((d, lay) for d in (torch.float32, bf16)
-                          for lay in ("sft", "mixed", "one")):
-        q, k, v, do = _gqa_inputs(gen, 2, H, H, LLM_S, dh, dtype)
-        seg = packed_layout(layout, LLM_S, sft_seg).cuda()
-        what = f"dh 96 {str(dtype)[6:]} B=2 H={H} G={H} S={LLM_S} segments={layout}"
-        o, lse, out, err = check_k8_k10(what, q, k, v, do, seg, scale, None)
-        args = (q, k, v, seg, scale, True, None, lse, row_delta(o, do), do)
-        _repeatable(f"K9, K10 {what}", lambda: (flash_seg_dq(*args), *flash_seg_dkv(*args)), out)
-        if layout == "one":  # one segment a row: K5-K7's kernels step for step
-            o5, lse5 = _k5_launch(q, k, v, scale, True, None)
-            args5 = (q, k, v, scale, True, None, lse5, row_delta(o, do), do)
-            same = [torch.equal(o.transpose(1, 2), o5), torch.equal(lse, lse5)] + [
-                torch.equal(x, y) for x, y in zip(out, (flash_dq(*args5), *flash_dkv(*args5)))]
-            log(f"K8-K10 {what}: equal to K5-K7 bit for bit: {all(same)}")
-            if not all(same):
-                raise AssertionError(f"K8-K10 {what}: not K5-K7's bits ({same})")
-        if dtype == bf16:
-            errs[3:] = [max(a, b) for a, b in zip(errs[3:], err)]
-        del q, k, v, do, o, lse, out, args
+    errs[3:] = check_k8_k10_layouts(gen, H, H, dh, None, sft_seg, repeat=True)
     Tl = LLM_S
     qpos, kpos, window, _ = position_layouts(Tl)["diagonal"]
     for dtype in (torch.float32, bf16):
@@ -4386,19 +4392,16 @@ def phase_dh96(gen: torch.Generator, sft_seg: torch.Tensor) -> list:
         rows[i].update(max_abs_err=errs[i], ms=t[key], plain_ms=plain_ms, bound_ms=bounds[i][0],
                        bound_by=bounds[i][1], library_ms=lib_ms)
     del q, k, v, do, o, lse, args
-    # K8-K10 on the SFT run's first batch (B=8 x 2048), beside SDPA given the dense mask
+    # K8-K10 on the SFT run's first batch (B=8 x 2048), phase 40's shape: held
+    # against their plain versions, then timed beside SDPA given the dense mask
     B_, S = LLM_B, LLM_S
     q, k, v, do = _gqa_inputs(gen, B_, H, H, S, dh, bf16)
     seg, ranges = sft_seg, seg_tile_ranges(sft_seg)
-    o, lse = _k8_launch(q, k, v, seg, ranges, scale, True, None)
-    o = o.transpose(1, 2)
+    o, lse, _, err = check_k8_k10(f"dh 96 bf16 B={B_} H={H} G={H} S={S} segments=sft (the whole "
+                                  f"batch)", q, k, v, do, seg, scale, None)
+    errs[3:] = [max(a, b) for a, b in zip(errs[3:], err)]
     args = (q, k, v, seg, scale, True, None, lse, row_delta(o, do), do)
-    pos = torch.arange(S, device="cuda")
-    dense = (seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] > 0) & (
-        pos[None, None, :] <= pos[None, :, None])
-    # a padding row sees its own key only, since SDPA gives NaN on a row that sees none
-    dense |= torch.eye(S, dtype=torch.bool, device="cuda")[None] & (seg == 0)[:, :, None]
-    dense = dense[:, None]
+    dense = dense_segment_mask(seg)
     ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
         ql, kl, vl, attn_mask=dense, scale=scale)
@@ -4890,12 +4893,12 @@ def main() -> int:
         # Phi-3-mini pretraining's model, cut to PHI3_LAYERS layers
         phi3_launches, _ = phase_llm_training(counters, args.profile,
                                               _phi3_cfg(seq_length=PHI3_S), PHI3_B, PHI3_S, 1,
-                                              PHI3_STEPS, MODEL_LABELS["phi3_mini_4k"])
+                                              PHI3_STEPS, "Phi-3-mini-4k")
         lap("phase 39 (Phi-3-mini training)")
         # packed SFT of Phi-3-mini: its recipe, the model cut to PHI3_LAYERS layers
         phi3_launches.update((key, n) for key, n in phase_sft(
             counters, dm, batches, shape, None, None, args.profile, "phi3_mini_4k", PHI3_LAYERS,
-            1, PHI3_SFT_STEPS).items() if key in ("k8", "k9", "k10"))
+            1, PHI3_SFT_STEPS, "Phi-3-mini-4k").items() if key in ("k8", "k9", "k10"))
         lap("phase 40 (Phi-3-mini packed SFT)")
     for row, key in zip(dh96_rows, ("k5", "k6", "k7", "k8", "k9", "k10")):
         row["launches"] = phi3_launches[key]
